@@ -38,6 +38,7 @@ def pytest_configure(config):
         "parity: builds the live torch reference (heavy fixtures) — "
         'run the pure-JAX units alone with -m "not parity and not slow"',
     )
+    config.addinivalue_line("markers", "gpu: needs a CUDA card; skips without one")
 
 
 import pytest  # noqa: E402
