@@ -7,19 +7,22 @@ and bare parameters keep their names. A flax MultiHeadDotProductAttention
 (`query`/`key`/`value` [d, h, hd] and `out` [h, hd, d]) becomes
 `in_proj_weight` [3d, d] / `in_proj_bias` and `out_proj` (the inverse of
 tools/convert_checkpoint.py:convert_mha). A reference `.pth` reaches the port
-through tools/convert_checkpoint.py and then this function.
+through tools/convert_checkpoint.py and then this function. The train-only
+parameters (`label_enc` and the DA heads `d_img`, `proto_d`) come across like
+the others.
 """
 
 from __future__ import annotations
 
 from collections.abc import Mapping
-from typing import Dict, List, Tuple
+from typing import Dict, List
 
 import numpy as np
 import torch
 
-# train-only parameters: CDN label embedding and the DA discriminators
-TRAIN_ONLY = ("d_img", "proto_d", "label_enc")
+# created by flax only when the train forward runs, so an eval-mode init has
+# none of their parameters
+DA_HEADS = ("d_img", "proto_d")
 _MHA = {"query", "key", "value", "out"}
 
 
@@ -59,18 +62,27 @@ def _walk(node, prefix: str, out: Dict[str, torch.Tensor]):
             out[prefix + name] = _t(arr)
 
 
-def state_dict_from_flax(params) -> Tuple[Dict[str, torch.Tensor], List[str]]:
+def state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
     """datr_tpu DINO params (`{'params': tree}` or the tree, numpy or jax
-    arrays) -> (the port's state_dict, names of the skipped train-only
-    top-level parameters)."""
+    arrays) -> the port's state_dict entries they determine."""
     tree = params.get("params", params)
     sd: Dict[str, torch.Tensor] = {}
-    skipped = []
     for name, child in tree.items():
-        if name in TRAIN_ONLY:
-            skipped.append(name)
-        elif isinstance(child, Mapping):
+        if isinstance(child, Mapping):
             _walk(child, name + ".", sd)
         else:
             sd[name] = _t(child)
-    return sd, skipped
+    return sd
+
+
+def load_flax_params(model: torch.nn.Module, params) -> List[str]:
+    """Load datr_tpu params into the port's model. Everything must match,
+    except that a tree from an eval-mode init may lack the DA heads, which
+    then keep the model's own init. Returns the names so left."""
+    missing, unexpected = model.load_state_dict(state_dict_from_flax(params),
+                                                strict=False)
+    bad = [k for k in missing if k.split(".")[0] not in DA_HEADS]
+    if bad or unexpected:
+        raise KeyError(f"parameters do not match: missing {bad}, "
+                       f"unexpected {unexpected}")
+    return missing

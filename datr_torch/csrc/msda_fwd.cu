@@ -29,14 +29,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#define MSDA_MAX_LEVELS 8
-
-struct Levels {
-  int n;
-  int h[MSDA_MAX_LEVELS];
-  int w[MSDA_MAX_LEVELS];
-  int start[MSDA_MAX_LEVELS];
-};
+#include "msda_common.cuh"
 
 __device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
@@ -70,38 +63,22 @@ __global__ void __launch_bounds__(256) msda_fwd_kernel(
     float acc = 0.f;
     for (int l = 0; l < lv.n; ++l) {
       const int hl = lv.h[l], wl = lv.w[l];
-      const float fw = (float)wl, fh = (float)hl;
-      // the nudge, in f32 exactly as the plain version computes it
-      const float eps_x = __fadd_rn(1e-4f, fw * 9.5367431640625e-07f);
-      const float eps_y = __fadd_rn(1e-4f, fh * 9.5367431640625e-07f);
       const T* val_l = val_bh + (long long)lv.start[l] * row_stride;
       for (int p = 0; p < P; ++p) {
         const int k = l * P + p;
-        // __fmul_rn/__fsub_rn keep nvcc from contracting loc*W - 0.5 into
-        // an FMA, so x and y round as in the plain version; the nudge keeps
-        // the corner choice stable even where they would not
-        const float x = __fsub_rn(__fmul_rn(__ldg(loc_w + 2 * k), fw), 0.5f);
-        const float y =
-            __fsub_rn(__fmul_rn(__ldg(loc_w + 2 * k + 1), fh), 0.5f);
-        const float x0 = floorf(__fsub_rn(x, eps_x));
-        const float y0 = floorf(__fsub_rn(y, eps_y));
-        const float fx = __fsub_rn(x, x0);
-        const float fy = __fsub_rn(y, y0);
+        const Sample s =
+            msda_sample(__ldg(loc_w + 2 * k), __ldg(loc_w + 2 * k + 1), hl, wl);
         const float a = __ldg(attn_w + k);
-        // clamping keeps the int conversion defined (NaN, huge values)
-        // without changing which corners are inside the level
-        const int x0i = (int)fminf(fmaxf(x0, -2.f), fw + 1.f);
-        const int y0i = (int)fminf(fmaxf(y0, -2.f), fh + 1.f);
 #pragma unroll
         for (int dy = 0; dy < 2; ++dy) {
-          const int cy = y0i + dy;
+          const int cy = s.y0 + dy;
           if (cy < 0 || cy >= hl) continue;
-          const float wy = dy ? fy : __fsub_rn(1.f, fy);
+          const float wy = dy ? s.fy : __fsub_rn(1.f, s.fy);
 #pragma unroll
           for (int dx = 0; dx < 2; ++dx) {
-            const int cx = x0i + dx;
+            const int cx = s.x0 + dx;
             if (cx < 0 || cx >= wl) continue;
-            const float wx = dx ? fx : __fsub_rn(1.f, fx);
+            const float wx = dx ? s.fx : __fsub_rn(1.f, s.fx);
             const float wgt = __fmul_rn(__fmul_rn(wx, wy), a);
             if (live)
               acc += wgt * load_f32(val_l + ((long long)cy * wl + cx) *
@@ -121,19 +98,11 @@ extern "C" {
 int msda_fwd(const void* value, const void* loc, const void* attn, void* out,
              int B, int S, int Lq, int H, int D, int L, int P,
              const int* shapes, int value_is_bf16, int device, void* stream) {
-  if (L < 1 || L > MSDA_MAX_LEVELS) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
   Levels lv;
-  lv.n = L;
-  int start = 0;
-  for (int l = 0; l < L; ++l) {
-    lv.h[l] = shapes[2 * l];
-    lv.w[l] = shapes[2 * l + 1];
-    lv.start[l] = start;
-    start += lv.h[l] * lv.w[l];
-  }
-  if (start != S) return (int)cudaErrorInvalidValue;
+  cudaError_t err = fill_levels(&lv, shapes, L, S);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
   const long long n_warps = (long long)B * Lq * H;
   if (n_warps == 0) return (int)cudaSuccess;
   const int threads = 256;

@@ -1,23 +1,40 @@
-"""DINO detection transformer, eval forward (port of datr_tpu/models/dino.py).
+"""DINO detection transformer with domain adaptation (port of
+datr_tpu/models/dino.py).
 
-Covers the eval branch of `DINO.__call__` (dino.py:478-509): backbone ->
-input projections -> 6 deformable encoder layers -> two-stage top-k ->
-6 deformable decoder layers with iterative box refinement -> shared heads.
-f32 only; no CDN, no DA heads, no masks. Module attribute names mirror the
-flax parameter tree (`input_proj0_conv`, `enc_layer3`, `class_head`, ...).
+Eval (dino.py:478-509): backbone -> input projections -> deformable encoder
+layers -> two-stage top-k -> deformable decoder layers with iterative box
+refinement -> shared heads.
+
+Train (dino.py:511-629) takes a paired batch, first half source and second
+half target: the source pass with CDN denoising queries split off the
+outputs, the image discriminator behind gradient reversal over every level,
+class prototypes of both domains, and the target pass without DN. With
+`use_remat` each encoder and decoder layer is recomputed in the backward
+(torch.utils.checkpoint). f32 only; no masks, no self-training outputs yet.
+Module attribute names mirror the flax parameter tree (`input_proj0_conv`,
+`enc_layer3`, `class_head`, `d_img`, ...).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..utils.misc import inverse_sigmoid, sine_embed_for_position
+from .cdn import (
+    CdnDraws,
+    build_cdn_queries,
+    cdn_layout,
+    cdn_self_attn_mask,
+    draw_cdn_noise,
+)
+from .da import ImageDiscriminator, class_prototypes, grad_reverse
 from .layers import MLP, MSDeformAttn
 from .position_encoding import position_embedding_sine_hw
 from .resnet import FrozenBatchNorm, ResNet
@@ -61,10 +78,21 @@ class DINO(nn.Module):
         pe_temperature_h: float = 20.0,
         pe_temperature_w: float = 20.0,
         return_interm_indices: Tuple[int, ...] = (1, 2, 3),
+        dn_number: int = 100,
+        dn_single_pad: int = 20,
+        dn_label_noise_ratio: float = 0.5,
+        dn_box_noise_scale: float = 1.0,
+        dn_labelbook_size: Optional[int] = None,  # None: num_classes
+        use_remat: bool = False,
     ):
         super().__init__()
         C = hidden_dim
+        self.num_classes = num_classes
         self.num_queries = num_queries
+        self.dn_number, self.dn_single_pad = dn_number, dn_single_pad
+        self.dn_label_noise_ratio = dn_label_noise_ratio
+        self.dn_box_noise_scale = dn_box_noise_scale
+        self.use_remat = use_remat
         self.hidden_dim, self.num_feature_levels = C, num_feature_levels
         self.enc_layers, self.dec_layers = enc_layers, dec_layers
         self.pe_temperature_h = pe_temperature_h
@@ -101,6 +129,13 @@ class DINO(nn.Module):
         self.enc_output = nn.Linear(C, C)
         self.enc_output_norm = nn.LayerNorm(C, eps=1e-5)
         self.tgt_embed = nn.Parameter(torch.empty(num_queries, C))
+        labelbook = num_classes if dn_labelbook_size is None \
+            else dn_labelbook_size
+        self.label_enc = nn.Parameter(torch.empty(labelbook + 1, C))
+        # DA heads, registered last so the seeded init of everything before
+        # them does not depend on them
+        self.d_img = ImageDiscriminator(C)
+        self.proto_d = MLP(C, C, 1, 3)
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -108,7 +143,7 @@ class DINO(nn.Module):
         """Seeded init following the flax scheme of datr_tpu: lecun-normal
         (truncated) kernels and zero biases, unit norms, identity frozen BN,
         directional sampling offsets, zero-init box-delta last layers, class
-        bias prior 0.01, level_embed / tgt_embed ~ N(0, 1)."""
+        bias prior 0.01, level_embed / tgt_embed / label_enc ~ N(0, 1)."""
         def lecun_(w, fan_in):
             std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
             nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
@@ -140,6 +175,7 @@ class DINO(nn.Module):
         self.enc_out_class_head.bias.fill_(prior_bias)
         self.level_embed.normal_(generator=generator)
         self.tgt_embed.normal_(generator=generator)
+        self.label_enc.normal_(generator=generator)
         return self
 
     # ------------------------------------------------------------------
@@ -223,35 +259,51 @@ class DINO(nn.Module):
         init_box_proposal = _gather_rows(prop_unsig, topk_idx).sigmoid()
         return ref_unsig, tgt, init_box_proposal, topk_idx
 
+    def _layer(self, layer, *args):
+        """One encoder/decoder layer; recomputed in the backward when
+        `use_remat` (datr_tpu's nn.remat per layer, dino.py:154-156)."""
+        if self.use_remat and torch.is_grad_enabled():
+            return checkpoint(layer, *args, use_reentrant=False)
+        return layer(*args)
+
     def _transformer_pass(self, src_flat, mask_flat, pos_flat, valid_ratios,
-                          spatial_shapes):
-        """Encoder, two-stage selection and the decoder without DN
+                          spatial_shapes, dn_embed=None, dn_bbox_unsig=None,
+                          self_attn_mask=None):
+        """Encoder, two-stage selection and the decoder, with the DN queries
+        in front of the matching queries when given
         (datr_tpu/models/dino.py:335-407)."""
         B = src_flat.shape[0]
         enc_ref = encoder_reference_points(spatial_shapes, valid_ratios)
         memory = src_flat
         for i in range(self.enc_layers):
-            memory = getattr(self, f"enc_layer{i}")(
-                memory, pos_flat, enc_ref, spatial_shapes, mask_flat)
+            memory = self._layer(getattr(self, f"enc_layer{i}"), memory,
+                                 pos_flat, enc_ref, spatial_shapes, mask_flat)
 
-        ref_unsig, tgt_undetach, init_box_proposal, topk_idx = (
+        ref_unsig_undetach, tgt_undetach, init_box_proposal, topk_idx = (
             self._two_stage_select(memory, mask_flat, spatial_shapes))
-        ref = ref_unsig.sigmoid()
+        ref_unsig = ref_unsig_undetach.detach()
         x = self.tgt_embed[None].expand(B, -1, -1)
+        if dn_embed is not None:
+            x = torch.cat([dn_embed, x], 1)
+            ref_unsig = torch.cat([dn_bbox_unsig, ref_unsig], 1)
+        ref = ref_unsig.sigmoid()
         hs_list, refs_list = [], [ref]
         vr4 = torch.cat([valid_ratios, valid_ratios], -1)
         for i in range(self.dec_layers):
             ref_input = ref[:, :, None, :] * vr4[:, None, :, :]  # [B,N,L,4]
             query_pos = self.ref_point_head(sine_embed_for_position(
                 ref_input[:, :, 0, :], self.hidden_dim // 2))
-            x = getattr(self, f"dec_layer{i}")(
-                x, query_pos, memory, ref_input, spatial_shapes, mask_flat)
-            # refinement uses the un-normed output; the heads the normed one
-            ref = (self.bbox_head(x) + inverse_sigmoid(ref)).sigmoid()
-            refs_list.append(ref)
+            x = self._layer(getattr(self, f"dec_layer{i}"), x, query_pos,
+                            memory, ref_input, spatial_shapes, mask_flat,
+                            self_attn_mask)
+            # refinement uses the un-normed output; the heads the normed one.
+            # The next layer's reference is detached, the output is not.
+            new_ref = (self.bbox_head(x) + inverse_sigmoid(ref)).sigmoid()
+            refs_list.append(new_ref)
+            ref = new_ref.detach()
             hs_list.append(self.decoder_norm(x))
         return (torch.stack(hs_list), torch.stack(refs_list), tgt_undetach,
-                ref_unsig, init_box_proposal, topk_idx)
+                ref_unsig_undetach, init_box_proposal, topk_idx)
 
     def _head_outputs(self, hs, refs):
         """hs [n_dec,B,N,C] pairs with refs[:-1] (dino.py:452-458)."""
@@ -259,36 +311,137 @@ class DINO(nn.Module):
         coords = (self.bbox_head(hs) + inverse_sigmoid(refs[:-1])).sigmoid()
         return logits, coords
 
-    def forward(self, images: torch.Tensor,
-                pad_mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, images: torch.Tensor, pad_mask: torch.Tensor,
+                targets: Optional[Dict[str, torch.Tensor]] = None,
+                train: bool = False,
+                global_proto: Optional[torch.Tensor] = None,
+                amount: Optional[torch.Tensor] = None,
+                dn_generator: Optional[torch.Generator] = None,
+                dn_draws: Optional[CdnDraws] = None,
+                self_training: bool = False) -> Dict[str, torch.Tensor]:
         """images [B, H, W, 3] f32 normalized, pad_mask [B, H, W] True = pad.
 
-        Returns the eval outputs of datr_tpu's DINO (pred_*, aux_*, interm_*,
-        init_box_proposal) plus `topk_idx`, the two-stage selection."""
+        Eval (`train=False`): the eval outputs of datr_tpu's DINO (pred_*,
+        aux_*, interm_*, init_box_proposal) plus `topk_idx`, the two-stage
+        selection.
+
+        Train: a paired batch (first half source, second half target);
+        `targets` holds the source half's boxes [B/2, T, 4] cxcywh, labels
+        [B/2, T] and valid [B/2, T]; `global_proto` [K, C] and `amount` [K]
+        are the running prototype state. The CDN noise comes from
+        `dn_draws`, else from `dn_generator`. Returns datr_tpu's train
+        outputs (dn_*, pred_*, aux_*, interm_*, da_*, new_global_proto,
+        new_amount) plus `topk_idx` / `topk_idx_target`."""
         srcs, masks, poss = self._extract_features(images, pad_mask)
         src_flat, mask_flat, pos_flat, spatial_shapes = self._flatten_levels(
             srcs, masks, poss)
         valid_ratios = valid_ratios_from_mask(masks)
+        if not train:
+            hs, refs, tgt_undetach, ref_unsig, init_box_proposal, topk_idx = (
+                self._transformer_pass(src_flat, mask_flat, pos_flat,
+                                       valid_ratios, spatial_shapes))
+            logits, coords = self._head_outputs(hs, refs)
+            return {
+                "pred_logits": logits[-1],
+                "pred_boxes": coords[-1],
+                "aux_logits": logits[:-1],
+                "aux_boxes": coords[:-1],
+                "interm_logits": self.enc_out_class_head(tgt_undetach),
+                "interm_boxes": ref_unsig.sigmoid(),
+                "init_box_proposal": init_box_proposal,
+                "topk_idx": topk_idx,
+            }
+        if self_training:
+            raise NotImplementedError(
+                "datr_torch does not implement the self-training outputs")
+        return self._train_forward(srcs, src_flat, mask_flat, pos_flat,
+                                   valid_ratios, spatial_shapes, targets,
+                                   global_proto, amount, dn_generator,
+                                   dn_draws)
+
+    def _train_forward(self, srcs, src_flat, mask_flat, pos_flat,
+                       valid_ratios, spatial_shapes, targets, global_proto,
+                       amount, dn_generator, dn_draws):
+        B = src_flat.shape[0]
+        if B % 2:
+            raise ValueError("paired DA batches must have an even batch size")
+        half = B // 2
+        dev = src_flat.device
+        K, C = self.num_classes, self.hidden_dim
+        if global_proto is None:
+            global_proto = torch.zeros(K, C, device=dev)
+        if amount is None:
+            amount = torch.zeros(K, device=dev)
+
+        out: Dict[str, torch.Tensor] = {}
+        dn_embed = dn_bbox = attn_mask = cdn = None
+        pad_size = 0
+        if self.dn_number > 0:
+            groups, pad_size = cdn_layout(self.dn_number, self.dn_single_pad)
+            if dn_draws is None:
+                dn_draws = draw_cdn_noise(dn_generator, half, groups,
+                                          self.dn_single_pad, K, dev)
+            cdn = build_cdn_queries(
+                dn_draws, targets["boxes"], targets["labels"],
+                targets["valid"], self.label_enc, self.dn_number,
+                self.dn_single_pad, self.dn_label_noise_ratio,
+                self.dn_box_noise_scale)
+            attn_mask = cdn_self_attn_mask(self.num_queries,
+                                           self.dn_single_pad, groups, dev)
+            dn_embed, dn_bbox = cdn.query_label_embed, cdn.query_bbox_unsig
+
+        # ---- source pass, DN split off (dino.py:545-568)
         hs, refs, tgt_undetach, ref_unsig, init_box_proposal, topk_idx = (
-            self._transformer_pass(src_flat, mask_flat, pos_flat,
-                                   valid_ratios, spatial_shapes))
-        logits, coords = self._head_outputs(hs, refs)
-        return {
-            "pred_logits": logits[-1],
-            "pred_boxes": coords[-1],
-            "aux_logits": logits[:-1],
-            "aux_boxes": coords[:-1],
-            "interm_logits": self.enc_out_class_head(tgt_undetach),
-            "interm_boxes": ref_unsig.sigmoid(),
-            "init_box_proposal": init_box_proposal,
-            "topk_idx": topk_idx,
-        }
+            self._transformer_pass(src_flat[:half], mask_flat[:half],
+                                   pos_flat[:half], valid_ratios[:half],
+                                   spatial_shapes, dn_embed, dn_bbox,
+                                   attn_mask))
+        logits_all, coords_all = self._head_outputs(hs, refs)
+        if cdn is not None:
+            out["dn_logits"] = logits_all[:, :, :pad_size]
+            out["dn_boxes"] = coords_all[:, :, :pad_size]
+            out["dn_valid"] = cdn.dn_valid
+        logits = logits_all[:, :, pad_size:]
+        coords = coords_all[:, :, pad_size:]
+        out["pred_logits"] = logits[-1]
+        out["pred_boxes"] = coords[-1]
+        out["aux_logits"] = logits[:-1]
+        out["aux_boxes"] = coords[:-1]
+        out["interm_logits"] = self.enc_out_class_head(tgt_undetach)
+        out["interm_boxes"] = ref_unsig.sigmoid()
+        out["init_box_proposal"] = init_box_proposal
+        out["topk_idx"] = topk_idx
+
+        # ---- DA branch (dino.py:579-617)
+        # image-level discriminator over both domains, every level
+        out["da_backbone"] = torch.cat(
+            [self.d_img(grad_reverse(s)).reshape(B, -1, 1) for s in srcs], 1)
+        proto_src = class_prototypes(hs[-1][:, pad_size:],
+                                     out["pred_logits"], global_proto, amount)
+        # target pass, no DN
+        hs_t, _, _, _, _, topk_idx_t = self._transformer_pass(
+            src_flat[half:], mask_flat[half:], pos_flat[half:],
+            valid_ratios[half:], spatial_shapes)
+        proto_tgt = class_prototypes(hs_t[-1], self.class_head(hs_t[-1]),
+                                     proto_src.new_global_proto,
+                                     proto_src.new_amount)
+        protos = torch.cat([proto_src.prototypes, proto_tgt.prototypes], 0)
+        out["da_protos"] = self.proto_d(grad_reverse(protos))  # [2K, 1]
+        out["da_class_map_source"] = proto_src.valid_class_map
+        out["da_class_map_target"] = proto_tgt.valid_class_map
+        out["da_query_source"] = proto_src.prototypes
+        out["da_query_target"] = proto_tgt.prototypes
+        out["new_global_proto"] = proto_tgt.new_global_proto
+        out["new_amount"] = proto_tgt.new_amount
+        out["topk_idx_target"] = topk_idx_t
+        return out
 
 
 def build_dino_from_config(cfg, device=None, seed: int = 0) -> DINO:
-    """Config -> eval model with seeded weights, on `device` (default: the
-    CUDA card). Mirrors datr_tpu/models/dino.py:632-674 for the settings
-    the eval f32 path reads, and refuses those it does not implement."""
+    """Config -> model with seeded weights, on `device` (default: the CUDA
+    card), in eval mode. Mirrors datr_tpu/models/dino.py:632-674 for the
+    settings the f32 eval and burn-in paths read, and refuses those it does
+    not implement."""
     get = cfg.get if hasattr(cfg, "get") else lambda k, d=None: getattr(
         cfg, k, d)
     dev = resolve_device(device)
@@ -302,8 +455,9 @@ def build_dino_from_config(cfg, device=None, seed: int = 0) -> DINO:
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(f"datr_torch does not implement {bad}")
+    num_classes = get("num_classes", 91)
     model = DINO(
-        num_classes=get("num_classes", 91),
+        num_classes=num_classes,
         num_queries=get("num_queries", 900),
         hidden_dim=get("hidden_dim", 256),
         nheads=get("nheads", 8),
@@ -317,6 +471,12 @@ def build_dino_from_config(cfg, device=None, seed: int = 0) -> DINO:
         pe_temperature_h=get("pe_temperatureH", 20),
         pe_temperature_w=get("pe_temperatureW", 20),
         return_interm_indices=tuple(get("return_interm_indices", [1, 2, 3])),
+        dn_number=get("dn_number", 100) if get("use_dn", True) else 0,
+        dn_single_pad=get("dn_single_pad", 20),
+        dn_label_noise_ratio=get("dn_label_noise_ratio", 0.5),
+        dn_box_noise_scale=get("dn_box_noise_scale", 1.0),
+        dn_labelbook_size=get("dn_labelbook_size", num_classes),
+        use_remat=get("use_remat", True),
     )
     model.init_params(torch.Generator().manual_seed(seed))
     return model.to(dev).eval()

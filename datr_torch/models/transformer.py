@@ -1,5 +1,6 @@
 """Deformable transformer encoder/decoder layers (port of
-datr_tpu/models/transformer.py:26-161), eval path: no dropout, no CDN mask.
+datr_tpu/models/transformer.py:26-161): no dropout (datr_tpu's train steps
+run deterministic); the decoder's query self-attention takes the CDN mask.
 
 LayerNorms use eps 1e-5, as datr_tpu/models/norms.py:74-77 passes it.
 """
@@ -68,7 +69,8 @@ class MultiheadAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.empty(3 * d_model))
         self.out_proj = nn.Linear(d_model, d_model)
 
-    def forward(self, q, k, v):  # each [B, N, C]
+    def forward(self, q, k, v, attn_mask: Optional[torch.Tensor] = None):
+        """q, k, v [B, N, C]; attn_mask [N, N] bool, True = may attend."""
         B, N, C = q.shape
         wq, wk, wv = self.in_proj_weight.chunk(3)
         bq, bk, bv = self.in_proj_bias.chunk(3)
@@ -78,7 +80,8 @@ class MultiheadAttention(nn.Module):
                                              C // self.n_heads).transpose(1, 2)
 
         o = F.scaled_dot_product_attention(
-            heads(q, wq, bq), heads(k, wk, bk), heads(v, wv, bv))
+            heads(q, wq, bq), heads(k, wk, bk), heads(v, wv, bv),
+            attn_mask=attn_mask)
         return self.out_proj(o.transpose(1, 2).reshape(B, N, C))
 
 
@@ -123,9 +126,10 @@ class DeformableDecoderLayer(nn.Module):
         reference_points: torch.Tensor,  # [B, Nq, L, 4]
         spatial_shapes: Tuple[Tuple[int, int], ...],
         memory_padding_mask: Optional[torch.Tensor] = None,  # [B, S]
+        self_attn_mask: Optional[torch.Tensor] = None,  # [Nq, Nq] True=attend
     ):
         q = tgt + query_pos
-        tgt = self.norm2(tgt + self.self_attn(q, q, tgt))
+        tgt = self.norm2(tgt + self.self_attn(q, q, tgt, self_attn_mask))
         ca = self.cross_attn(tgt + query_pos, reference_points, memory,
                              spatial_shapes, memory_padding_mask)
         tgt = self.norm1(tgt + ca)

@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every `datr_torch/csrc/*.cu` is compiled for sm_90a by one `nvcc` call into
-one shared library with a plain C interface,
-`build/datr_torch/libdatr_torch_kernels.so`, which is loaded with ctypes.
+Every `datr_torch/csrc/*.cu` is compiled for sm_90a by its own `nvcc`
+process, all started together, and the objects are linked into one shared
+library with a plain C interface, `build/datr_torch/libdatr_torch_kernels.so`,
+which is loaded with ctypes.
 Nothing is built at import: the first CUDA call builds, and a build or load
 failure raises — there is no fallback to the plain PyTorch versions.
 """
@@ -27,9 +28,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # argtypes of every C entry point; pointers and the stream as c_void_p so
 # ctypes never truncates them to 32-bit ints
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "msda_fwd": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                   ctypes.POINTER(_I), _I, _I, _P], _I),
+    "msda_bwd": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                  ctypes.POINTER(_I), _I, _P], _I),
+    "row_gather": ([_P, _P, _P, _I, _L, _I, _I, _I, _P], _I),
+    "gather_fma": ([_P, _P, _P, _P, _I, _L, _I, _I, _I, _P], _I),
     "datr_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -53,35 +59,46 @@ def sources() -> list[Path]:
 
 
 def build(srcs=None, out_dir: Path = BUILD_DIR) -> tuple[Path, str]:
-    """Compile `srcs` (default: every csrc/*.cu) into the library with one
-    nvcc call.
+    """Compile `srcs` (default: every csrc/*.cu), one nvcc process per
+    source, all running at once, and link the objects into the library.
 
     Returns (library path, compiler log — ptxas register and spill counts).
-    Raises RuntimeError with nvcc's output when the build fails."""
-    srcs = [str(s) for s in (srcs if srcs is not None else sources())]
+    Raises RuntimeError with nvcc's output when a compile or the link
+    fails."""
+    srcs = [Path(s) for s in (srcs if srcs is not None else sources())]
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
     # the library is built in a private directory and renamed into place, so
     # concurrent builders (test workers) never see a partial file
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [Path(tmp) / f"{s.stem}.o" for s in srcs]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(o), str(s)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for s, o in zip(srcs, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [s.name for s, p in zip(srcs, procs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
         tmp_lib = Path(tmp) / LIB_NAME
         proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-o",
-             str(tmp_lib), *srcs],
+            [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp_lib),
+             *map(str, objs)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if proc.returncode != 0:
-            names = [Path(s).name for s in srcs]
-            raise RuntimeError(f"nvcc failed on {names}:\n{proc.stdout}")
+            raise RuntimeError(f"nvcc failed linking {[s.name for s in srcs]}"
+                               f":\n{proc.stdout}")
         lib_path = out_dir / LIB_NAME
         os.replace(tmp_lib, lib_path)
-    return lib_path, proc.stdout
+    return lib_path, "\n".join(logs)
 
 
 def _stale(lib_path: Path) -> bool:
     if not lib_path.exists():
         return True
     built = lib_path.stat().st_mtime
-    return any(src.stat().st_mtime > built for src in sources())
+    return any(src.stat().st_mtime > built
+               for src in [*sources(), *CSRC_DIR.glob("*.cuh")])
 
 
 def load_library():

@@ -1,4 +1,4 @@
-"""Multi-scale deformable attention (MSDA), forward.
+"""Multi-scale deformable attention (MSDA), forward and backward.
 
 Contract (datr_tpu/ops/msda.py):
   value:              [B, S, H, D]   S = sum_l(H_l * W_l)
@@ -11,14 +11,18 @@ Bilinear sampling as grid_sample(mode='bilinear', padding_mode='zeros',
 align_corners=False), with the FMA-proof corner choice of
 datr_tpu/ops/msda.py:68-84.
 
-Three functions:
+The functions:
 - `ms_deform_attn_plain`: plain PyTorch, the per-corner x per-level gather of
-  `ms_deform_attn_xla` (datr_tpu/ops/msda.py:322-366). It is the CPU path and
-  the reference the CUDA kernel is held against.
-- `msda_fwd`: the wrapper of the hand-written CUDA kernel
-  (csrc/msda_fwd.cu). It counts its launches in `msda_fwd.launches`.
+  `ms_deform_attn_xla` (datr_tpu/ops/msda.py:322-366). It is the CPU path,
+  differentiable by autograd, and the reference the forward kernel is held
+  against; `ms_deform_attn_plain_bwd` is its autograd VJP, the reference of
+  the backward kernel.
+- `msda_fwd` / `msda_bwd`: the wrappers of the hand-written CUDA kernels
+  (csrc/msda_fwd.cu, csrc/msda_bwd.cu). Each counts its launches in
+  `.launches`.
+- `MSDeformAttnFunction`: the autograd Function built from the two kernels.
 - `ms_deform_attn`: the dispatcher. CPU tensors go to the plain version, CUDA
-  tensors to the kernel, anything else raises.
+  tensors through `MSDeformAttnFunction`, anything else raises.
 """
 
 from __future__ import annotations
@@ -119,6 +123,35 @@ def ms_deform_attn_plain(value: torch.Tensor, spatial_shapes: Shapes,
 _launch_lock = threading.Lock()
 
 
+def _check_msda_inputs(name, value, spatial_shapes, loc, attn, *more):
+    """Shapes, devices, types and contiguity the kernels take; raises on
+    anything else. Returns (B, S, Lq, H, D, L, P)."""
+    B, S, H, D = value.shape
+    if loc.dim() != 6 or attn.dim() != 5:
+        raise ValueError("expected loc [B,Lq,H,L,P,2] and attn [B,Lq,H,L,P]")
+    _, Lq, _, L, P, _ = loc.shape
+    if loc.shape != (B, Lq, H, L, P, 2) or attn.shape != (B, Lq, H, L, P):
+        raise ValueError(
+            f"shape mismatch: value {tuple(value.shape)}, loc "
+            f"{tuple(loc.shape)}, attn {tuple(attn.shape)}")
+    if len(spatial_shapes) != L or sum(h * w for h, w in spatial_shapes) != S:
+        raise ValueError(f"spatial_shapes {spatial_shapes} do not match "
+                         f"L={L}, S={S}")
+    tensors = (value, loc, attn, *more)
+    if not all(t.is_cuda and t.device == value.device for t in tensors):
+        raise ValueError(f"{name} needs all inputs on one CUDA device")
+    if loc.dtype != torch.float32 or attn.dtype != torch.float32:
+        raise ValueError("loc and attn must be float32")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} needs contiguous inputs")
+    return B, S, Lq, H, D, L, P
+
+
+def _shapes_arg(spatial_shapes):
+    return (ctypes.c_int * (2 * len(spatial_shapes)))(
+        *[v for hw in spatial_shapes for v in hw])
+
+
 def msda_fwd(value: torch.Tensor, spatial_shapes: Shapes,
              sampling_locations: torch.Tensor,
              attention_weights: torch.Tensor) -> torch.Tensor:
@@ -126,39 +159,20 @@ def msda_fwd(value: torch.Tensor, spatial_shapes: Shapes,
 
     value f32 or bf16, loc and attn f32, all contiguous on one CUDA device.
     Raises on anything else, and when the kernel fails to build or launch."""
-    B, S, H, D = value.shape
-    if sampling_locations.dim() != 6 or attention_weights.dim() != 5:
-        raise ValueError("expected loc [B,Lq,H,L,P,2] and attn [B,Lq,H,L,P]")
-    _, Lq, _, L, P, _ = sampling_locations.shape
-    if (sampling_locations.shape != (B, Lq, H, L, P, 2)
-            or attention_weights.shape != (B, Lq, H, L, P)):
-        raise ValueError(
-            f"shape mismatch: value {tuple(value.shape)}, loc "
-            f"{tuple(sampling_locations.shape)}, attn "
-            f"{tuple(attention_weights.shape)}")
-    if len(spatial_shapes) != L or sum(h * w for h, w in spatial_shapes) != S:
-        raise ValueError(f"spatial_shapes {spatial_shapes} do not match "
-                         f"L={L}, S={S}")
-    tensors = (value, sampling_locations, attention_weights)
-    if not all(t.is_cuda and t.device == value.device for t in tensors):
-        raise ValueError("msda_fwd needs all inputs on one CUDA device")
+    B, S, Lq, H, D, L, P = _check_msda_inputs(
+        "msda_fwd", value, spatial_shapes, sampling_locations,
+        attention_weights)
     if value.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"value dtype {value.dtype} is not f32 or bf16")
-    if (sampling_locations.dtype != torch.float32
-            or attention_weights.dtype != torch.float32):
-        raise ValueError("loc and attn must be float32")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("msda_fwd needs contiguous inputs")
 
     lib = _build.load_library()
     out = torch.empty((B, Lq, H * D), dtype=value.dtype, device=value.device)
-    shapes = (ctypes.c_int * (2 * L))(*[v for hw in spatial_shapes for v in hw])
     stream = torch.cuda.current_stream(value.device).cuda_stream
     rc = lib.msda_fwd(
         value.data_ptr(), sampling_locations.data_ptr(),
         attention_weights.data_ptr(), out.data_ptr(),
-        B, S, Lq, H, D, L, P, shapes, int(value.dtype == torch.bfloat16),
-        value.device.index, stream)
+        B, S, Lq, H, D, L, P, _shapes_arg(spatial_shapes),
+        int(value.dtype == torch.bfloat16), value.device.index, stream)
     _build.check(lib, rc, "msda_fwd launch")
     with _launch_lock:
         msda_fwd.launches += 1
@@ -168,13 +182,87 @@ def msda_fwd(value: torch.Tensor, spatial_shapes: Shapes,
 msda_fwd.launches = 0
 
 
+def msda_bwd(value: torch.Tensor, spatial_shapes: Shapes,
+             sampling_locations: torch.Tensor, attention_weights: torch.Tensor,
+             grad_out: torch.Tensor):
+    """Launch the CUDA kernel (csrc/msda_bwd.cu) on the current stream.
+
+    All inputs f32, contiguous, on one CUDA device; grad_out [B, Lq, H*D].
+    Returns (grad_value, grad_loc, grad_attn), shaped as value, loc, attn.
+    grad_value is a sum of atomic adds, so its last bits vary from run to
+    run. Raises on other inputs, and when the kernel fails to build or
+    launch."""
+    B, S, Lq, H, D, L, P = _check_msda_inputs(
+        "msda_bwd", value, spatial_shapes, sampling_locations,
+        attention_weights, grad_out)
+    if value.dtype != torch.float32 or grad_out.dtype != torch.float32:
+        raise ValueError("msda_bwd needs float32 value and grad_out")
+    if grad_out.shape != (B, Lq, H * D):
+        raise ValueError(f"grad_out {tuple(grad_out.shape)} is not "
+                         f"{(B, Lq, H * D)}")
+
+    lib = _build.load_library()
+    grad_value = torch.zeros_like(value)
+    grad_loc = torch.empty_like(sampling_locations)
+    grad_attn = torch.empty_like(attention_weights)
+    stream = torch.cuda.current_stream(value.device).cuda_stream
+    rc = lib.msda_bwd(
+        value.data_ptr(), sampling_locations.data_ptr(),
+        attention_weights.data_ptr(), grad_out.data_ptr(),
+        grad_value.data_ptr(), grad_loc.data_ptr(), grad_attn.data_ptr(),
+        B, S, Lq, H, D, L, P, _shapes_arg(spatial_shapes),
+        value.device.index, stream)
+    _build.check(lib, rc, "msda_bwd launch")
+    with _launch_lock:
+        msda_bwd.launches += 1
+    return grad_value, grad_loc, grad_attn
+
+
+msda_bwd.launches = 0
+
+
+def ms_deform_attn_plain_bwd(value: torch.Tensor, spatial_shapes: Shapes,
+                             sampling_locations: torch.Tensor,
+                             attention_weights: torch.Tensor,
+                             grad_out: torch.Tensor):
+    """(grad_value, grad_loc, grad_attn): the VJP of `ms_deform_attn_plain`
+    by autograd, the plain version of `msda_bwd`."""
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_() for t in
+                  (value, sampling_locations, attention_weights)]
+        out = ms_deform_attn_plain(inputs[0], spatial_shapes, inputs[1],
+                                   inputs[2])
+        return torch.autograd.grad(out, inputs, grad_out)
+
+
+class MSDeformAttnFunction(torch.autograd.Function):
+    """MSDA on the card: forward by `msda_fwd`, backward by `msda_bwd`."""
+
+    @staticmethod
+    def forward(ctx, value, spatial_shapes, sampling_locations,
+                attention_weights):
+        ctx.spatial_shapes = spatial_shapes
+        ctx.save_for_backward(value, sampling_locations, attention_weights)
+        return msda_fwd(value, spatial_shapes, sampling_locations,
+                        attention_weights)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        value, loc, attn = ctx.saved_tensors
+        g_value, g_loc, g_attn = msda_bwd(value, ctx.spatial_shapes, loc,
+                                          attn, grad_out.contiguous())
+        return g_value, None, g_loc, g_attn
+
+
 def ms_deform_attn(value: torch.Tensor, spatial_shapes: Shapes,
                    sampling_locations: torch.Tensor,
                    attention_weights: torch.Tensor) -> torch.Tensor:
-    """CPU tensors -> plain version; CUDA tensors -> the kernel; else raise."""
+    """CPU tensors -> plain version (autograd differentiates it); CUDA
+    tensors -> the kernels through `MSDeformAttnFunction`; else raise."""
     shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
     if value.is_cuda:
-        return msda_fwd(value, shapes, sampling_locations, attention_weights)
+        return MSDeformAttnFunction.apply(value, shapes, sampling_locations,
+                                          attention_weights)
     if value.device.type == "cpu":
         return ms_deform_attn_plain(value, shapes, sampling_locations,
                                     attention_weights)

@@ -11,7 +11,7 @@ import torch.nn.functional as F
 from flax.traverse_util import flatten_dict, unflatten_dict
 
 from datr_torch.config import apply_overrides, load_config
-from datr_torch.convert import state_dict_from_flax
+from datr_torch.convert import load_flax_params, state_dict_from_flax
 from datr_torch.data import transforms as ttransforms
 from datr_torch.models import dino as tdino
 from datr_torch.models import layers as tlayers
@@ -53,8 +53,7 @@ def perturb(params, seed=0):
 
 
 def load(module, params):
-    sd, _ = state_dict_from_flax(params)
-    module.load_state_dict(sd, strict=True)
+    module.load_state_dict(state_dict_from_flax(params), strict=True)
     return module.eval()
 
 
@@ -240,9 +239,9 @@ def _abstract_train_params(model, hw):
 
 
 def test_convert_covers_every_parameter():
-    """Every flax eval parameter lands on exactly one port parameter of the
-    right shape; exactly the train-only d_img, proto_d, label_enc are
-    skipped."""
+    """Every flax parameter of a train-mode init, the train-only d_img,
+    proto_d and label_enc included, lands on exactly one port parameter of
+    the right shape."""
     kw = dict(num_classes=4, num_queries=12, hidden_dim=32, nheads=2,
               enc_layers=1, dec_layers=2, dim_feedforward=64)
     jm = jdino.DINO(**kw, dn_number=2, dn_single_pad=2, dn_labelbook_size=4,
@@ -251,21 +250,20 @@ def test_convert_covers_every_parameter():
     rng = np.random.default_rng(0)
     params = jax.tree_util.tree_map(
         lambda s: rng.standard_normal(s.shape).astype(np.float32), shapes)
-    sd, skipped = state_dict_from_flax(params)
-    assert sorted(skipped) == ["d_img", "label_enc", "proto_d"]
-    n_eval_leaves = sum(
+    sd = state_dict_from_flax(params)
+    assert {"d_img", "label_enc", "proto_d"} <= {k.split(".")[0] for k in sd}
+    n_leaves = sum(
         1 for k in flatten_dict(params["params"])
-        if k[0] not in skipped and not (k[-2:-1] and k[-2] in
-                                        ("query", "key", "value", "out")))
-    tm = tdino.DINO(**kw)
+        if not (k[-2:-1] and k[-2] in ("query", "key", "value", "out")))
+    tm = tdino.DINO(**kw, dn_number=2, dn_single_pad=2)
     port = tm.state_dict()
     assert set(sd) == set(port)
     for k, v in sd.items():
         assert v.shape == port[k].shape, k
     # every non-attention flax leaf maps to its own entry; each decoder
     # self-attention's 8 leaves fold into 4 entries
-    assert len(sd) == n_eval_leaves + 4 * kw["dec_layers"]
-    tm.load_state_dict(sd, strict=True)
+    assert len(sd) == n_leaves + 4 * kw["dec_layers"]
+    assert load_flax_params(tm, params) == []
 
 
 def test_config_loader_matches_datr_tpu():
@@ -312,10 +310,13 @@ def test_flagship_config_tree_matches_flax():
         jnp.zeros((1, 256, 256), bool), train=False))  # >= 900 tokens
     params = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32),
                                     shapes)
-    sd, skipped = state_dict_from_flax(params)
-    assert skipped == ["label_enc"]
+    sd = state_dict_from_flax(params)
     port = tm.state_dict()
+    # an eval-mode flax init has no DA heads; everything else matches
+    da = {k for k in port if k.split(".")[0] in ("d_img", "proto_d")}
+    assert da and set(sd) == set(port) - da
     assert {k: tuple(v.shape) for k, v in sd.items()} == {
-        k: tuple(v.shape) for k, v in port.items()}
+        k: tuple(v.shape) for k, v in port.items() if k not in da}
     n_params = sum(p.numel() for p in tm.parameters())
-    assert 4.0e7 < n_params < 5.0e7, n_params  # DINO-R50 4-scale, 9 classes
+    assert 4.0e7 < n_params < 5.0e7, n_params  # DINO-R50 4-scale, 9 classes,
+    # with the DA heads

@@ -17,7 +17,7 @@ from flax.traverse_util import flatten_dict, unflatten_dict
 from datr_torch import native as tnative
 from datr_torch import resolve_device
 from datr_torch import serve as tserve
-from datr_torch.convert import state_dict_from_flax
+from datr_torch.convert import load_flax_params
 from datr_torch.models.dino import DINO as TorchDINO
 from datr_torch.models.postprocess import postprocess as torch_postprocess
 from datr_tpu import native as jnative
@@ -55,9 +55,8 @@ def models():
     params = jm.init(jax.random.PRNGKey(0), jnp.zeros((1, *CANVAS, 3)),
                      jnp.zeros((1, *CANVAS), bool), train=False)
     params = {"params": _perturb(params["params"])}
-    sd, _ = state_dict_from_flax(params)
     tm = TorchDINO(**KW)
-    tm.load_state_dict(sd, strict=True)
+    load_flax_params(tm, params)
     return jm, params, tm.eval()
 
 
