@@ -8,16 +8,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
      build of every CUDA kernel from datr_torch/csrc (one nvcc per source,
      all at once; build time printed);
   2. msda_fwd against its plain PyTorch version at the serving shapes, in
-     f32 and bf16, plus an edge set; kernel, plain-version and bound times;
+     f32 and bf16, plus an edge set; kernel, plain-version and bound times at
+     uniform-random locations, beside the bytes the kernel requests from the
+     caches (rows gathered x row bytes) and the rate they came at;
   2b. the training slice's kernels against their plain versions:
      msda_fwd/msda_bwd at the C2F training shapes (encoder Lq 51,680,
      decoder 1,100 / 900; random, integer and outside locations, D=8);
-     kernel, plain-version and bound times;
+     kernel, plain-version and bound times at random locations, as in 2;
   3. the serving slice at full width: the flagship DINO-R50 4-scale model
      (configs/DINO/DINO_4scale.py, 9 classes, seeded random weights) behind
      InferenceServer at 800x1344, batch 2, answering uint8 requests of
-     several sizes; the kernel launch counts of that run; one batch's forward
-     through the kernels against the forward through the plain versions;
+     several sizes; the kernel launch counts of that run; msda_fwd checked
+     and timed as in 2 at the locations this model produces (one encoder and
+     one decoder call captured from a forward; keys `..._model`); one batch's
+     forward through the kernels against the forward through the plain
+     versions;
   4. the gather bench entry point (datr_torch.tools.msda_gather_bench),
      which holds row_gather (K2 shapes, K4/K5/K6 patterns; exact) and
      gather_fma (K3 shapes; one bf16 rounding) against their plain versions
@@ -26,12 +31,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
   5. the training slice at full width: the Cityscapes->Foggy burn-in config
      (configs/DA/Cityscapes2FoggyCityscapes/DINO_4scale_C2F.py, seeded
      random weights) trained by engine.train_one_epoch on synthetic paired
-     batches at 1216x2048, 4 images per step: a warm-up step, then 3 timed
-     steps (launch counts of those, s/step, peak memory); one step's losses
-     and gradients through the kernels against the same step through the
-     plain versions (discrete choices held fixed); a profile, last: its
-     trace overflows the profiler's buffers, after which the profiler
-     records no device time in this process;
+     batches at 1216x2048, 4 images per step: msda_fwd/msda_bwd checked and
+     timed as in 2b at the locations the seeded model produces (its encoder
+     and both decoder calls captured from one forward); a warm-up step, then
+     3 timed steps (launch counts of those, s/step, peak memory); one step's
+     losses and gradients through the kernels against the same step through
+     the plain versions (discrete choices held fixed: top-k, assignments,
+     prototype classes, the sign under each transformer ReLU); a profile, last: its
+     trace overflows the profiler's buffers, after which the profiler records
+     no device time in this process;
   6. the result: a {"kernels": [...]} line, the card line, and as the last
      line {"ok": true, "device": {...}}.
 Imports nothing of JAX or datr_tpu. Needs one CUDA card; fails without one.
@@ -43,6 +51,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 from unittest import mock
 
 import numpy as np
@@ -132,6 +141,19 @@ def value_rows_touched(msda, loc, shapes=SHAPES) -> int:
     return int(touched.sum().item())
 
 
+def cache_traffic(msda, loc, shapes, d=D, elt=4) -> dict:
+    """Bytes the kernels request from the caches on these locations (what
+    the device-memory bound does not see): the forward gathers one row of d
+    elements per corner inside its level; the backward gathers the same rows
+    in f32 and sends at most one reduction of d f32 per inside corner whose
+    bilinear weight is not zero (fewer where it merges the reductions of
+    consecutive queries on one row, so its rate reads high there)."""
+    _, valids, weights = msda._corners(loc, shapes)
+    inside = sum(int(v.sum()) for v in valids)
+    reduced = sum(int((v & (w != 0)).sum()) for v, w in zip(valids, weights))
+    return dict(fwd=inside * d * elt, bwd=(inside + reduced) * d * 4)
+
+
 def roofline(n_bytes, flops):
     """(bound ms, bound_by): the larger of bytes over the memory rate and
     f32 operations over the f32 rate."""
@@ -171,6 +193,112 @@ def msda_bwd_bound(msda, loc, d=D, shapes=SHAPES):
     return (*roofline(n_bytes, flops), rows)
 
 
+def time_fwd(msda, value, shapes, loc, attn, iters, p_iters) -> dict:
+    """msda_fwd per launch on these inputs beside its plain version, its
+    device-memory bound, and the bytes it requests from the caches with the
+    rate at which they were delivered."""
+    d = value.shape[-1]
+    ms = cuda_ms(lambda: msda.msda_fwd(value, shapes, loc, attn), iters)
+    plain_ms = cuda_ms(lambda: msda.ms_deform_attn_plain(
+        value, shapes, loc, attn), p_iters, warmup=1)
+    bound_ms, bound_by, rows = msda_bound(msda, loc, d=d, shapes=shapes)
+    req = cache_traffic(msda, loc, shapes, d)["fwd"]
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, value_rows_read=rows, cache_bytes=req,
+                cache_tb_s=req / ms / 1e9)
+
+
+def time_bwd(msda, value, shapes, loc, attn, g, iters, p_iters) -> dict:
+    """The same for msda_bwd (its zero-fill of grad_value included)."""
+    d = value.shape[-1]
+    ms = cuda_ms(lambda: msda.msda_bwd(value, shapes, loc, attn, g), iters)
+    plain_ms = cuda_ms(lambda: msda.ms_deform_attn_plain_bwd(
+        value, shapes, loc, attn, g), p_iters, warmup=1)
+    bound_ms, bound_by, _ = msda_bwd_bound(msda, loc, d=d, shapes=shapes)
+    req = cache_traffic(msda, loc, shapes, d)["bwd"]
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, cache_bytes=req,
+                cache_tb_s=req / ms / 1e9)
+
+
+def describe(t) -> str:
+    return (f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}, device memory); "
+            f"{t['cache_bytes'] / 1e9:.3f} GB requested from the caches = "
+            f"{t['cache_tb_s']:.2f} TB/s")
+
+
+def capture_msda_calls(msda, fn) -> dict:
+    """The inputs (value, shapes, loc, attn) of the first ms_deform_attn call
+    of each query count Lq while fn() runs without autograd: the locations
+    the model itself produces."""
+    calls = {}
+    real = msda.ms_deform_attn
+
+    def record(value, shapes, loc, attn):
+        calls.setdefault(loc.shape[1], (
+            value.detach().clone(), tuple(tuple(hw) for hw in shapes),
+            loc.detach().clone(), attn.detach().clone()))
+        return real(value, shapes, loc, attn)
+
+    with mock.patch.object(msda, "ms_deform_attn", record), torch.no_grad():
+        fn()
+    torch.cuda.synchronize()
+    return calls
+
+
+def check_model_locations(msda, calls, parts, shapes, backward) -> dict:
+    """The kernels against their plain versions, and their times, on inputs
+    captured from the model (`calls`, by Lq); `parts` names the query counts.
+    Same tolerances as at the random locations."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    max_side = max(max(hw) for hw in shapes)
+    timing = {}
+    for part, lq in parts.items():
+        value, sh, loc, attn = calls[lq]
+        assert sh == tuple(shapes) and value.dtype == torch.float32, (sh, lq)
+        assert value.shape == (B, sum(h * w for h, w in sh), H, D)
+        got = msda.msda_fwd(value, sh, loc, attn)
+        torch.cuda.synchronize()
+        want = msda.ms_deform_attn_plain(value, sh, loc, attn)
+        err = {"fwd": (got - want).abs().max().item()}
+        torch.testing.assert_close(
+            got, want, **TOL["f32"],
+            msg=lambda m: f"msda_fwd {part} at the model's locations: {m}")
+        # an encoder launch (every token a query) is timed over fewer calls
+        iters, p_iters = (10, 2) if lq == value.shape[1] else (50, 5)
+        t = dict(lq=lq)
+        f = time_fwd(msda, value, sh, loc, attn, iters, p_iters)
+        if not backward:
+            t.update(f, max_abs_err=err["fwd"])
+            log(f"  msda_fwd {part} Lq={lq} f32, the model's locations: max_"
+                f"abs_err {err['fwd']:.3g}; {describe(f)}")
+        else:
+            g = torch.randn(B, lq, H * D, device="cuda", generator=gen)
+            got = msda.msda_bwd(value, sh, loc, attn, g)
+            torch.cuda.synchronize()
+            want = msda.ms_deform_attn_plain_bwd(value, sh, loc, attn, g)
+            for name, a, b in zip(("value", "loc", "attn"), got, want):
+                err[f"grad_{name}"] = (a - b).abs().max().item()
+                # as in phase 2b: grad_loc's atol scales with the level's side
+                atol = 1e-5 * (max_side if name == "loc" else 1)
+                torch.testing.assert_close(
+                    a, b, rtol=1e-4, atol=atol, msg=lambda m: f"msda_bwd "
+                    f"{part} at the model's locations, grad_{name}: {m}")
+            del got, want
+            bw = time_bwd(msda, value, sh, loc, attn, g, iters, p_iters)
+            t["value_rows_read"] = f.pop("value_rows_read")
+            t.update({f"fwd_{k}": v for k, v in f.items()})
+            t.update({f"bwd_{k}": v for k, v in bw.items()})
+            t["max_abs_err"] = err
+            log(f"  train {part} Lq={lq} f32, the model's locations: "
+                f"max_abs_err {err}")
+            log(f"    fwd {describe(f)}")
+            log(f"    bwd {describe(bw)}")
+        timing[part] = t
+    return timing
+
+
 def check_msda(msda) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {}
@@ -196,16 +324,11 @@ def check_msda(msda) -> dict:
     timing = {}
     for part, lq in (("encoder", S), ("decoder", N_QUERIES)):
         value, loc, attn = msda_inputs(gen, lq)
-        k_ms = cuda_ms(lambda: msda.msda_fwd(value, SHAPES, loc, attn), 50)
-        p_ms = cuda_ms(lambda: msda.ms_deform_attn_plain(
-            value, SHAPES, loc, attn), 5, warmup=1)
-        bound_ms, bound_by, rows = msda_bound(msda, loc)
-        timing[part] = dict(lq=lq, ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
-                            bound_by=bound_by, value_rows_read=rows,
-                            value_rows=B * H * S)
-        log(f"  msda_fwd {part} Lq={lq} f32: kernel {k_ms:.4f} ms, plain "
-            f"{p_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
-            f"{rows} of {B * H * S} value rows read)")
+        t = time_fwd(msda, value, SHAPES, loc, attn, 50, 5)
+        timing[part] = dict(lq=lq, **t, value_rows=B * H * S)
+        log(f"  msda_fwd {part} Lq={lq} f32, random locations: "
+            f"{describe(t)}; {t['value_rows_read']} of {B * H * S} value "
+            f"rows read")
     return dict(errs=errs, timing=timing)
 
 
@@ -276,7 +399,9 @@ def check_forward_against_plain(model, batch, sizes, msda, dino_mod):
     return diffs
 
 
-def run_slice(msda, card) -> dict:
+def flagship_server():
+    """The flagship DINO-R50 4-scale model, seeded random weights, behind
+    InferenceServer at 800x1344, batch 2."""
     from datr_torch.config import load_config
     from datr_torch.models import dino as dino_mod
     from datr_torch.serve import InferenceServer
@@ -287,12 +412,25 @@ def run_slice(msda, card) -> dict:
     n_params = sum(p.numel() for p in model.parameters())
     log(f"  DINO-R50 4-scale, {n_params} parameters, on "
         f"{next(model.parameters()).device}")
-    imgs = request_images()
     # threshold 0 keeps all 300 detections of the random-weight model; the
     # long batch timeout fills each batch although submit() resizes on the
     # host first (so the smoke times no latency)
-    srv = InferenceServer(model, canvas_hw=(800, 1344), batch_size=2,
-                          score_threshold=0.0, batch_timeout_s=1.0)
+    return InferenceServer(model, canvas_hw=(800, 1344), batch_size=2,
+                           score_threshold=0.0, batch_timeout_s=1.0)
+
+
+def serving_batch(srv, imgs):
+    """One full batch (canvases, real sizes) as the server's step takes it."""
+    canv = [srv._preprocess(im) for im in imgs[:2]]
+    return (np.stack([c for c, _ in canv]),
+            np.array([hw for _, hw in canv], np.int32))
+
+
+def run_slice(msda, card) -> dict:
+    from datr_torch.models import dino as dino_mod
+
+    imgs = request_images()
+    srv = flagship_server()
     try:
         srv.warmup()
         torch.cuda.synchronize()
@@ -316,9 +454,14 @@ def run_slice(msda, card) -> dict:
             assert (r["boxes"][:, 3] <= im.shape[0]).all()
 
         # ---- device time of one full batch through the step ----
-        canv = [srv._preprocess(im) for im in imgs[:2]]
-        batch = np.stack([c for c, _ in canv])
-        sizes = np.array([hw for _, hw in canv], np.int32)
+        batch, sizes = serving_batch(srv, imgs)
+
+        # ---- msda_fwd at the locations this model produces ----
+        calls = capture_msda_calls(msda, lambda: srv._step(batch, sizes))
+        at_model = check_model_locations(
+            msda, calls, {"encoder": S, "decoder": N_QUERIES}, SHAPES,
+            backward=False)
+        del calls
         # the server runs f32 with TF32 off, the precision checked below
         assert not (torch.backends.cudnn.allow_tf32
                     or torch.backends.cuda.matmul.allow_tf32)
@@ -333,7 +476,7 @@ def run_slice(msda, card) -> dict:
         srv.close()
     return dict(launches=launches, batches=n_fwd, requests=len(results),
                 step_ms=fwd_ms, step_img_s=2e3 / fwd_ms, forward_diffs=diffs,
-                profile=prof)
+                profile=prof, model_locations=at_model)
 
 
 def _union_ms(spans) -> float:
@@ -461,23 +604,16 @@ def check_train_msda(msda) -> dict:
         g = torch.randn(B, lq, H * D, device="cuda", generator=gen)
         iters = 10 if lq == enc else 50
         p_iters = 2 if lq == enc else 5
-        f_ms = cuda_ms(lambda: msda.msda_fwd(value, sh, loc, attn), iters)
-        b_ms = cuda_ms(lambda: msda.msda_bwd(value, sh, loc, attn, g), iters)
-        fp_ms = cuda_ms(lambda: msda.ms_deform_attn_plain(
-            value, sh, loc, attn), p_iters, warmup=1)
-        bp_ms = cuda_ms(lambda: msda.ms_deform_attn_plain_bwd(
-            value, sh, loc, attn, g), p_iters, warmup=1)
-        fb, fb_by, rows = msda_bound(msda, loc, shapes=sh)
-        bb, bb_by, _ = msda_bwd_bound(msda, loc, shapes=sh)
-        timing[part] = dict(lq=lq, fwd_ms=f_ms, fwd_plain_ms=fp_ms,
-                            fwd_bound_ms=fb, fwd_bound_by=fb_by, bwd_ms=b_ms,
-                            bwd_plain_ms=bp_ms, bwd_bound_ms=bb,
-                            bwd_bound_by=bb_by, value_rows_read=rows,
-                            value_rows=B * H * TRAIN_S)
-        log(f"  train {part} Lq={lq} f32: fwd {f_ms:.4f} ms (plain "
-            f"{fp_ms:.3f}, bound {fb:.4f} {fb_by}); bwd {b_ms:.4f} ms "
-            f"(plain {bp_ms:.3f}, bound {bb:.4f} {bb_by}); {rows} of "
+        f = time_fwd(msda, value, sh, loc, attn, iters, p_iters)
+        bw = time_bwd(msda, value, sh, loc, attn, g, iters, p_iters)
+        rows = f.pop("value_rows_read")
+        timing[part] = dict(lq=lq, **{f"fwd_{k}": v for k, v in f.items()},
+                            **{f"bwd_{k}": v for k, v in bw.items()},
+                            value_rows_read=rows, value_rows=B * H * TRAIN_S)
+        log(f"  train {part} Lq={lq} f32, random locations: {rows} of "
             f"{B * H * TRAIN_S} value rows")
+        log(f"    fwd {describe(f)}")
+        log(f"    bwd {describe(bw)}")
         del value, loc, attn, g
     torch.cuda.empty_cache()
     return dict(errs=errs, timing=timing)
@@ -514,11 +650,17 @@ def train_batches(n, device):
 def check_step_against_plain(state, batch, ccfg, wd, msda) -> dict:
     """One step's losses and gradients through the kernels against the
     same step through the plain versions, f32 with TF32 off, with the CDN
-    noise, the two-stage top-k of both passes, the matcher's assignments and
-    the prototypes' class of each query held to the kernel run's (each a
-    discrete choice that a near-tie can flip)."""
+    noise, the two-stage top-k of both passes, the matcher's assignments,
+    the prototypes' class of each query and the sign under every ReLU of the
+    transformer and its heads held to the kernel run's (each a discrete
+    choice that a near-tie can flip: the box head over the encoder's
+    proposals takes its gradient from the few matched rows, and one unit of
+    its hidden layers on the other side of 0 moves that tensor's gradient by
+    several 1e-3 of its norm)."""
     from datr_torch.models import cdn as cdn_mod
     from datr_torch.models import dino as dino_mod
+    from datr_torch.models import layers as layers_mod
+    from datr_torch.models import transformer as transformer_mod
     from datr_torch.train import criterion as crit_mod
     from datr_torch.train.steps import loss_and_grads
 
@@ -529,8 +671,8 @@ def check_step_against_plain(state, batch, ccfg, wd, msda) -> dict:
                                    model.num_classes, batch["images"].device)
     topk, match = dino_mod._stable_topk_indices, crit_mod.match_many
     protos = dino_mod.class_prototypes
-    seen_topk, seen_assign, seen_cls = [], [], []
-    cls_flips = []
+    seen_topk, seen_assign, seen_cls, seen_relu = [], [], [], []
+    cls_flips, relu_flips = [], []
 
     def rec_topk(x, k):
         seen_topk.append(topk(x, k))
@@ -551,14 +693,32 @@ def check_step_against_plain(state, batch, ccfg, wd, msda) -> dict:
         return protos(queries, torch.nn.functional.one_hot(
             cls, logits.shape[-1]).to(logits.dtype), *a)
 
+    def rec_relu(x):
+        # also called when a checkpointed layer is recomputed in the
+        # backward; both runs make the same calls in the same order
+        seen_relu.append(x > 0)
+        return torch.nn.functional.relu(x)
+
+    def replay_relu(x):
+        held = next(replay_masks)
+        relu_flips.append(((x > 0) != held).sum())
+        return torch.where(held, x, torch.zeros_like(x))
+
+    def relu_held(relu):
+        """torch.nn.functional as the two modules see it, with this relu."""
+        return types.SimpleNamespace(**{**vars(torch.nn.functional),
+                                        "relu": relu})
+
     with mock.patch.object(dino_mod, "_stable_topk_indices", rec_topk), \
             mock.patch.object(crit_mod, "match_many", rec_match), \
-            mock.patch.object(dino_mod, "class_prototypes", rec_protos):
+            mock.patch.object(dino_mod, "class_prototypes", rec_protos), \
+            mock.patch.object(layers_mod, "F", relu_held(rec_relu)), \
+            mock.patch.object(transformer_mod, "F", relu_held(rec_relu)):
         total_k, losses_k, _ = loss_and_grads(state, batch, ccfg, wd, draws)
     grads_k = {n: p.grad.clone() for n, p in model.named_parameters()
                if p.grad is not None}
     replay_topk, replay_assign = iter(seen_topk), iter(seen_assign)
-    replay_cls = iter(seen_cls)
+    replay_cls, replay_masks = iter(seen_cls), iter(seen_relu)
     t0 = time.perf_counter()
     with mock.patch.object(msda, "ms_deform_attn",
                            msda.ms_deform_attn_plain), \
@@ -566,8 +726,11 @@ def check_step_against_plain(state, batch, ccfg, wd, msda) -> dict:
                               lambda x, k: next(replay_topk)), \
             mock.patch.object(crit_mod, "match_many",
                               lambda *a, **kw: next(replay_assign)), \
-            mock.patch.object(dino_mod, "class_prototypes", replay_protos):
+            mock.patch.object(dino_mod, "class_prototypes", replay_protos), \
+            mock.patch.object(layers_mod, "F", relu_held(replay_relu)), \
+            mock.patch.object(transformer_mod, "F", relu_held(replay_relu)):
         total_p, losses_p, _ = loss_and_grads(state, batch, ccfg, wd, draws)
+    assert next(replay_masks, None) is None, "the runs made different calls"
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
@@ -590,7 +753,8 @@ def check_step_against_plain(state, batch, ccfg, wd, msda) -> dict:
                max_grad_rel=max(grad_rel.values()), worst_grads=worst,
                n_grads=len(grad_rel), plain_step_s=plain_s,
                topk_calls=len(seen_topk), match_calls=len(seen_assign),
-               prototype_class_flips=cls_flips)
+               prototype_class_flips=cls_flips, relu_calls=len(seen_relu),
+               relu_sign_flips=int(torch.stack(relu_flips).sum()))
     tol = 1e-3
     log(f"  step through kernels vs plain (tolerance {tol} relative): {res}")
     assert res["max_loss_rel"] <= tol, res
@@ -598,29 +762,54 @@ def check_step_against_plain(state, batch, ccfg, wd, msda) -> dict:
     return res
 
 
-def run_training(msda, card) -> dict:
-    """The burn-in training slice at full width through engine's
-    train_one_epoch."""
+def c2f_train_state(n_batches):
+    """(state, criterion config, weight dict) of the C2F burn-in
+    configuration with seeded random weights, f32 with TF32 off."""
     from datr_torch.config import load_config
-    from datr_torch.engine import train_one_epoch
     from datr_torch.models import dino as dino_mod
-    from datr_torch.models.layers import MSDeformAttn
     from datr_torch.train.criterion import criterion_from_config
     from datr_torch.train.optim import Optimizer
     from datr_torch.train.state import create_train_state
-    from datr_torch.train.steps import train_step_burnin
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = load_config(C2F)
     model = dino_mod.build_dino_from_config(cfg, seed=0)
     ccfg, wd = criterion_from_config(cfg, model)
-    n_batches = 4  # one warm-up step, then the timed ones
     opt = Optimizer(model, lr=cfg.lr, lr_backbone=cfg.lr_backbone,
                     weight_decay=cfg.weight_decay,
                     clip_max_norm=cfg.clip_max_norm,
                     lr_drop_step=cfg.lr_drop * n_batches)
-    state = create_train_state(model, opt, seed=0)
+    return create_train_state(model, opt, seed=0), ccfg, wd
+
+
+def training_msda_calls(msda, state, batch) -> dict:
+    """The MSDA inputs of one training forward (source and target pass) of
+    the model as it stands, by Lq."""
+    from datr_torch.models import cdn as cdn_mod
+
+    model = state.model
+    groups, _ = cdn_mod.cdn_layout(model.dn_number, model.dn_single_pad)
+    draws = cdn_mod.draw_cdn_noise(torch.Generator().manual_seed(7), 2,
+                                   groups, model.dn_single_pad,
+                                   model.num_classes, batch["images"].device)
+    return capture_msda_calls(msda, lambda: model.train()(
+        batch["images"], batch["pad_mask"],
+        targets={k: batch[k] for k in ("boxes", "labels", "valid")},
+        train=True, global_proto=state.global_proto, amount=state.amount,
+        dn_draws=draws))
+
+
+def run_training(msda, card) -> dict:
+    """The burn-in training slice at full width through engine's
+    train_one_epoch."""
+    from datr_torch.engine import train_one_epoch
+    from datr_torch.models.layers import MSDeformAttn
+    from datr_torch.train.steps import train_step_burnin
+
+    n_batches = 4  # one warm-up step, then the timed ones
+    state, ccfg, wd = c2f_train_state(n_batches)
+    model = state.model
     trainable = {n: p.detach().clone() for n, p in model.named_parameters()
                  if p.requires_grad}
     n_params = sum(p.numel() for p in model.parameters())
@@ -638,6 +827,15 @@ def run_training(msda, card) -> dict:
     n_msda = sum(isinstance(m, MSDeformAttn) for m in model.modules())
     want_fwd = 2 * n_msda * (2 if model.use_remat else 1)
     want_bwd = 2 * n_msda
+
+    # ---- msda_fwd / msda_bwd at the locations this model produces ----
+    calls = training_msda_calls(msda, state, batches[0])
+    at_model = check_model_locations(
+        msda, calls, dict(encoder=TRAIN_S, decoder_src=TRAIN_DEC_LQ[0],
+                          decoder_tgt=TRAIN_DEC_LQ[1]), TRAIN_SHAPES,
+        backward=True)
+    del calls
+    torch.cuda.empty_cache()
 
     warm = train_one_epoch(state, batches[:1], ccfg, wd)
     torch.cuda.synchronize()
@@ -685,7 +883,7 @@ def run_training(msda, card) -> dict:
                 launches_per_step=dict(msda_fwd=want_fwd, msda_bwd=want_bwd),
                 step_s=step_s, img_s=4 / step_s, host_step_s=wall_s / len(
                     steps), peak_memory_gb=peak_gb, loss=metrics["loss"],
-                against_plain=check, profile=prof)
+                against_plain=check, profile=prof, model_locations=at_model)
 
 
 def run_gather_bench(gather, bench) -> dict:
@@ -741,8 +939,9 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     _build.load_library()
     log(f"  built {[s.name for s in _build.sources()]} in {build_s:.2f} s")
-    log("\n".join("  " + ln for ln in build_log.splitlines()
-                  if "registers" in ln or "spill" in ln))
+    log("\n".join("  " + ln.strip()[:150] for ln in build_log.splitlines()
+                  if any(w in ln for w in ("Compiling entry", "registers",
+                                           "spill"))))
 
     log("phase 2: msda_fwd against its plain version, serving shapes")
     k = check_msda(msda)
@@ -781,6 +980,15 @@ def main() -> int:
     bwd_step = {k2: per_train_step(tt, key, 12, 6) for k2, key in (
         ("ms", "bwd_ms"), ("plain_ms", "bwd_plain_ms"),
         ("bound_ms", "bwd_bound_ms"))}
+    # the same sums over the launches at the model's own locations
+    tm = tr["model_locations"]
+    fwd_step_model = {k2: remat * per_train_step(tm, key, 12, 6)
+                      for k2, key in (("ms", "fwd_ms"),
+                                      ("bound_ms", "fwd_bound_ms"))}
+    bwd_step_model = {k2: per_train_step(tm, key, 12, 6)
+                      for k2, key in (("ms", "bwd_ms"),
+                                      ("bound_ms", "bwd_bound_ms"))}
+    sm = s["model_locations"]
     bwd_errs = {n: v for n, v in kt["errs"].items() if "msda_bwd" in n}
     k2, k3 = kg["copy"], kg["fma"]
     kernels = [{
@@ -809,6 +1017,13 @@ def main() -> int:
         "per_train_step": dict(fwd_step, bound_by=tt["encoder"][
             "fwd_bound_by"]),
         "per_launch_train": tt,
+        # the same at the locations the seeded models produce
+        "ms_model": 6 * sm["encoder"]["ms"] + 6 * sm["decoder"]["ms"],
+        "bound_ms_model": (6 * sm["encoder"]["bound_ms"]
+                           + 6 * sm["decoder"]["bound_ms"]),
+        "per_launch_model": sm,
+        "per_train_step_model": fwd_step_model,
+        "per_launch_train_model": tm,
     }, {
         "name": "msda_bwd",
         "route": "cuda",
@@ -825,6 +1040,8 @@ def main() -> int:
         "bound_by": tt["encoder"]["bwd_bound_by"],
         "library_ms": None,  # no PyTorch call computes MSDA's backward
         "per_launch_train": tt,
+        "per_train_step_model": bwd_step_model,
+        "per_launch_train_model": tm,
     }, {
         "name": "row_gather",
         "route": "cuda",

@@ -10,6 +10,7 @@ failure raises — there is no fallback to the plain PyTorch versions.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
@@ -101,6 +102,30 @@ def _stale(lib_path: Path) -> bool:
                for src in [*sources(), *CSRC_DIR.glob("*.cuh")])
 
 
+def open_library(lib_path: Path):
+    """Load a built library and declare its C entry points."""
+    lib = ctypes.CDLL(str(lib_path))
+    for name, (argtypes, restype) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, restype
+    return lib
+
+
+@contextlib.contextmanager
+def use_library(lib):
+    """Inside the block the wrappers launch from `lib` (a library from
+    `open_library`, e.g. another commit's sources built beside the port's
+    own) instead of the port's."""
+    global _lib
+    with _lock:
+        old, _lib = _lib, lib
+    try:
+        yield
+    finally:
+        with _lock:
+            _lib = old
+
+
 def load_library():
     """The loaded kernel library, built first if missing or older than its
     sources."""
@@ -110,12 +135,7 @@ def load_library():
             lib_path = BUILD_DIR / LIB_NAME
             if _stale(lib_path):
                 build()
-            lib = ctypes.CDLL(str(lib_path))
-            for name, (argtypes, restype) in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = restype
-            _lib = lib
+            _lib = open_library(lib_path)
     return _lib
 
 

@@ -19,7 +19,13 @@ The functions:
   the backward kernel.
 - `msda_fwd` / `msda_bwd`: the wrappers of the hand-written CUDA kernels
   (csrc/msda_fwd.cu, csrc/msda_bwd.cu). Each counts its launches in
-  `.launches`.
+  `.launches`. The kernels share one sample set-up (csrc/msda_common.cuh): a
+  warp computes each sample's corners once, gathers rows in 16-byte vectors
+  (narrower where D or a pointer's alignment asks for it: every D and any
+  contiguous tensor is taken), blocks serve runs of consecutive queries of
+  one (batch, head), and the backward scatters with 16-byte vector
+  reductions into the zeroed grad_value (on long launches at D = 32 it first
+  merges, in registers, the reductions of consecutive queries onto one row).
 - `MSDeformAttnFunction`: the autograd Function built from the two kernels.
 - `ms_deform_attn`: the dispatcher. CPU tensors go to the plain version, CUDA
   tensors through `MSDeformAttnFunction`, anything else raises.
@@ -38,10 +44,11 @@ from . import _build
 Shapes = Sequence[Tuple[int, int]]
 
 
-def _corner_gather_indices(loc: torch.Tensor, spatial_shapes: Shapes):
-    """Per-corner flat token indices and bilinear weights, each a list of 4
-    tensors [B, Lq, H, L, P] (int64 / float32). Invalid corners get index 0
-    and weight 0 (datr_tpu/ops/msda.py:43-108)."""
+def _corners(loc: torch.Tensor, spatial_shapes: Shapes):
+    """Per corner (dy, dx) = (0,0), (0,1), (1,0), (1,1): the flat token index
+    (clamped into the level), whether the corner lies inside the level, and
+    the bilinear weight, each a list of 4 tensors [B, Lq, H, L, P]
+    (int64 / bool / float32)."""
     dev = loc.device
     ws = torch.tensor([w for _, w in spatial_shapes], dtype=torch.float32,
                       device=dev)
@@ -73,7 +80,7 @@ def _corner_gather_indices(loc: torch.Tensor, spatial_shapes: Shapes):
     y0i = torch.nan_to_num(y0, nan=-2.0).clamp(-2, None)
     y0i = torch.minimum(y0i, hs[:, None] + 1).to(torch.int64)
 
-    indices, weights = [], []
+    indices, valids, weights = [], [], []
     for dy, dx, w_corner in (
         (0, 0, (1 - fx) * (1 - fy)),
         (0, 1, fx * (1 - fy)),
@@ -85,10 +92,19 @@ def _corner_gather_indices(loc: torch.Tensor, spatial_shapes: Shapes):
         valid = (cx >= 0) & (cx < wi) & (cy >= 0) & (cy < hi)
         cx_c = torch.minimum(cx.clamp(min=0), wi - 1)
         cy_c = torch.minimum(cy.clamp(min=0), hi - 1)
-        flat = starts[:, None] + cy_c * wi + cx_c
-        indices.append(torch.where(valid, flat, 0))
-        weights.append(torch.where(valid, w_corner, 0.0))
-    return indices, weights
+        indices.append(starts[:, None] + cy_c * wi + cx_c)
+        valids.append(valid)
+        weights.append(w_corner)
+    return indices, valids, weights
+
+
+def _corner_gather_indices(loc: torch.Tensor, spatial_shapes: Shapes):
+    """Per-corner flat token indices and bilinear weights, each a list of 4
+    tensors [B, Lq, H, L, P] (int64 / float32). Invalid corners get index 0
+    and weight 0 (datr_tpu/ops/msda.py:43-108)."""
+    indices, valids, weights = _corners(loc, spatial_shapes)
+    return ([torch.where(v, i, 0) for i, v in zip(indices, valids)],
+            [torch.where(v, w, 0.0) for w, v in zip(weights, valids)])
 
 
 def ms_deform_attn_plain(value: torch.Tensor, spatial_shapes: Shapes,

@@ -35,6 +35,8 @@ def _inputs(lq, h, d, p, dtype, case, seed=0):
     loc = torch.rand(2, lq, h, L, p, 2, device="cuda", generator=g)
     if case == "outside":
         loc = loc * 1.6 - 0.3
+    elif case == "all_outside":  # no corner of any sample inside a level
+        loc = loc + 2.0
     elif case == "integer":
         wh = torch.tensor([(w, hh) for hh, w in SHAPES], device="cuda")
         ij = (loc * (wh + 2)[:, None, :]).floor() - 1
@@ -42,18 +44,78 @@ def _inputs(lq, h, d, p, dtype, case, seed=0):
     return value, loc.contiguous(), attn
 
 
+# D of every vector width the kernels pick: multiples of 4 (16-byte f32
+# loads; of 8 for bf16), of 2 only, odd; 48 and 64 need more lanes per row
+DS = [32, 8, 48, 4, 6, 5, 16, 64]
+# A launch long enough that each warp serves several queries: 2 x 8,461 x 8
+# (b, q, h) is twice what it takes on a card of 132 SMs, with a ragged last
+# run (8,461 = 5 mod 8, 13 mod 32). The heads, not the queries, make it long:
+# a row of the small image then takes no more atomic adds than its sum's
+# rounding can bear within the tolerance
+LONG_LQ, LONG_H = 8461, 8
+# (Lq, H, P): one query; one head; L*P = 36 (a second chunk of samples); the
+# long launch at both sample counts
+GEOMETRIES = [(1, 4, 3), (37, 1, 3), (37, 4, 9), (LONG_LQ, LONG_H, 3),
+              (LONG_LQ, LONG_H, 9)]
+
+
+def _fwd_tol(dtype):
+    return (dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32
+            else dict(rtol=2.0 ** -8, atol=1e-5))  # one bf16 rounding
+
+
+def _misaligned(t):
+    """A contiguous copy of t whose data_ptr() is one element past a
+    16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16 == t.element_size()
+    return out
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", ["random", "integer", "outside"])
-@pytest.mark.parametrize("d", [32, 8, 48])
+@pytest.mark.parametrize("d", DS)
 def test_kernel_matches_plain(cuda, dtype, case, d):
     value, loc, attn = _inputs(37, 4, d, 3, dtype, case)
     got = msda.msda_fwd(value, SHAPES, loc, attn)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (2, 37, 4 * d)
     want = msda.ms_deform_attn_plain(value.float(), SHAPES, loc, attn)
-    tol = (dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32
-           else dict(rtol=2.0 ** -8, atol=1e-5))  # one bf16 rounding
-    torch.testing.assert_close(got.float(), want, **tol)
+    torch.testing.assert_close(got.float(), want, **_fwd_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lq,h,p", GEOMETRIES)
+def test_kernel_matches_plain_geometries(cuda, dtype, lq, h, p):
+    value, loc, attn = _inputs(lq, h, 32, p, dtype, "outside")
+    got = msda.msda_fwd(value, SHAPES, loc, attn)
+    torch.cuda.synchronize()
+    want = msda.ms_deform_attn_plain(value.float(), SHAPES, loc, attn)
+    torch.testing.assert_close(got.float(), want, **_fwd_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 6])
+def test_kernel_takes_misaligned_value(cuda, dtype, d):
+    """A value tensor off the 16-byte grid goes through narrower loads; it
+    is not refused."""
+    value, loc, attn = _inputs(37, 4, d, 3, dtype, "random")
+    got = msda.msda_fwd(_misaligned(value), SHAPES, loc, attn)
+    torch.cuda.synchronize()
+    want = msda.ms_deform_attn_plain(value.float(), SHAPES, loc, attn)
+    torch.testing.assert_close(got.float(), want, **_fwd_tol(dtype))
+
+
+def test_all_outside_locations_give_exact_zeros(cuda):
+    value, loc, attn = _inputs(37, 4, 32, 3, torch.float32, "all_outside")
+    out = msda.msda_fwd(value, SHAPES, loc, attn)
+    g = torch.ones_like(out)
+    grads = msda.msda_bwd(value, SHAPES, loc, attn, g)
+    torch.cuda.synchronize()
+    for t in (out, *grads):
+        assert torch.equal(t, torch.zeros_like(t))
 
 
 def test_dispatcher_launches_kernel_on_cuda(cuda):
@@ -107,22 +169,68 @@ def test_tiny_dino_cuda_matches_cpu(cuda):
 # ---------------- MSDA backward ----------------
 
 
-@pytest.mark.parametrize("case", ["random", "integer", "outside"])
-@pytest.mark.parametrize("d", [32, 8, 48])
-def test_msda_bwd_matches_plain(cuda, case, d):
-    value, loc, attn = _inputs(37, 4, d, 3, torch.float32, case)
-    g = torch.randn(2, 37, 4 * d, device="cuda",
-                    generator=torch.Generator(device="cuda").manual_seed(3))
-    before = msda.msda_bwd.launches
-    got = msda.msda_bwd(value, SHAPES, loc, attn, g)
-    torch.cuda.synchronize()
-    assert msda.msda_bwd.launches == before + 1
-    want = msda.ms_deform_attn_plain_bwd(value, SHAPES, loc, attn, g)
+def _grad_out(lq, h, d):
+    return torch.randn(2, lq, h * d, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(3))
+
+
+def _assert_bwd_close(got, want):
     for name, a, b in zip(("value", "loc", "attn"), got, want):
         assert a.shape == b.shape
         # f32; grad_value sums atomic adds in run-dependent order
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5,
                                    msg=lambda m: f"grad_{name}: {m}")
+
+
+@pytest.mark.parametrize("case", ["random", "integer", "outside"])
+@pytest.mark.parametrize("d", DS)
+def test_msda_bwd_matches_plain(cuda, case, d):
+    value, loc, attn = _inputs(37, 4, d, 3, torch.float32, case)
+    g = _grad_out(37, 4, d)
+    before = msda.msda_bwd.launches
+    got = msda.msda_bwd(value, SHAPES, loc, attn, g)
+    torch.cuda.synchronize()
+    assert msda.msda_bwd.launches == before + 1
+    want = msda.ms_deform_attn_plain_bwd(value, SHAPES, loc, attn, g)
+    _assert_bwd_close(got, want)
+
+
+@pytest.mark.parametrize("lq,h,p", GEOMETRIES)
+def test_msda_bwd_matches_plain_geometries(cuda, lq, h, p):
+    value, loc, attn = _inputs(lq, h, 32, p, torch.float32, "outside")
+    g = _grad_out(lq, h, 32)
+    got = msda.msda_bwd(value, SHAPES, loc, attn, g)
+    torch.cuda.synchronize()
+    _assert_bwd_close(got, msda.ms_deform_attn_plain_bwd(value, SHAPES, loc,
+                                                         attn, g))
+
+
+@pytest.mark.parametrize("d", [32, 6])
+def test_msda_bwd_takes_misaligned_value(cuda, d):
+    value, loc, attn = _inputs(37, 4, d, 3, torch.float32, "random")
+    g = _grad_out(37, 4, d)
+    got = msda.msda_bwd(_misaligned(value), SHAPES, loc, attn, g)
+    torch.cuda.synchronize()
+    _assert_bwd_close(got, msda.ms_deform_attn_plain_bwd(value, SHAPES, loc,
+                                                         attn, g))
+
+
+def test_msda_bwd_runs_agree(cuda):
+    """Two runs on the same inputs: grad_loc and grad_attn are sums in a
+    fixed order and agree exactly; grad_value sums atomic adds in an order
+    that varies from run to run, so it agrees within rtol 1e-4 / atol 1e-5.
+    Many queries on one small image, so that every row takes hundreds of
+    adds; grad_out is non-negative, so the addends of a row do not cancel
+    and the order's rounding stays relative to the sum."""
+    value, loc, attn = _inputs(LONG_LQ, LONG_H, 32, 3, torch.float32,
+                               "random")
+    g = _grad_out(LONG_LQ, LONG_H, 32).abs()
+    first = msda.msda_bwd(value, SHAPES, loc, attn, g)
+    second = msda.msda_bwd(value, SHAPES, loc, attn, g)
+    torch.cuda.synchronize()
+    assert torch.equal(first[1], second[1])
+    assert torch.equal(first[2], second[2])
+    torch.testing.assert_close(first[0], second[0], rtol=1e-4, atol=1e-5)
 
 
 def test_dispatcher_on_cuda_keeps_the_gradient(cuda):

@@ -1,13 +1,17 @@
 """The port's plain MSDA (datr_torch/ops/msda.py) against datr_tpu's three
 formulations on the CPU: the Pallas kernel in interpret mode, the per-corner
 XLA oracle and the quad-packed XLA op. Tolerance rtol 1e-4 / atol 1e-5, as
-datr_tpu's own MSDA tests (tests/test_msda_pallas.py:39)."""
+datr_tpu's own MSDA tests (tests/test_msda_pallas.py:39). The last section
+covers the regimes the CUDA kernels have separate paths for (L*P above 32,
+D of each vector width, model-like locations): the plain versions are what
+those kernels are held against on the card."""
 
 import numpy as np
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from datr_torch.models.layers import directional_offset_bias
 from datr_torch.ops import _build, msda
 from datr_tpu.ops import msda_pallas
 from datr_tpu.ops.msda import ms_deform_attn_quad, ms_deform_attn_xla
@@ -185,3 +189,100 @@ def test_bwd_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         msda.msda_bwd(value, SHAPES, loc, attn, g)
     assert msda.msda_bwd.launches == before
+
+
+# ---------------- the regimes the redesigned kernels have paths for ----------
+
+# (shapes, H, D, P): L*P > 32 takes a second chunk of samples (L 4, P 9);
+# D 8 is a multiple of 4 (16-byte f32 vectors), 6 of 2 only, 5 odd
+REGIMES = {
+    "LP36": (((8, 4), (4, 2), (2, 8), (4, 4)), 2, 8, 9),
+    "D8": (SHAPES, 2, 8, 2),
+    "D6": (SHAPES, 2, 6, 2),
+    "D5": (SHAPES, 1, 5, 2),
+}
+
+
+def _regime_inputs(regime, case):
+    """numpy-seeded inputs; `case` "random" or "model": every query a pixel of
+    a level (its centre the reference point on all levels), offsets the
+    directional bias of a freshly initialised MSDeformAttn, which land on
+    pixel centres of the query's own level and on and beyond the borders."""
+    shapes, h, d, p = REGIMES[regime]
+    lv = len(shapes)
+    s = sum(a * b for a, b in shapes)
+    rng = np.random.default_rng(sum(map(ord, regime + case)))
+    value = rng.standard_normal((B, s, h, d)).astype(np.float32)
+    if case == "random":
+        lq = LQ
+        loc = rng.random((B, lq, h, lv, p, 2)).astype(np.float32)
+    else:
+        ref = np.concatenate([
+            np.stack(np.meshgrid((np.arange(w) + 0.5) / w,
+                                 (np.arange(hh) + 0.5) / hh), -1).reshape(-1, 2)
+            for hh, w in shapes]).astype(np.float32)  # [S, 2] (x, y)
+        lq = s
+        off = directional_offset_bias(h, lv, p).numpy().reshape(h, lv, p, 2)
+        wh = np.array([(w, hh) for hh, w in shapes], np.float32)
+        loc = (ref[None, :, None, None, None, :]
+               + off[None, None] / wh[None, None, None, :, None, :])
+        loc = np.broadcast_to(loc, (B, lq, h, lv, p, 2)).astype(np.float32)
+    attn = rng.random((B, lq, h, lv, p)).astype(np.float32)
+    attn /= attn.sum(axis=(-1, -2), keepdims=True)
+    g = rng.standard_normal((B, lq, h * d)).astype(np.float32)
+    return shapes, value, np.ascontiguousarray(loc), attn, g
+
+
+REGIME_CASES = [(r, c) for r in REGIMES for c in ("random", "model")]
+
+
+@pytest.mark.parametrize("regime,case", REGIME_CASES)
+def test_plain_matches_xla_in_kernel_regimes(regime, case):
+    """ms_deform_attn_plain against ms_deform_attn_xla, rtol 1e-4 / atol 1e-5
+    (f32, the sums in another order)."""
+    shapes, value, loc, attn, _ = _regime_inputs(regime, case)
+    got = msda.ms_deform_attn_plain(torch.from_numpy(value), shapes,
+                                    torch.from_numpy(loc),
+                                    torch.from_numpy(attn)).numpy()
+    want = np.asarray(ms_deform_attn_xla(value, shapes, loc, attn))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("regime,case", REGIME_CASES)
+def test_plain_grads_match_xla_in_kernel_regimes(regime, case):
+    """ms_deform_attn_plain_bwd against jax.vjp of ms_deform_attn_xla, rtol
+    1e-4 / atol 1e-5. At the model-like locations the samples of a query's own
+    level sit on pixel centres, where the corner choice decides grad_loc."""
+    import jax
+
+    shapes, value, loc, attn, g = _regime_inputs(regime, case)
+    _, vjp = jax.vjp(lambda v, l, a: ms_deform_attn_xla(v, shapes, l, a),
+                     value, loc, attn)
+    v, l, a, gg = (torch.from_numpy(x) for x in (value, loc, attn, g))
+    got = [x.numpy() for x in msda.ms_deform_attn_plain_bwd(v, shapes, l, a,
+                                                             gg)]
+    _assert_grads(got, vjp(g))
+
+
+@pytest.mark.parametrize("regime", ["D8", "D5"])
+def test_plain_matches_pallas_interpret_in_kernel_regimes(regime):
+    """The same against the Pallas kernel in interpret mode, at the
+    model-like locations."""
+    shapes, value, loc, attn, _ = _regime_inputs(regime, "model")
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(msda_pallas.ms_deform_attn_pallas_fwd(
+            value, shapes, loc, attn))
+    got = msda.ms_deform_attn_plain(torch.from_numpy(value), shapes,
+                                    torch.from_numpy(loc),
+                                    torch.from_numpy(attn)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_model_like_locations_hit_centres_and_borders():
+    """The model-like set really has samples on exact pixel centres of the
+    query's own level, and samples outside the level."""
+    shapes, _, loc, _, _ = _regime_inputs("D8", "model")
+    h0, w0 = shapes[0]
+    x = loc[0, :h0 * w0, :, 0, :, 0] * np.float32(w0) - np.float32(0.5)
+    assert np.array_equal(x, np.round(x))
+    assert (loc < 0).any() and (loc > 1).any()
