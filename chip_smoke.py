@@ -26,8 +26,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
   4. the gather bench entry point (datr_torch.tools.msda_gather_bench),
      which holds row_gather (K2 shapes, K4/K5/K6 patterns; exact) and
      gather_fma (K3 shapes; one bf16 rounding) against their plain versions
-     and times each beside its plain version and its PyTorch yardstick;
-     its launch counts, and each case's bound;
+     and times each beside its plain version, its PyTorch yardstick and the
+     launch floor (row_gather and index_select on one row); its launch
+     counts, by case, and each case's bound; then, outside the counted
+     run, gather_fma's every instantiation against its plain version: K =
+     1, 3, 16, 36, n_out 2,048 / 37 / 1 (37 and 1 not a multiple of the
+     block), with and without indices outside the table, and K = 16 from
+     idx / w that are not 16-byte aligned;
   5. the training slice at full width: the Cityscapes->Foggy burn-in config
      (configs/DA/Cityscapes2FoggyCityscapes/DINO_4scale_C2F.py, seeded
      random weights) trained by engine.train_one_epoch on synthetic paired
@@ -890,13 +895,14 @@ def run_gather_bench(gather, bench) -> dict:
     """The gather bench entry point on the card, counts from 0. The bench
     holds each kernel against its plain version on the card (row_gather
     exact, gather_fma within one bf16 rounding) and times the kernel, the
-    plain version and the yardstick by the profiler's device time; the
-    bound is the bytes it reports over the memory rate (the 5.8 MB table is
-    L2-resident, so this HBM bound is loose)."""
+    plain version and the yardstick by the profiler's device time, beside
+    the launch floor; the bound is the bytes it reports over the memory
+    rate (the 5.8 MB table is L2-resident, so this HBM bound is loose)."""
     gather.row_gather.launches = gather.gather_fma.launches = 0
     results = bench.run("cuda")
     launches = dict(row_gather=gather.row_gather.launches,
                     gather_fma=gather.gather_fma.launches)
+    floor = results[0]["floor"]
     cases = {}
     for r in results:
         bound_ms, bound_by = roofline(r["bytes"], r["flops"])
@@ -905,6 +911,7 @@ def run_gather_bench(gather, bench) -> dict:
             max_abs_err=r["max_abs_err"], ms=r["device_ms"],
             plain_ms=r["plain_device_ms"], library_ms=r["library_device_ms"],
             event_ms=r["ms"], bound_ms=bound_ms, bound_by=bound_by,
+            floor_ms=r["floor_ms"], launches=r["launches"],
             table_rows_read=r["table_rows_read"])
         lib = (f"{r['library_device_ms']:.5f} ms = "
                f"{r['library_rows_per_s'] / 1e9:.3f} Grows/s"
@@ -913,11 +920,65 @@ def run_gather_bench(gather, bench) -> dict:
             f"{r['max_abs_err']:.3g}); device {r['device_ms']:.5f} ms = "
             f"{r['rows_per_s'] / 1e9:.3f} Grows/s ({r['ms']:.5f} ms per "
             f"call by events); plain {r['plain_device_ms']:.5f} ms; "
-            f"{r['library']} {lib}; bound {bound_ms:.5f} ms ({bound_by})")
-    log(f"  launches {launches}")
+            f"{r['library']} {lib}; bound {bound_ms:.5f} ms ({bound_by}); "
+            f"launch floor {r['floor_ms']:.5f} ms "
+            f"({r['device_ms'] / r['floor_ms']:.2f}x); {r['launches']} "
+            f"launches")
+    log(f"  launch floor: row_gather on one row {floor['row_gather_ms']:.5f}"
+        f" ms, index_select on one row {floor['index_select_ms']:.5f} ms "
+        f"(kernels per call {floor['row_gather_kernels']}, "
+        f"{floor['index_select_kernels']}; {floor['launches']} launches); "
+        f"launches {launches}")
     assert all(r["ok"] for r in results), results
     assert launches["row_gather"] > 0 and launches["gather_fma"] > 0
-    return dict(cases=cases, launches=launches)
+    assert launches["row_gather"] == floor["launches"] + sum(
+        r["launches"] for r in results if r["kernel"] == "row_gather")
+    return dict(cases=cases, launches=launches, floor=floor)
+
+
+def check_gather_fma(gather, bench) -> dict:
+    """gather_fma at each of its instantiations against its plain version's
+    f32 sum, within one bf16 rounding (TOL["bf16"]): K = 16 (one unrolled
+    chunk, 16-byte index loads) and K = 1, 3, 36 (chunks of 8), each at
+    n_out 2,048, 37 and 1 (37 x 16 and 16 threads fill no whole block),
+    with and without indices outside the table (-1, T, T + 7: they
+    read as zero rows; the plain version takes their weight as 0); and K =
+    16 from idx / w one element past a 16-byte boundary (chunks of 8).
+    Returns the max abs error by case."""
+    errs = {}
+
+    def check(name, table, idx, w, k, want):
+        got = gather.gather_fma(table, idx, w, k)
+        torch.cuda.synchronize()
+        errs[name] = (got.float() - want).abs().max().item()
+        torch.testing.assert_close(got.float(), want, **TOL["bf16"],
+                                   msg=lambda m: f"gather_fma {name}: {m}")
+
+    for k in (1, 3, 16, 36):
+        for n_out in (2048, 37, 1):
+            table, idx, w = bench.bench_inputs("cuda", seed=k, k=k,
+                                               n_out=n_out)
+            t = table.shape[0]
+            check(f"K={k} n_out={n_out}", table, idx, w, k,
+                  gather.gather_fma_plain(table.float(), idx, w, k))
+            bad = idx.clone()
+            bad[0::9], bad[3::9], bad[6::9] = -1, t, t + 7
+            inside = (bad >= 0) & (bad < t)
+            check(f"K={k} n_out={n_out} outside", table, bad, w, k,
+                  gather.gather_fma_plain(table.float(), bad.clamp(0, t - 1),
+                                          w * inside[:, None], k))
+            if k == 16:
+                idx_m = torch.empty(idx.numel() + 1, dtype=torch.int32,
+                                    device="cuda")[1:]
+                w_m = torch.empty(idx.numel() + 1, device="cuda")[1:]
+                idx_m.copy_(idx)
+                w_m.copy_(w.view(-1))
+                check(f"K={k} n_out={n_out} misaligned", table, idx_m,
+                      w_m.view(-1, 1), k,
+                      gather.gather_fma_plain(table.float(), idx, w, k))
+    log(f"  gather_fma instantiations against the plain version, max_abs_"
+        f"err: {errs}")
+    return errs
 
 
 # ---------------------------------------------------------------- main
@@ -960,6 +1021,7 @@ def main() -> int:
 
     gb = run_gather_bench(gather, bench)
     kg = gb["cases"]
+    fma_errs = check_gather_fma(gather, bench)
 
     log("phase 5: training slice at full width (C2F burn-in)")
     tr = run_training(msda, card)
@@ -1013,6 +1075,7 @@ def main() -> int:
         "bound_ms": per_fwd["bound_ms"],
         "bound_by": enc["bound_by"],
         "library_ms": None,  # no single PyTorch call computes MSDA
+        "floor_ms": gb["floor"]["floor_ms"],
         "per_launch": {"encoder": enc, "decoder": dec},
         "per_train_step": dict(fwd_step, bound_by=tt["encoder"][
             "fwd_bound_by"]),
@@ -1039,6 +1102,7 @@ def main() -> int:
         **bwd_step,
         "bound_by": tt["encoder"]["bwd_bound_by"],
         "library_ms": None,  # no PyTorch call computes MSDA's backward
+        "floor_ms": gb["floor"]["floor_ms"],
         "per_launch_train": tt,
         "per_train_step_model": bwd_step_model,
         "per_launch_train_model": tm,
@@ -1057,18 +1121,25 @@ def main() -> int:
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
         "library_ms": k2["library_ms"],  # torch.index_select
+        "floor_ms": k2["floor_ms"],
         # K2 copy; K4/K5/K6: the three probes, by name
         "cases": {n: v for n, v in kg.items() if v["kernel"] == "row_gather"},
+        "launches_by_case": {
+            **{n: v["launches"] for n, v in kg.items()
+               if v["kernel"] == "row_gather"},
+            "launch_floor": gb["floor"]["launches"]},
     }, {
         "name": "gather_fma",
         "route": "cuda",
         "source": "datr_torch/csrc/gather.cu",
         "replaces": "tools/msda_pallas_bench.py:79",
         "launches": gb["launches"]["gather_fma"],
-        "max_abs_err": k3["max_abs_err"],
+        "max_abs_err": max(k3["max_abs_err"], *fma_errs.values()),
         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
         "library_ms": k3["library_ms"],  # F.embedding_bag, per-sample weights
+        "floor_ms": k3["floor_ms"],
+        "max_abs_err_by_instantiation": fma_errs,
     }]
     log("gather bench " + json.dumps(kg))
     print(json.dumps({"kernels": kernels}))

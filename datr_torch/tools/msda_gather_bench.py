@@ -22,9 +22,14 @@ the profiler (`plain_` and `library_` prefixes for the others); rows/s, the
 kernel's and the yardstick's, is taken on the device time. Each case also
 carries `bytes` and `flops`, what the function must move and do (each
 distinct table row read once, idx and weights read once, the output written
-once), for a roofline bound. Prints one JSON line per case and writes no
-file. The table (5.8 MB) stays in the card's 50 MB L2 between launches.
-`--device cpu` runs the plain versions, timed by the host clock.
+once), for a roofline bound, and `launches`, the kernel launches the case
+made. Every case also carries `floor_ms`, the launch floor: the larger of
+the device times of row_gather and of index_select on ONE row of the probe
+table (`floor` holds both), what any launch costs on this card however
+little it does. Prints one JSON line per case and writes no file. The
+table (5.8 MB) stays in the card's 50 MB L2 between launches.
+`--device cpu` runs the plain versions, timed by the host clock (no
+floor).
 """
 
 from __future__ import annotations
@@ -52,13 +57,15 @@ PROBES = {  # name -> (index pattern, row offset)
 }
 
 
-def bench_inputs(device, seed: int = 0):
-    """(table bf16 [T, 128], idx int32 [N], w f32 [N, 1]) on `device`, from
-    the seeds and draws the TPU bench uses (msda_pallas_bench.py:117-120)."""
+def bench_inputs(device, seed: int = 0, k: int = K, n_out: int = N // K):
+    """(table bf16 [T, 128], idx int32 [n_out * k], w f32 [n_out * k, 1]) on
+    `device`, from the seeds and draws the TPU bench uses
+    (msda_pallas_bench.py:117-120); the defaults are its shapes (N
+    indices), other k / n_out draw as many indices in the same order."""
     rng = np.random.default_rng(seed)
     table = torch.from_numpy(rng.standard_normal((T, 128))).to(torch.bfloat16)
-    idx = rng.integers(0, T, (N,)).astype(np.int32)
-    w = rng.standard_normal((N, 1)).astype(np.float32)
+    idx = rng.integers(0, T, (n_out * k,)).astype(np.int32)
+    w = rng.standard_normal((n_out * k, 1)).astype(np.float32)
     return (table.to(device), torch.from_numpy(idx).to(device),
             torch.from_numpy(w).to(device))
 
@@ -113,6 +120,21 @@ def device_ms(fn, iters: int = 50, attempts: int = 3) -> float:
                        f"{attempts} sessions")
 
 
+def kernels_per_call(fn, iters: int = 20) -> dict:
+    """{device kernel name: its launches per call of fn}, from one profiler
+    session."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:80]: e.count / iters for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
 def _timed(dev, iters, fns):
     """For each (prefix, fn) of `fns`: `<prefix>ms`, the time per call by
     CUDA events (by the host's clock on the CPU), and `<prefix>device_ms`,
@@ -126,7 +148,7 @@ def _timed(dev, iters, fns):
     return out
 
 
-def _work(table, idx, offset=0, k=None):
+def roofline_work(table, idx, offset=0, k=None):
     """(bytes, f32 operations) the function must move and do on these
     inputs: each distinct table row read once, idx (and the fma's weights)
     read once, the output written once; a multiply-add per gathered element
@@ -140,14 +162,39 @@ def _work(table, idx, offset=0, k=None):
     return dict(bytes=n_bytes, flops=flops, table_rows_read=rows)
 
 
+def launch_floor(dev) -> dict:
+    """Device time per call of row_gather and of index_select on one row of
+    the probe table, and the larger of the two (`floor_ms`): the least a
+    launch takes on this card; with the kernels each call launches and the
+    row_gather launches it made. Times None on the CPU."""
+    if dev.type != "cuda":
+        return dict(floor_ms=None, row_gather_ms=None, index_select_ms=None,
+                    launches=0)
+    table, _, _ = probe_inputs("vectorized_gather", dev)
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    one64 = one.long()
+    fns = dict(row_gather=lambda: gather.row_gather(table, one),
+               index_select=lambda: torch.index_select(table, 0, one64))
+    before = gather.row_gather.launches
+    times = {f"{n}_ms": device_ms(fn) for n, fn in fns.items()}
+    kernels = {f"{n}_kernels": kernels_per_call(fn) for n, fn in fns.items()}
+    return dict(floor_ms=max(times.values()), **times, **kernels,
+                launches=gather.row_gather.launches - before)
+
+
 def run(device=None, iters: int = 200):
     """Check every case against its plain version on the same device and
     time the kernel, the plain version and the yardstick; returns a list of
     result dicts (see the module docstring)."""
     dev = resolve_device(device)
     results = []
+    floor = launch_floor(dev)
 
-    def add(case, kernel, rows, got, want, tol, library, fns, work):
+    def add(case, kernel, rows, want, tol, library, fns, work):
+        """fns[""] is the kernel's call, checked against `want`."""
+        counter = getattr(gather, kernel)
+        before = counter.launches
+        got = fns[""]()
         err = (got.float() - want.float()).abs().max().item()
         ok = (torch.equal(got, want) if tol is None else
               torch.allclose(got.float(), want.float(), **tol))
@@ -158,16 +205,17 @@ def run(device=None, iters: int = 200):
             case=case, kernel=kernel, rows=rows, ok=bool(ok), max_abs_err=err,
             rows_per_s=rows / per_call * 1e3, library=library,
             library_rows_per_s=rows / lib_call * 1e3 if lib_call else None,
-            **timed, **work))
+            launches=counter.launches - before,
+            floor_ms=floor["floor_ms"], floor=floor, **timed, **work))
 
     table, idx, w = bench_inputs(dev)
     idx64 = idx.long()
-    add("copy", "row_gather", N, gather.row_gather(table, idx),
-        gather.row_gather_plain(table, idx), None, "index_select",
+    add("copy", "row_gather", N, gather.row_gather_plain(table, idx), None,
+        "index_select",
         {"": lambda: gather.row_gather(table, idx),
          "plain_": lambda: gather.row_gather_plain(table, idx),
          "library_": lambda: torch.index_select(table, 0, idx64)},
-        _work(table, idx))
+        roofline_work(table, idx))
 
     bags, wb = idx64.view(-1, K), w.view(-1, K).to(table.dtype)
 
@@ -180,25 +228,23 @@ def run(device=None, iters: int = 200):
     except RuntimeError:  # this build's embedding_bag refuses bf16
         bag = None
     # held against the plain version's f32 sum: one bf16 rounding
-    add("fma", "gather_fma", N, gather.gather_fma(table, idx, w, K),
-        gather.gather_fma_plain(table.float(), idx, w, K),
-        dict(rtol=2.0 ** -8, atol=1e-5), "embedding_bag",
+    add("fma", "gather_fma", N,
+        gather.gather_fma_plain(table.float(), idx, w, K), dict(rtol=2.0 ** -8, atol=1e-5), "embedding_bag",
         {"": lambda: gather.gather_fma(table, idx, w, K),
          "plain_": lambda: gather.gather_fma_plain(table, idx, w, K),
          "library_": bag},
-        _work(table, idx, k=K))
+        roofline_work(table, idx, k=K))
 
     for name in PROBES:
         ptable, pidx, offset = probe_inputs(name, dev)
         pidx64 = pidx.long() + offset
         add(name, "row_gather", PROBE_N,
-            gather.row_gather(ptable, pidx, offset),
             gather.row_gather_plain(ptable, pidx, offset), None,
             "index_select",
             {"": lambda: gather.row_gather(ptable, pidx, offset),
              "plain_": lambda: gather.row_gather_plain(ptable, pidx, offset),
              "library_": lambda: torch.index_select(ptable, 0, pidx64)},
-            _work(ptable, pidx, offset))
+            roofline_work(ptable, pidx, offset))
     for r in results:
         r["device"] = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                        else "cpu")

@@ -1,24 +1,31 @@
-"""The MSDA kernels of another commit beside the port's own, on one card, in
-one process.
+"""The kernels of another commit beside the port's own, on one card, in one
+process.
 
     python msda_kernel_bench.py [--source NAME=DIR ...] [--only SUBSTR]
                                 [--out FILE]
 
 Run from the repository root, beside chip_smoke.py, whose inputs, bounds,
-models and tolerances it uses. It builds the port's msda_fwd.cu / msda_bwd.cu
-as they are ("new") and, for every --source NAME=DIR, the same two sources
-(and msda_common.cuh) of another commit unpacked into DIR, e.g.
-parent=build/parent_csrc filled by
+models and tolerances it uses. It builds the port's kernel sources
+(datr_torch/csrc: msda_fwd.cu, msda_bwd.cu, gather.cu and msda_common.cuh)
+as they are ("new") and, for every --source NAME=DIR, the same files of
+another commit unpacked into DIR, e.g. parent=build/parent_csrc filled by
 `git show <commit>:datr_torch/csrc/<file> > build/parent_csrc/<file>`.
-Cases: the encoder and decoder launches of the serving path (800x1344,
-Lq 22,323 / 900) and of the training path (1216x2048, Lq 51,680 / 1,100 /
-900), each at uniform-random locations and at the locations the seeded
-models produce (captured from one forward of each). Every library is held
-against the plain versions on every case (chip_smoke.py's tolerances), then
-the libraries are timed in turns (a, b, b, a) by CUDA events over
-back-to-back calls of the port's own wrappers; the time kept is the mean of
-the two turns. Prints a table beside each case's device-memory bound and the
-bytes requested from the caches, and writes everything as JSON to --out
+MSDA cases: the encoder and decoder launches of the serving path
+(800x1344, Lq 22,323 / 900) and of the training path (1216x2048, Lq 51,680
+/ 1,100 / 900), each at uniform-random locations and at the locations the
+seeded models produce (captured from one forward of each). Every library is
+held against the plain versions on every case (chip_smoke.py's
+tolerances), then the libraries are timed in turns (a, b, b, a) by CUDA
+events over back-to-back calls of the port's own wrappers; the time kept is
+the mean of the two turns. Gather cases (names start with "gather"): the
+gather bench's row_gather (K2) and gather_fma (K3, 16 rows per output) and
+gather_fma at K = 1, 3 and 36 over the same table (2,048 outputs), held
+against the plain versions as the gather bench holds them and timed in
+turns by the profiler's device time (the bench's `device_ms`). --only keeps
+the cases whose name holds SUBSTR, and captures a model's locations only
+when one of its cases is kept. Prints a table beside each case's bound
+(MSDA: device memory and the bytes requested from the caches; gathers:
+the roofline and the launch floor), and writes everything as JSON to --out
 (default build/msda_kernel_bench.json).
 """
 
@@ -33,19 +40,20 @@ from pathlib import Path
 import torch
 
 import chip_smoke as cs
-from datr_torch.ops import _build, msda
+from datr_torch.ops import _build, gather, msda
+from datr_torch.tools import msda_gather_bench as gbench
+
+FMA_KS = (16, 1, 3, 36)  # gather_fma's rows per output; 16 is the bench's
 
 
 def build_libraries(source_dirs: dict) -> tuple[dict, dict]:
-    """{name: directory of msda_fwd.cu / msda_bwd.cu} -> ({name: library},
-    {name: ptxas lines}); all compile at once. The gather kernels, which the
-    loader also declares, come from the port's own source every time."""
+    """{name: directory holding the port's kernel sources} -> ({name:
+    library}, {name: ptxas lines}); all compile at once."""
     root = _build.BUILD_DIR.parent / "msda_kernel_bench"
 
     def one(item):
         name, src_dir = item
-        srcs = [Path(src_dir) / "msda_fwd.cu", Path(src_dir) / "msda_bwd.cu",
-                _build.CSRC_DIR / "gather.cu"]
+        srcs = [Path(src_dir) / s.name for s in _build.sources()]
         path, log = _build.build(srcs, out_dir=root / name)
         return name, _build.open_library(path), log
 
@@ -57,13 +65,19 @@ def build_libraries(source_dirs: dict) -> tuple[dict, dict]:
              for n, _, log in built})
 
 
-def collect_cases() -> list:
-    """(name, value, shapes, loc, attn, grad_out or None) for every case;
-    the backward is timed at the training shapes only, as on the main path."""
+def collect_cases(only=None) -> list:
+    """(name, value, shapes, loc, attn, grad_out or None) for every MSDA case
+    whose name holds `only`; the backward is timed at the training shapes
+    only, as on the main path."""
     cases = []
     gen = torch.Generator(device="cuda").manual_seed(0)
 
+    def kept(name):
+        return not only or only in name
+
     def add(name, shapes, value, loc, attn, backward):
+        if not kept(name):
+            return
         g = (torch.randn(value.shape[0], loc.shape[1],
                          value.shape[2] * value.shape[3], device="cuda",
                          generator=gen) if backward else None)
@@ -83,24 +97,88 @@ def collect_cases() -> list:
         add(f"training {part} random", cs.TRAIN_SHAPES,
             *cs.msda_inputs(gen, lq, shapes=cs.TRAIN_SHAPES), True)
 
-    srv = cs.flagship_server()
-    try:
-        batch, sizes = cs.serving_batch(srv, cs.request_images())
-        calls = cs.capture_msda_calls(msda, lambda: srv._step(batch, sizes))
-    finally:
-        srv.close()
-    del srv
-    for part, lq in serving:
-        add_captured(f"serving {part} model", calls[lq], False)
+    if any(kept(f"serving {part} model") for part, _ in serving):
+        srv = cs.flagship_server()
+        try:
+            batch, sizes = cs.serving_batch(srv, cs.request_images())
+            calls = cs.capture_msda_calls(msda,
+                                          lambda: srv._step(batch, sizes))
+        finally:
+            srv.close()
+        del srv
+        for part, lq in serving:
+            add_captured(f"serving {part} model", calls[lq], False)
 
-    state, _, _ = cs.c2f_train_state(1)
-    calls = cs.training_msda_calls(msda, state,
-                                   cs.train_batches(1, "cuda")[0])
-    del state
-    torch.cuda.empty_cache()
-    for part, lq in training:
-        add_captured(f"training {part} model", calls[lq], True)
+    if any(kept(f"training {part} model") for part, _ in training):
+        state, _, _ = cs.c2f_train_state(1)
+        calls = cs.training_msda_calls(msda, state,
+                                       cs.train_batches(1, "cuda")[0])
+        del state
+        torch.cuda.empty_cache()
+        for part, lq in training:
+            add_captured(f"training {part} model", calls[lq], True)
     return cases
+
+
+def gather_cases(only=None) -> list:
+    """(name, wrapper, args, want, tolerance or None for exact, bound ms,
+    bound_by) for every gather case whose name holds `only`: the gather
+    bench's inputs, checked as the bench checks them (gather_fma against
+    the plain version's f32 sum, one bf16 rounding)."""
+    cases = []
+
+    def add(name, fn, args, want, tol, work):
+        if not only or only in name:
+            cases.append((name, fn, args, want, tol,
+                          *cs.roofline(work["bytes"], work["flops"])))
+
+    table, idx, _ = gbench.bench_inputs("cuda")
+    add("gather copy (K2)", gather.row_gather, (table, idx),
+        gather.row_gather_plain(table, idx), None,
+        gbench.roofline_work(table, idx))
+    for k in FMA_KS:
+        table, idx, w = gbench.bench_inputs("cuda", k=k)
+        add(f"gather fma K={k}" + (" (K3)" if k == gbench.K else ""),
+            gather.gather_fma, (table, idx, w, k),
+            gather.gather_fma_plain(table.float(), idx, w, k), cs.TOL["bf16"],
+            gbench.roofline_work(table, idx, k=k))
+    return cases
+
+
+def run_gather_case(case, libs, floor_ms) -> dict:
+    """Each library held against the plain result, then timed in turns (a,
+    b, b, a) by the profiler's device time per call."""
+    name, fn, args, want, tol, bound_ms, bound_by = case
+    res = dict(case=name, bound_ms=bound_ms, bound_by=bound_by,
+               floor_ms=floor_ms, libraries={})
+    for lname, lib in libs.items():
+        with _build.use_library(lib):
+            got = fn(*args)
+            torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        if tol is None:
+            assert torch.equal(got, want), f"{name} ({lname}): not exact"
+        else:
+            torch.testing.assert_close(
+                got.float(), want.float(), **tol,
+                msg=lambda m: f"{name} ({lname}): {m}")
+        res["libraries"][lname] = dict(max_abs_err=err, device_ms=[])
+    order = list(libs)
+    for turn in (order, order[::-1]):
+        for lname in turn:
+            with _build.use_library(libs[lname]):
+                res["libraries"][lname]["device_ms"].append(
+                    gbench.device_ms(lambda: fn(*args)))
+    line = [f"{name}: bound {bound_ms * 1e3:.3f} us ({bound_by}), launch "
+            f"floor {floor_ms * 1e3:.3f} us"]
+    for lname, r in res["libraries"].items():
+        ms = sum(r["device_ms"]) / 2
+        line.append(f"   {lname:>12}: {ms * 1e3:.3f} us device "
+                    f"({bound_ms / ms:.1%} of the bound, "
+                    f"{ms / floor_ms:.2f}x the floor); max_abs_err "
+                    f"{r['max_abs_err']:.3g}; turns {r['device_ms']}")
+    print("\n".join(line), flush=True)
+    return res
 
 
 def check_case(case, want) -> dict:
@@ -129,7 +207,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--source", action="append", default=[],
                     metavar="NAME=DIR", help="directory holding another "
-                    "commit's msda_fwd.cu, msda_bwd.cu and msda_common.cuh")
+                    "commit's msda_fwd.cu, msda_bwd.cu, gather.cu and "
+                    "msda_common.cuh")
     ap.add_argument("--only", help="run the cases whose name contains this")
     ap.add_argument("--out", default="build/msda_kernel_bench.json")
     args = ap.parse_args(argv)
@@ -150,11 +229,9 @@ def main(argv=None) -> int:
 
     results = []
     with _build.use_library(libs["new"]):
-        cases = collect_cases()
+        cases = collect_cases(args.only)
     for case in cases:
         name, value, shapes, loc, attn, g = case
-        if args.only and args.only not in name:
-            continue
         lq = loc.shape[1]
         iters = 10 if lq == value.shape[1] else 50  # encoder / decoder
         want = {"fwd": msda.ms_deform_attn_plain(value, shapes, loc, attn)}
@@ -200,11 +277,23 @@ def main(argv=None) -> int:
         print("\n".join(line), flush=True)
         results.append(res)
 
+    del cases
+    torch.cuda.empty_cache()
+    with _build.use_library(libs["new"]):
+        floor = gbench.launch_floor(torch.device("cuda"))
+    print(f"launch floor (new library): row_gather on one row "
+          f"{floor['row_gather_ms'] * 1e3:.3f} us, index_select on one row "
+          f"{floor['index_select_ms'] * 1e3:.3f} us; kernels per call "
+          f"{floor['row_gather_kernels']}, {floor['index_select_kernels']}",
+          flush=True)
+    for case in gather_cases(args.only):
+        results.append(run_gather_case(case, libs, floor["floor_ms"]))
+
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(dict(
         card=card, torch=torch.__version__, cuda=torch.version.cuda,
-        libraries={n: dict(source=str(d), ptxas=ptxas[n])
+        launch_floor=floor, libraries={n: dict(source=str(d), ptxas=ptxas[n])
                    for n, d in source_dirs.items()},
         results=results), indent=1))
     print(f"wrote {out}")

@@ -68,6 +68,32 @@ def test_gather_fma_plain_matches_run_fma_first_block(inputs):
     np.testing.assert_allclose(got, want, rtol=2.0 ** -8, atol=1e-5)
 
 
+@pytest.mark.parametrize("k", [1, 3, 16, 36])
+def test_gather_fma_plain_at_each_k_against_numpy(k):
+    """The function every instantiation of the kernel computes, at the K
+    values the card tests hold the kernel to: the f32 sum of k weighted bf16
+    rows, rounded once to bf16 (bench inputs drawn as the bench draws them,
+    256 outputs)."""
+    table, idx, w = bench.bench_inputs("cpu", k=k, n_out=256)
+    assert idx.shape == (256 * k,) and w.shape == (256 * k, 1)
+    got = gather.gather_fma(table, idx, w, k)
+    assert got.dtype == torch.bfloat16 and got.shape == (256, 128)
+    want = (table.float().numpy()[idx.numpy()] * w.numpy()).reshape(
+        -1, k, 128).sum(1)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2.0 ** -8,
+                               atol=1e-5)
+
+
+def test_bench_inputs_default_to_the_tpu_bench_draws(inputs):
+    """bench_inputs(k=16, n_out=2048) is the TPU bench's draw, index for
+    index: other k take more or fewer indices from the same stream."""
+    table, idx, w = bench.bench_inputs("cpu", k=bench.K, n_out=bench.N //
+                                       bench.K)
+    assert torch.equal(table, inputs[0]) and torch.equal(idx, inputs[1])
+    _, idx3, _ = bench.bench_inputs("cpu", k=3, n_out=10)
+    assert torch.equal(idx3, inputs[1][:30])
+
+
 @pytest.mark.parametrize("name", sorted(bench.PROBES))
 def test_probe_patterns_against_numpy(name):
     """The mosaic probes only report whether Mosaic lowers them; the port
@@ -109,3 +135,5 @@ def test_bench_entry_point_on_cpu(capsys):
     lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
     assert [r["case"] for r in lines] == ["copy", "fma", *bench.PROBES]
     assert all(r["ok"] and r["device"] == "cpu" for r in lines)
+    # no launch and no launch floor without a card
+    assert all(r["launches"] == 0 and r["floor_ms"] is None for r in lines)

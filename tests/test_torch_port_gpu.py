@@ -274,19 +274,65 @@ def test_row_gather_matches_plain(cuda, dtype, offset):
     assert torch.equal(got, gather.row_gather_plain(table, idx, offset))
 
 
-def test_gather_fma_matches_plain(cuda):
-    g = torch.Generator(device="cuda").manual_seed(1)
+def _fma_inputs(k, n_out, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
     table = torch.randn(300, 128, device="cuda", generator=g).to(
         torch.bfloat16)
-    idx = torch.randint(0, 300, (1024,), device="cuda", generator=g,
+    idx = torch.randint(0, 300, (n_out * k,), device="cuda", generator=g,
                         dtype=torch.int32)
-    w = torch.randn(1024, 1, device="cuda", generator=g)
-    before = gather.gather_fma.launches
-    got = gather.gather_fma(table, idx, w)
-    assert gather.gather_fma.launches == before + 1
-    want = gather.gather_fma_plain(table.float(), idx, w)
+    w = torch.randn(n_out * k, 1, device="cuda", generator=g)
+    return table, idx, w
+
+
+def _assert_fma_close(got, want):
     # one bf16 rounding of the f32 sum
     torch.testing.assert_close(got.float(), want, rtol=2.0 ** -8, atol=1e-5)
+
+
+# K = 16: the unrolled instantiation; 1, 3, 36: chunks of 8. n_out 1 and 37
+# fill no whole block.
+@pytest.mark.parametrize("k", [1, 3, 16, 36])
+@pytest.mark.parametrize("n_out", [1, 37, 2048])
+def test_gather_fma_matches_plain(cuda, k, n_out):
+    table, idx, w = _fma_inputs(k, n_out, seed=1)
+    before = gather.gather_fma.launches
+    got = gather.gather_fma(table, idx, w, k)
+    assert gather.gather_fma.launches == before + 1
+    _assert_fma_close(got, gather.gather_fma_plain(table.float(), idx, w, k))
+
+
+@pytest.mark.parametrize("k", [1, 3, 16, 36])
+def test_gather_fma_outside_rows_read_as_zero(cuda, k):
+    """Indices outside the table (-1, T, T + 7) add nothing, whatever their
+    weight: the plain sum over the inside ones."""
+    table, idx, w = _fma_inputs(k, 37, seed=2)
+    t = table.shape[0]
+    idx[0::5], idx[2::5], idx[4::5] = -1, t, t + 7
+    w[0::5] = float("inf")
+    inside = (idx >= 0) & (idx < t)
+    got = gather.gather_fma(table, idx, w, k)
+    want = gather.gather_fma_plain(table.float(), idx.clamp(0, t - 1),
+                                   torch.where(inside[:, None], w, 0.0), k)
+    _assert_fma_close(got, want)
+
+
+def test_gather_fma_all_outside_gives_exact_zeros(cuda):
+    table, idx, w = _fma_inputs(16, 37, seed=3)
+    got = gather.gather_fma(table, idx - 300, w, 16)
+    assert torch.equal(got, torch.zeros_like(got))
+
+
+def test_gather_fma_takes_misaligned_indices(cuda):
+    """K = 16 with idx and w 4 bytes past a 16-byte boundary: the chunked
+    instantiation (the unrolled one reads them as 16-byte vectors)."""
+    table, idx, w = _fma_inputs(16, 37, seed=4)
+    idx_m = torch.empty(idx.numel() + 1, dtype=torch.int32, device="cuda")[1:]
+    w_m = torch.empty(idx.numel() + 1, device="cuda")[1:]
+    idx_m.copy_(idx)
+    w_m.copy_(w.view(-1))
+    assert idx_m.data_ptr() % 16 and w_m.data_ptr() % 16
+    got = gather.gather_fma(table, idx_m, w_m.view(-1, 1), 16)
+    _assert_fma_close(got, gather.gather_fma_plain(table.float(), idx, w, 16))
 
 
 def test_gather_fma_refuses_f32(cuda):
