@@ -42,17 +42,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
      3 timed steps (launch counts of those, s/step, peak memory); one step's
      losses and gradients through the kernels against the same step through
      the plain versions (discrete choices held fixed: top-k, assignments,
-     prototype classes, the sign under each transformer ReLU); a profile, last: its
-     trace overflows the profiler's buffers, after which the profiler records
-     no device time in this process;
-  6. the result: a {"kernels": [...]} line, the card line, and as the last
+     prototype classes, the sign under each transformer ReLU); a profile
+     of one step. This phase runs last, after phase 6: the profile's trace
+     overflows the profiler's buffers, after which the profiler records no
+     device time in this process;
+  6. the self-training slice at full width: the Cityscapes->Foggy
+     self-training config (DINO_4scale_C2F_self_training.py, seeded random
+     weights, the EMA teacher a copy of the student) trained by
+     engine.train_one_epoch_self_training on synthetic paired batches with
+     a photometric strong view at 1216x2048: a pseudo-label threshold set
+     for the run below the seeded teacher's top scores, a warm-up step,
+     then 3 timed steps (launch counts, s/step, peak memory, num_pseudo per
+     step); the device time of the teacher forward, the pseudo-labels (NMS
+     included) and the student's forward and backward; one step through
+     the kernels against the plain versions with the pseudo-labels made
+     once and the discrete choices held; update_emas_per_epoch;
+     engine.evaluate of the EMA teacher on 8 target images, batch 2
+     (launches, img/s, the 12 COCO stats) and one batch's detections
+     against the plain forward's; checkpoint and BestTracker round trips,
+     bitwise; its state freed before phase 5 starts, so that each
+     phase's peak memory is its own;
+  7. the result: a {"kernels": [...]} line, the card line, and as the last
      line {"ok": true, "device": {...}}.
 Imports nothing of JAX or datr_tpu. Needs one CUDA card; fails without one.
 """
 
 from __future__ import annotations
 
+import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -112,7 +131,7 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 
 def msda_inputs(gen, lq, dtype=torch.float32, d=D, case="random",
                 shapes=SHAPES):
-    dev = "cuda"
+    dev = gen.device
     s_tok = sum(h * w for h, w in shapes)
     value = torch.randn(B, s_tok, H, d, device=dev, generator=gen).to(dtype)
     attn = torch.rand(B, lq, H, L, P, device=dev, generator=gen)
@@ -248,7 +267,8 @@ def capture_msda_calls(msda, fn) -> dict:
 
     with mock.patch.object(msda, "ms_deform_attn", record), torch.no_grad():
         fn()
-    torch.cuda.synchronize()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
     return calls
 
 
@@ -635,26 +655,34 @@ def per_train_step(timing, key, n_enc, n_dec):
 # ---------------------------------------------------------------- phase 5
 
 
-def train_batches(n, device):
-    """n paired batches at 1216x2048: 2 source images, 2 fogged target
-    images, Cityscapes-sized (1024x2048) frames of 8 classes."""
+def paired_batches(n, device, seed, strong=False):
+    """n paired batches at 1216x2048: 2 source images (dataset seed
+    `seed`), 2 fogged target images (seed + 1), Cityscapes-sized
+    (1024x2048) frames of 8 classes; with `strong`, the target's
+    photometric strong view too. One thread per batch: numpy's array work
+    releases the GIL."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from datr_torch.data.synthetic import (
         SyntheticDetectionDataset,
         synthetic_da_batch,
     )
 
     src = SyntheticDetectionDataset(2 * n, (1024, 2048), 8, max_objects=16,
-                                    seed=0)
+                                    seed=seed)
     tgt = SyntheticDetectionDataset(2 * n, (1024, 2048), 8, max_objects=16,
-                                    seed=1, fog=0.35)
-    return [synthetic_da_batch(src, tgt, [2 * i, 2 * i + 1], TRAIN_CANVAS,
-                               max_boxes=100, device=device)
-            for i in range(n)]
+                                    seed=seed + 1, fog=0.35)
+    with ThreadPoolExecutor(n) as pool:
+        return list(pool.map(lambda i: synthetic_da_batch(
+            src, tgt, [2 * i, 2 * i + 1], TRAIN_CANVAS, max_boxes=100,
+            device=device, strong=strong), range(n)))
 
 
-def check_step_against_plain(state, batch, ccfg, wd, msda) -> dict:
+def check_step_against_plain(state, run, msda) -> dict:
     """One step's losses and gradients through the kernels against the
-    same step through the plain versions, f32 with TF32 off, with the CDN
+    same step through the plain versions (`run(dn_draws)` does forward,
+    losses and backward and returns (total, losses)), f32 with TF32 off,
+    with the CDN
     noise, the two-stage top-k of both passes, the matcher's assignments,
     the prototypes' class of each query and the sign under every ReLU of the
     transformer and its heads held to the kernel run's (each a discrete
@@ -667,13 +695,12 @@ def check_step_against_plain(state, batch, ccfg, wd, msda) -> dict:
     from datr_torch.models import layers as layers_mod
     from datr_torch.models import transformer as transformer_mod
     from datr_torch.train import criterion as crit_mod
-    from datr_torch.train.steps import loss_and_grads
 
     model = state.model
     groups, _ = cdn_mod.cdn_layout(model.dn_number, model.dn_single_pad)
     draws = cdn_mod.draw_cdn_noise(torch.Generator().manual_seed(7), 2,
                                    groups, model.dn_single_pad,
-                                   model.num_classes, batch["images"].device)
+                                   model.num_classes, state.amount.device)
     topk, match = dino_mod._stable_topk_indices, crit_mod.match_many
     protos = dino_mod.class_prototypes
     seen_topk, seen_assign, seen_cls, seen_relu = [], [], [], []
@@ -719,7 +746,7 @@ def check_step_against_plain(state, batch, ccfg, wd, msda) -> dict:
             mock.patch.object(dino_mod, "class_prototypes", rec_protos), \
             mock.patch.object(layers_mod, "F", relu_held(rec_relu)), \
             mock.patch.object(transformer_mod, "F", relu_held(rec_relu)):
-        total_k, losses_k, _ = loss_and_grads(state, batch, ccfg, wd, draws)
+        total_k, losses_k = run(draws)
     grads_k = {n: p.grad.clone() for n, p in model.named_parameters()
                if p.grad is not None}
     replay_topk, replay_assign = iter(seen_topk), iter(seen_assign)
@@ -734,7 +761,7 @@ def check_step_against_plain(state, batch, ccfg, wd, msda) -> dict:
             mock.patch.object(dino_mod, "class_prototypes", replay_protos), \
             mock.patch.object(layers_mod, "F", relu_held(replay_relu)), \
             mock.patch.object(transformer_mod, "F", relu_held(replay_relu)):
-        total_p, losses_p, _ = loss_and_grads(state, batch, ccfg, wd, draws)
+        total_p, losses_p = run(draws)
     assert next(replay_masks, None) is None, "the runs made different calls"
     if torch.cuda.is_available():
         torch.cuda.synchronize()
@@ -767,9 +794,10 @@ def check_step_against_plain(state, batch, ccfg, wd, msda) -> dict:
     return res
 
 
-def c2f_train_state(n_batches):
-    """(state, criterion config, weight dict) of the C2F burn-in
-    configuration with seeded random weights, f32 with TF32 off."""
+def c2f_train_state(n_batches, config=C2F, seed=0, device=None):
+    """(state, criterion config, weight dict, config) of a C2F
+    configuration with seeded random weights on `device` (default: the
+    card), f32 with TF32 off."""
     from datr_torch.config import load_config
     from datr_torch.models import dino as dino_mod
     from datr_torch.train.criterion import criterion_from_config
@@ -778,14 +806,14 @@ def c2f_train_state(n_batches):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = load_config(C2F)
-    model = dino_mod.build_dino_from_config(cfg, seed=0)
+    cfg = load_config(config)
+    model = dino_mod.build_dino_from_config(cfg, device, seed=seed)
     ccfg, wd = criterion_from_config(cfg, model)
     opt = Optimizer(model, lr=cfg.lr, lr_backbone=cfg.lr_backbone,
                     weight_decay=cfg.weight_decay,
                     clip_max_norm=cfg.clip_max_norm,
                     lr_drop_step=cfg.lr_drop * n_batches)
-    return create_train_state(model, opt, seed=0), ccfg, wd
+    return create_train_state(model, opt, seed=seed), ccfg, wd, cfg
 
 
 def training_msda_calls(msda, state, batch) -> dict:
@@ -805,15 +833,18 @@ def training_msda_calls(msda, state, batch) -> dict:
         dn_draws=draws))
 
 
-def run_training(msda, card) -> dict:
+def run_training(msda, card):
     """The burn-in training slice at full width through engine's
-    train_one_epoch."""
+    train_one_epoch, ending with the profile of one step (the caller runs
+    this phase last: the profile's trace overflows the profiler's buffers,
+    and later profiles in the process see no device time)."""
     from datr_torch.engine import train_one_epoch
     from datr_torch.models.layers import MSDeformAttn
-    from datr_torch.train.steps import train_step_burnin
+    from datr_torch.train.steps import loss_and_grads, train_step_burnin
 
     n_batches = 4  # one warm-up step, then the timed ones
-    state, ccfg, wd = c2f_train_state(n_batches)
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    state, ccfg, wd, _ = c2f_train_state(n_batches)
     model = state.model
     trainable = {n: p.detach().clone() for n, p in model.named_parameters()
                  if p.requires_grad}
@@ -823,7 +854,7 @@ def run_training(msda, card) -> dict:
         f"use_remat {model.use_remat}, canvas {TRAIN_CANVAS}, 4 images per "
         f"step")
     t0 = time.perf_counter()
-    batches = train_batches(n_batches, "cuda")
+    batches = paired_batches(n_batches, "cuda", seed=0)
     log(f"  synthetic batches built in {time.perf_counter() - t0:.2f} s")
 
     # launches per step, from the model: every MSDeformAttn runs once per
@@ -862,7 +893,8 @@ def run_training(msda, card) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"  {len(steps)} steps: {step_s:.3f} s/step by CUDA events "
         f"({wall_s / len(steps):.3f} s/step host), "
-        f"{4 / step_s:.3f} img/s, peak memory {peak_gb:.2f} GB on {card}")
+        f"{4 / step_s:.3f} img/s, peak memory {peak_gb:.2f} GB ("
+        f"{base_gb:.2f} GB allocated before the phase) on {card}")
     log(f"  launches {launches}; per step expected msda_fwd {want_fwd}, "
         f"msda_bwd {want_bwd} ({n_msda} MSDeformAttn x 2 passes)")
     log(f"  mean metrics: loss {metrics['loss']:.4f}, grad_norm "
@@ -880,15 +912,323 @@ def run_training(msda, card) -> dict:
     assert not unchanged, f"trainable parameters unchanged: {unchanged}"
     assert state.step == n_batches and state.amount.sum().item() > 0
 
-    check = check_step_against_plain(state, batches[0], ccfg, wd, msda)
-    prof = profile_step(lambda: train_step_burnin(state, batches[1], ccfg,
-                                                  wd)["loss"].item(),
-                        kernels=("msda_fwd", "msda_bwd"), top=15)
+    check = check_step_against_plain(
+        state, lambda d: loss_and_grads(state, batches[0], ccfg, wd, d)[:2],
+        msda)
+
+    log("  profile of one burn-in step")
+    profile = profile_step(lambda: train_step_burnin(
+        state, batches[1], ccfg, wd)["loss"].item(),
+        kernels=("msda_fwd", "msda_bwd"), top=15)
     return dict(launches=launches, steps=len(steps),
                 launches_per_step=dict(msda_fwd=want_fwd, msda_bwd=want_bwd),
                 step_s=step_s, img_s=4 / step_s, host_step_s=wall_s / len(
-                    steps), peak_memory_gb=peak_gb, loss=metrics["loss"],
-                against_plain=check, profile=prof, model_locations=at_model)
+                    steps), peak_memory_gb=peak_gb,
+                allocated_before_gb=base_gb, loss=metrics["loss"],
+                against_plain=check, model_locations=at_model,
+                profile=profile)
+
+
+# ---------------------------------------------------------------- phase 6
+
+C2F_ST = ("configs/DA/Cityscapes2FoggyCityscapes/"
+          "DINO_4scale_C2F_self_training.py")
+
+
+def pseudo_threshold(state, batches, k=30) -> float:
+    """A score threshold under which each target image of `batches` keeps
+    at least its k best (query, class) candidates before NMS: the seeded
+    teacher scores about 0.01 everywhere (the class bias prior), so the
+    configured 0.3 would keep nothing and the target loss would be 0."""
+    kth = []
+    with torch.no_grad():
+        for b in batches:
+            out = state.ema_teacher(b["images"][2:], b["pad_mask"][2:])
+            s = out["pred_logits"].sigmoid().flatten(1)
+            kth.append(s.sort(-1, descending=True).values[:, k - 1])
+    return float(torch.cat(kth).min())
+
+
+def check_eval_against_plain(model, batch, msda) -> dict:
+    """One eval batch's detections (eval_step: forward + top-300) through
+    the kernels against the plain forward's, with the two-stage top-k and
+    the detections' top-k held to the kernel run's: boxes (normalized by
+    the image size) atol 1e-4, scores atol 1e-3."""
+    from datr_torch.models import dino as dino_mod
+    from datr_torch.models import postprocess as pp_mod
+    from datr_torch.train.steps import eval_step
+
+    seen = {"dino": [], "pp": []}
+
+    def rec(key, fn):
+        def f(x, k):
+            seen[key].append(fn(x, k))
+            return seen[key][-1]
+        return f
+
+    with mock.patch.object(dino_mod, "_stable_topk_indices",
+                           rec("dino", dino_mod._stable_topk_indices)), \
+            mock.patch.object(pp_mod, "_stable_topk_indices",
+                              rec("pp", pp_mod._stable_topk_indices)):
+        got = eval_step(model, batch)
+    replay = {k: iter(v) for k, v in seen.items()}
+    with mock.patch.object(msda, "ms_deform_attn",
+                           msda.ms_deform_attn_plain), \
+            mock.patch.object(dino_mod, "_stable_topk_indices",
+                              lambda x, k: next(replay["dino"])), \
+            mock.patch.object(pp_mod, "_stable_topk_indices",
+                              lambda x, k: next(replay["pp"])):
+        want = eval_step(model, batch)
+    torch.cuda.synchronize()
+    hw = batch["orig_sizes"].flip(-1).repeat(1, 2)[:, None, :]
+    diffs = dict(boxes=((got["boxes"] - want["boxes"]) / hw).abs().max()
+                 .item(),
+                 scores=(got["scores"] - want["scores"]).abs().max().item())
+    tol = dict(boxes=1e-4, scores=1e-3)
+    log(f"  eval detections through the kernels vs the plain forward "
+        f"(tolerance atol {tol}): {diffs}")
+    for k, t in tol.items():
+        assert diffs[k] <= t, f"eval detections: {k} {diffs[k]}"
+    return diffs
+
+
+def cuda_timed(fn):
+    """(fn(), device ms between events recorded before and after fn on the
+    current stream: the work fn queues, plus any wait of the stream on the
+    host inside fn)."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def check_checkpoints(state, cfg, ap50) -> dict:
+    """save_checkpoint / load_checkpoint of the whole state into a fresh
+    one, and a BestTracker family reloaded by load_resume into all four
+    module copies, in a temporary directory: every tensor back bitwise."""
+    import tempfile
+
+    from datr_torch.models import dino as dino_mod
+    from datr_torch.train import checkpoint as ckpt
+    from datr_torch.train.optim import Optimizer
+    from datr_torch.train.state import EMA_TRACKS, create_train_state
+
+    def tensors(st):
+        out = {f"model.{k}": v for k, v in st.model.state_dict().items()}
+        for n in EMA_TRACKS:
+            out.update({f"{n}.{k}": v
+                        for k, v in getattr(st, n).state_dict().items()})
+        for i, ps in st.optimizer.opt.state_dict()["state"].items():
+            out.update({f"opt.{i}.{k}": v for k, v in ps.items()})
+        out.update(global_proto=st.global_proto, amount=st.amount,
+                   generator=st.dn_generator.get_state())
+        return out
+
+    fresh_model = dino_mod.build_dino_from_config(cfg, seed=9)
+    fresh = create_train_state(fresh_model, Optimizer(fresh_model), seed=9)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        ckpt.save_checkpoint(f"{d}/checkpoint", state, 0, {"best": {}})
+        save_s = time.perf_counter() - t0
+        size_gb = sum(os.path.getsize(f"{d}/{f}") for f in os.listdir(d)) \
+            / 1e9
+        t0 = time.perf_counter()
+        fresh, start, meta = ckpt.maybe_auto_resume(d, fresh)
+        load_s = time.perf_counter() - t0
+        want, got = tensors(state), tensors(fresh)
+        assert want.keys() == got.keys() and start == 1, (start, meta)
+        bad = [k for k in want if not torch.equal(want[k], got[k])]
+        assert not bad, f"not bitwise after the round trip: {bad[:5]}"
+        assert (fresh.step, fresh.ema_updates) == (state.step,
+                                                   state.ema_updates)
+        tracker = ckpt.BestTracker(d)
+        assert tracker.update("best_ema_teacher", ap50, state.ema_teacher, 0)
+        fresh, start, meta = ckpt.load_resume(f"{d}/best_ema_teacher", fresh)
+        teacher = state.ema_teacher.state_dict()
+        for m in (fresh.model, *(getattr(fresh, n) for n in EMA_TRACKS)):
+            bad = [k for k, v in m.state_dict().items()
+                   if not torch.equal(v, teacher[k])]
+            assert not bad, f"best family not bitwise: {bad[:5]}"
+        assert start == 0 and meta["ap50"] == ap50
+        log_best = open(f"{d}/log_best.txt").read().strip()
+    res = dict(tensors=len(want), size_gb=size_gb, save_s=save_s,
+               load_s=load_s, log_best=log_best)
+    log(f"  checkpoint round trips bitwise: {res}")
+    del fresh, fresh_model
+    return res
+
+
+def run_self_training(msda, card) -> dict:
+    """The self-training slice at full width: the C2F self-training
+    configuration, teacher = a copy of the seeded student, through engine's
+    train_one_epoch_self_training, update_emas_per_epoch, evaluate with the
+    EMA teacher, and the checkpoints."""
+    from datr_torch import engine
+    from datr_torch.data.synthetic import (
+        SyntheticDetectionDataset,
+        synthetic_eval_batches,
+    )
+    from datr_torch.models.layers import MSDeformAttn
+    from datr_torch.train.ema import ema_update, ramped_decay
+    from datr_torch.train.pseudo import pseudo_labels_from_outputs
+    from datr_torch.train.steps import eval_step, self_training_loss_and_grads
+
+    n_batches = 4  # one warm-up step, then the timed ones
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    state, ccfg, wd, cfg = c2f_train_state(n_batches, C2F_ST, seed=1)
+    model = state.model
+    log(f"  C2F self-training: epochs {cfg.epochs}, burn_epochs "
+        f"{cfg.burn_epochs}, use_remat {model.use_remat}, canvas "
+        f"{TRAIN_CANVAS}, 2 + 2 images per step, 4 copies of the model "
+        f"(student, ema_teacher, best_ema, model_ema)")
+    t0 = time.perf_counter()
+    batches = paired_batches(n_batches, "cuda", seed=2, strong=True)
+    log(f"  synthetic batches (with the strong view) built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    thr = pseudo_threshold(state, batches)
+    thresholds = np.full((model.num_classes,), thr, np.float32)
+    log(f"  pseudo-label threshold for this run {thr:.6f} (configured "
+        f"{cfg.pseudo_label_threshold}; the seeded teacher's scores sit "
+        f"near 0.01)")
+
+    # per step: the teacher's eval forward (one pass), the student's two
+    # passes (again in remat's recompute) and their backward
+    n_msda = sum(isinstance(m, MSDeformAttn) for m in model.modules())
+    want_fwd = n_msda + 2 * n_msda * (2 if model.use_remat else 1)
+    want_bwd = 2 * n_msda
+
+    warm = engine.train_one_epoch_self_training(
+        state, batches[:1], ccfg, wd, thresholds, TRAIN_CANVAS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = batches[1:]
+    num_pseudo = []
+    real_step = engine.train_step_self_training
+
+    def recorded(*a, **kw):  # the metrics stay on the device
+        m = real_step(*a, **kw)
+        num_pseudo.append(m["num_pseudo"])
+        return m
+
+    # ---- the main path: counts from 0, steps, counts read ----
+    msda.msda_fwd.launches = msda.msda_bwd.launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    with mock.patch.object(engine, "train_step_self_training", recorded):
+        start.record()
+        metrics = engine.train_one_epoch_self_training(
+            state, steps, ccfg, wd, thresholds, TRAIN_CANVAS)
+        end.record()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(msda_fwd=msda.msda_fwd.launches,
+                    msda_bwd=msda.msda_bwd.launches)
+    step_s = start.elapsed_time(end) / 1e3 / len(steps)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    num_pseudo = [int(n) for n in num_pseudo]
+    log(f"  {len(steps)} steps: {step_s:.3f} s/step by CUDA events "
+        f"({wall_s / len(steps):.3f} s/step host), {4 / step_s:.3f} img/s "
+        f"(2 + 2 images; the teacher's 2 more), peak memory {peak_gb:.2f} "
+        f"GB ({base_gb:.2f} GB allocated before the phase) on {card}")
+    log(f"  num_pseudo per step {num_pseudo} (warm-up "
+        f"{warm['num_pseudo']:.0f}); launches {launches}; per step expected "
+        f"msda_fwd {want_fwd}, msda_bwd {want_bwd} ({n_msda} MSDeformAttn: "
+        f"teacher 1 pass, student 2 passes)")
+    log(f"  mean metrics: loss {metrics['loss']:.4f}, loss_ce_target "
+        f"{metrics['loss_ce_target']:.4f}, loss_bbox_target "
+        f"{metrics['loss_bbox_target']:.4f}, grad_norm "
+        f"{metrics['grad_norm']:.4f}")
+    assert launches == dict(msda_fwd=want_fwd * len(steps),
+                            msda_bwd=want_bwd * len(steps)), launches
+    assert len(num_pseudo) == len(steps) and min(num_pseudo) > 0, num_pseudo
+    assert all(np.isfinite(v) for v in metrics.values()), metrics
+    weighted = {k for k in metrics if k.startswith("loss_")
+                and not k.startswith(("loss_xy", "loss_hw"))}
+    assert weighted == set(wd) | {f"{k}_target" for k in wd if "_dn" not in
+                                  k and not k.endswith("_DA")}, weighted
+    assert metrics["loss_ce_target"] > 0 and metrics["loss_bbox_target"] > 0
+    assert state.step == n_batches
+
+    # ---- device time of the parts of one step, by CUDA events ----
+    b = batches[1]
+    thr_t = torch.as_tensor(thresholds, device=state.amount.device)
+    with torch.no_grad():
+        out, teacher_ms = cuda_timed(lambda: state.ema_teacher(
+            b["images"][2:], b["pad_mask"][2:]))
+    pseudo, pseudo_ms = cuda_timed(lambda: pseudo_labels_from_outputs(
+        out["pred_logits"], out["pred_boxes"], TRAIN_CANVAS, thr_t))
+    _, student_ms = cuda_timed(lambda: self_training_loss_and_grads(
+        state, b, ccfg, wd, pseudo))
+    state.optimizer.zero_grad()
+    parts = dict(teacher_forward_ms=teacher_ms, pseudo_labels_ms=pseudo_ms,
+                 student_forward_losses_backward_ms=student_ms)
+    log(f"  one step's parts by CUDA events: {parts}")
+
+    # ---- one step through the kernels against the plain versions, the
+    # pseudo-labels made once (through the kernels) and fed to both ----
+    def run(draws):
+        total, src, tgt, _ = self_training_loss_and_grads(
+            state, b, ccfg, wd, pseudo, draws)
+        return total, {**src, **{f"{k}_target": v for k, v in tgt.items()}}
+
+    check = check_step_against_plain(state, run, msda)
+    del out
+
+    # ---- the per-epoch EMA update (its kernels loaded first, on a small
+    # module: the first launch of each loads it) ----
+    small = torch.nn.Linear(4, 4).cuda()
+    ema_update(small, small, ramped_decay(0.9, 1))
+    teacher_w = state.ema_teacher.class_head.weight.clone()
+    _, ema_ms = cuda_timed(lambda: engine.update_emas_per_epoch(
+        state, cfg.burn_epochs, cfg))
+    assert state.ema_updates == 1
+    assert not torch.equal(teacher_w, state.ema_teacher.class_head.weight)
+    log(f"  update_emas_per_epoch: {ema_ms:.3f} ms by CUDA events")
+
+    # ---- evaluate with the EMA teacher: 8 target images, batch 2 ----
+    ev_ds = SyntheticDetectionDataset(8, (1024, 2048), 8, max_objects=16,
+                                      seed=4, fog=0.35)
+    ev = synthetic_eval_batches(ev_ds, 2, TRAIN_CANVAS, max_boxes=100,
+                                device="cuda")
+    msda.msda_fwd.launches = 0
+    t0 = time.perf_counter()
+    stats = engine.evaluate(state.ema_teacher, ev, range(cfg.num_classes))
+    eval_wall_s = time.perf_counter() - t0
+    eval_launches = msda.msda_fwd.launches
+    n_img = len(ev_ds)
+    # the eval steps alone (forward + top-300), back to back on the card
+    _, eval_ms = cuda_timed(lambda: [eval_step(state.ema_teacher, x)
+                                     for x in ev])
+    log(f"  evaluate (EMA teacher), {n_img} images at {TRAIN_CANVAS}, batch "
+        f"2: {n_img / eval_wall_s:.3f} img/s wall (COCO stats included); "
+        f"its eval steps back to back {n_img * 1e3 / eval_ms:.3f} img/s by "
+        f"CUDA events; msda_fwd launches {eval_launches} "
+        f"({eval_launches / len(ev)} per forward)")
+    log(f"  COCO stats {stats['coco_eval_bbox']}")
+    assert eval_launches == n_msda * len(ev), eval_launches
+    assert len(stats["coco_eval_bbox"]) == 12
+    assert all(np.isfinite(stats["coco_eval_bbox"]))
+    eval_check = check_eval_against_plain(state.ema_teacher, ev[0], msda)
+
+    ckpt_res = check_checkpoints(state, cfg, max(stats["ap50"], 0.0) + 0.5)
+    return dict(launches=launches, steps=len(steps),
+                launches_per_step=dict(msda_fwd=want_fwd, msda_bwd=want_bwd),
+                step_s=step_s, img_s=4 / step_s,
+                host_step_s=wall_s / len(steps), peak_memory_gb=peak_gb,
+                allocated_before_gb=base_gb, threshold=thr, num_pseudo=num_pseudo, loss=metrics["loss"],
+                parts=parts, against_plain=check, ema_update_ms=ema_ms,
+                eval=dict(images=n_img, batches=len(ev),
+                          eval_steps_device_ms=eval_ms,
+                          img_s=n_img * 1e3 / eval_ms,
+                          wall_img_s=n_img / eval_wall_s,
+                          launches=eval_launches,
+                          coco_eval_bbox=stats["coco_eval_bbox"],
+                          against_plain=eval_check),
+                checkpoints=ckpt_res)
 
 
 def run_gather_bench(gather, bench) -> dict:
@@ -1023,7 +1363,17 @@ def main() -> int:
     kg = gb["cases"]
     fma_errs = check_gather_fma(gather, bench)
 
-    log("phase 5: training slice at full width (C2F burn-in)")
+    # phase 6 runs before phase 5, whose profile must be the last work of
+    # the process; each phase's state is gone before the next one starts
+    log("phase 6: self-training slice at full width (C2F self-training, "
+        "evaluation, checkpoints)")
+    st = run_self_training(msda, card)
+    log("self_training " + json.dumps(dict(st, card=card)))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("phase 5: training slice at full width (C2F burn-in), its profile "
+        "last")
     tr = run_training(msda, card)
     log("training " + json.dumps(dict(tr, card=card)))
 
@@ -1058,11 +1408,16 @@ def main() -> int:
         "route": "cuda",
         "source": "datr_torch/csrc/msda_fwd.cu",
         "replaces": "datr_tpu/ops/msda_pallas.py:45",
-        "launches": s["launches"] + tr["launches"]["msda_fwd"],
+        "launches": (s["launches"] + tr["launches"]["msda_fwd"]
+                     + st["launches"]["msda_fwd"] + st["eval"]["launches"]),
         "launches_by_path": {"serving": s["launches"],
-                             "training": tr["launches"]["msda_fwd"]},
+                             "training": tr["launches"]["msda_fwd"],
+                             "self_training": st["launches"]["msda_fwd"],
+                             "eval": st["eval"]["launches"]},
         "launches_per_forward": s["launches"] // s["batches"],
         "launches_per_train_step": tr["launches_per_step"]["msda_fwd"],
+        "launches_per_self_training_step": st["launches_per_step"][
+            "msda_fwd"],
         "max_abs_err": max(v for n, v in [*k["errs"].items(),
                                           *kt["errs"].items()]
                            if "f32" in n and "msda_bwd" not in n),
@@ -1092,8 +1447,12 @@ def main() -> int:
         "route": "cuda",
         "source": "datr_torch/csrc/msda_bwd.cu",
         "replaces": "datr_tpu/ops/msda_pallas.py:154",
-        "launches": tr["launches"]["msda_bwd"],
+        "launches": tr["launches"]["msda_bwd"] + st["launches"]["msda_bwd"],
+        "launches_by_path": {"training": tr["launches"]["msda_bwd"],
+                             "self_training": st["launches"]["msda_bwd"]},
         "launches_per_train_step": tr["launches_per_step"]["msda_bwd"],
+        "launches_per_self_training_step": st["launches_per_step"][
+            "msda_bwd"],
         "max_abs_err": max(v for n, v in bwd_errs.items()
                            if "grad_loc" not in n),
         "max_abs_err_grad_loc": max(v for n, v in bwd_errs.items()

@@ -9,7 +9,7 @@ and bare parameters keep their names. A flax MultiHeadDotProductAttention
 tools/convert_checkpoint.py:convert_mha). A reference `.pth` reaches the port
 through tools/convert_checkpoint.py and then this function. The train-only
 parameters (`label_enc` and the DA heads `d_img`, `proto_d`) come across like
-the others.
+the others. `load_flax_train_state` carries a whole datr_tpu TrainState.
 """
 
 from __future__ import annotations
@@ -86,3 +86,22 @@ def load_flax_params(model: torch.nn.Module, params) -> List[str]:
         raise KeyError(f"parameters do not match: missing {bad}, "
                        f"unexpected {unexpected}")
     return missing
+
+
+def load_flax_train_state(state, jax_state):
+    """Carry a datr_tpu TrainState over into the port's `state` (a
+    `train.state.TrainState` of the same model), in place: `params` and each
+    EMA track through `state_dict_from_flax`, the prototype state and the
+    counters copied. The optimizer's moments are not carried: the port's
+    stay as they are (fresh for a fresh state). Returns `state`."""
+    from .train.state import EMA_TRACKS
+
+    load_flax_params(state.model, jax_state.params)
+    for name in EMA_TRACKS:
+        load_flax_params(getattr(state, name), getattr(jax_state, name))
+    dev = state.global_proto.device
+    state.global_proto = _t(jax_state.global_proto).to(dev)
+    state.amount = _t(jax_state.amount).to(dev)
+    state.step = int(jax_state.step)
+    state.ema_updates = int(jax_state.ema_updates)
+    return state

@@ -1,22 +1,29 @@
-"""Epoch loop of the burn-in stage (port of datr_tpu/engine.py:34-97).
+"""Epoch loops: burn-in, self-training, the per-epoch EMA updates,
+evaluation and the --test dump (port of datr_tpu/engine.py).
 
-`train_one_epoch` runs `train_step_burnin` over the batches, averages the
-scalar metrics, and stops on a non-finite loss (reference engine.py:81-84).
-The metrics stay on the device between drains: every DRAIN_EVERY steps one
-copy brings them to the host, so the loop does not wait for the card each
-step."""
+The training loops average the scalar metrics and stop on a non-finite loss
+(reference engine.py:81-84). The metrics stay on the device between drains:
+every DRAIN_EVERY steps one copy brings them to the host, so the loop does
+not wait for the card each step. Evaluation is single-process and bbox
+only.
+"""
 
 from __future__ import annotations
 
+import json
 import math
+import os
 import sys
-from typing import Dict, Iterable, List
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from .eval.coco_eval import CocoEvaluator
 from .train.criterion import CriterionCfg
+from .train.ema import cosine_decay, ema_update, ramped_decay
 from .train.state import TrainState
-from .train.steps import train_step_burnin
+from .train.steps import eval_step, train_step_burnin, train_step_self_training
 
 DRAIN_EVERY = 10  # steps between host copies of the metrics
 
@@ -41,17 +48,147 @@ def _drain(pending: List[Dict[str, torch.Tensor]],
     pending.clear()
 
 
-def train_one_epoch(state: TrainState, loader: Iterable,
-                    ccfg: CriterionCfg,
-                    weight_dict: Dict[str, float]) -> Dict[str, float]:
-    """Burn-in epoch over `loader` (batches as `synthetic_da_batch` builds
-    them, on the model's device). Returns the mean of every metric."""
+def _run_epoch(step: Callable[[Dict[str, torch.Tensor]],
+                              Dict[str, torch.Tensor]],
+               loader: Iterable) -> Dict[str, float]:
+    """Steps over `loader` with the windowed drain; the mean of every
+    metric."""
     sums: Dict[str, float] = {}
     counts: Dict[str, int] = {}
     pending: List[Dict[str, torch.Tensor]] = []
     for i, batch in enumerate(loader):
-        pending.append(train_step_burnin(state, batch, ccfg, weight_dict))
+        pending.append(step(batch))
         if i % DRAIN_EVERY == 0:
             _drain(pending, sums, counts)
     _drain(pending, sums, counts)
     return {k: sums[k] / counts[k] for k in sums}
+
+
+def train_one_epoch(state: TrainState, loader: Iterable,
+                    ccfg: CriterionCfg, weight_dict: Dict[str, float],
+                    ema_decay: float = 0.0) -> Dict[str, float]:
+    """Burn-in epoch over `loader` (batches as `synthetic_da_batch` builds
+    them, on the model's device). Returns the mean of every metric."""
+    return _run_epoch(lambda b: train_step_burnin(
+        state, b, ccfg, weight_dict, ema_decay=ema_decay), loader)
+
+
+def train_one_epoch_self_training(
+        state: TrainState, loader: Iterable, ccfg: CriterionCfg,
+        weight_dict: Dict[str, float], class_thresholds,
+        canvas_hw: Tuple[int, int], ema_decay: float = 0.0
+) -> Dict[str, float]:
+    """Self-training epoch (datr_tpu/engine.py:118-139) over batches with
+    `images_strong` (`synthetic_da_batch(..., strong=True)`); the EMA
+    teacher labels the weak target half with per-class score thresholds
+    `class_thresholds` [K]. Returns the mean of every metric, `num_pseudo`
+    included."""
+    thr = torch.as_tensor(class_thresholds, dtype=torch.float32,
+                          device=state.global_proto.device)
+    return _run_epoch(lambda b: train_step_self_training(
+        state, b, ccfg, weight_dict, thr, tuple(canvas_hw),
+        ema_decay=ema_decay), loader)
+
+
+def update_emas_per_epoch(state: TrainState, epoch: int, cfg) -> TrainState:
+    """main.py:382-386: the teacher takes the student at the ramped decay
+    of its update count, then the best track takes the teacher at the
+    cosine decay of the self-training epoch. In place; returns `state`."""
+    updates = state.ema_updates + 1
+    ema_update(state.ema_teacher, state.model,
+               ramped_decay(cfg.get("ema_decay_teacher", 0.9997), updates))
+    burn = int(cfg.get("burn_epochs", 40))
+    total = max(int(cfg.get("epochs", 36)) - burn, 1)
+    ema_update(state.best_ema, state.ema_teacher,
+               cosine_decay(cfg.get("ema_decay_best_model", 0.9), 0.9999,
+                            max(epoch - burn, 0), total))
+    state.ema_updates = updates
+    return state
+
+
+def _gt_xyxy(boxes: np.ndarray, orig_hw) -> np.ndarray:
+    """Normalized cxcywh -> absolute xyxy in the original image."""
+    oh, ow = orig_hw
+    b = np.asarray(boxes, np.float64)
+    cx, cy, w, h = b[:, 0], b[:, 1], b[:, 2], b[:, 3]
+    return np.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2],
+                    1) * np.array([ow, oh, ow, oh])
+
+
+_GT_KEYS = ("image_ids", "batch_valid", "orig_sizes", "boxes", "labels",
+            "valid")
+
+
+def _eval_batches(model, loader: Iterable, num_select: int,
+                  nms_iou_threshold: float, not_to_xyxy: bool = False):
+    """(results, batch GT) of each batch, as numpy on the host."""
+    for batch in loader:
+        res = eval_step(model, batch, num_select=num_select,
+                        nms_iou_threshold=nms_iou_threshold,
+                        not_to_xyxy=not_to_xyxy)
+        yield ({k: v.cpu().numpy() for k, v in res.items()},
+               {k: batch[k].cpu().numpy() for k in _GT_KEYS})
+
+
+def evaluate(model, loader: Iterable, categories: Sequence[int],
+             num_select: int = 300, nms_iou_threshold: float = -1.0
+             ) -> Dict:
+    """Detection eval of `model` (the student or an EMA track) over eval
+    batches (`synthetic_eval_batches`; datr_tpu's EvalLoader keys): the 12
+    COCO stats (datr_tpu/engine.py:161-323 -> coco_eval_bbox) and AP50.
+    A positive `nms_iou_threshold` applies the class-aware eval NMS
+    (dino.py:989-992). Ground truth comes from the batches' boxes."""
+    evaluator = CocoEvaluator(categories)
+    for res, gt in _eval_batches(model, loader, num_select,
+                                 float(nms_iou_threshold)):
+        for i, image_id in enumerate(gt["image_ids"]):
+            if not gt["batch_valid"][i]:
+                continue
+            db, ds, dl = res["boxes"][i], res["scores"][i], res["labels"][i]
+            if "valid" in res:  # NMS: the surviving detections only
+                keep = res["valid"][i]
+                db, ds, dl = db[keep], ds[keep], dl[keep]
+            gv = gt["valid"][i]
+            evaluator.add_image(
+                int(image_id),
+                gt_boxes=_gt_xyxy(gt["boxes"][i], gt["orig_sizes"][i])[gv],
+                gt_labels=gt["labels"][i][gv],
+                det_boxes=db, det_scores=ds, det_labels=dl)
+    stats = evaluator.summarize()
+    return {"coco_eval_bbox": stats, "ap50": stats[1]}
+
+
+def test(model, loader: Iterable, output_dir: Optional[str],
+         num_select: int = 300, nms_iou_threshold: float = -1.0
+         ) -> List[dict]:
+    """--test mode (reference engine.py:527-597): every detection as a
+    COCO-format record, boxes cxcywh in original-image pixels, written to
+    `<output_dir>/results0.json`. With eval NMS, the survivors only: NMS
+    runs on xyxy boxes and the kept ones are converted back (the reference
+    would run it on the cxcywh tensors)."""
+    use_nms = nms_iou_threshold > 0
+    final_res = []
+    for res, gt in _eval_batches(model, loader, num_select,
+                                 float(nms_iou_threshold),
+                                 not_to_xyxy=not use_nms):
+        for i, image_id in enumerate(gt["image_ids"]):
+            if not gt["batch_valid"][i]:
+                continue
+            boxes = np.asarray(res["boxes"][i], np.float64)
+            scores, labels = res["scores"][i], res["labels"][i]
+            if use_nms:  # xyxy survivors -> cxcywh
+                keep = res["valid"][i]
+                boxes, scores, labels = boxes[keep], scores[keep], \
+                    labels[keep]
+                x0, y0, x1, y1 = boxes.T
+                boxes = np.stack([(x0 + x1) / 2, (y0 + y1) / 2, x1 - x0,
+                                  y1 - y0], 1)
+            for s, lab, b in zip(scores, labels, boxes):
+                final_res.append({"image_id": int(image_id),
+                                  "category_id": int(lab),
+                                  "bbox": [float(x) for x in b],
+                                  "score": float(s)})
+    if output_dir:
+        with open(os.path.join(output_dir, "results0.json"), "w") as f:
+            json.dump(final_res, f)
+    return final_res

@@ -10,7 +10,8 @@ half target: the source pass with CDN denoising queries split off the
 outputs, the image discriminator behind gradient reversal over every level,
 class prototypes of both domains, and the target pass without DN. With
 `use_remat` each encoder and decoder layer is recomputed in the backward
-(torch.utils.checkpoint). f32 only; no masks, no self-training outputs yet.
+(torch.utils.checkpoint). With `self_training` the target pass's own
+detection outputs come back too (`*_target`). f32 only; no masks.
 Module attribute names mirror the flax parameter tree (`input_proj0_conv`,
 `enc_layer3`, `class_head`, `d_img`, ...).
 """
@@ -331,7 +332,8 @@ class DINO(nn.Module):
         are the running prototype state. The CDN noise comes from
         `dn_draws`, else from `dn_generator`. Returns datr_tpu's train
         outputs (dn_*, pred_*, aux_*, interm_*, da_*, new_global_proto,
-        new_amount) plus `topk_idx` / `topk_idx_target`."""
+        new_amount; with `self_training` also pred_/aux_/interm_*_target)
+        plus `topk_idx` / `topk_idx_target`."""
         srcs, masks, poss = self._extract_features(images, pad_mask)
         src_flat, mask_flat, pos_flat, spatial_shapes = self._flatten_levels(
             srcs, masks, poss)
@@ -351,17 +353,14 @@ class DINO(nn.Module):
                 "init_box_proposal": init_box_proposal,
                 "topk_idx": topk_idx,
             }
-        if self_training:
-            raise NotImplementedError(
-                "datr_torch does not implement the self-training outputs")
         return self._train_forward(srcs, src_flat, mask_flat, pos_flat,
                                    valid_ratios, spatial_shapes, targets,
                                    global_proto, amount, dn_generator,
-                                   dn_draws)
+                                   dn_draws, self_training)
 
     def _train_forward(self, srcs, src_flat, mask_flat, pos_flat,
                        valid_ratios, spatial_shapes, targets, global_proto,
-                       amount, dn_generator, dn_draws):
+                       amount, dn_generator, dn_draws, self_training):
         B = src_flat.shape[0]
         if B % 2:
             raise ValueError("paired DA batches must have an even batch size")
@@ -419,9 +418,10 @@ class DINO(nn.Module):
         proto_src = class_prototypes(hs[-1][:, pad_size:],
                                      out["pred_logits"], global_proto, amount)
         # target pass, no DN
-        hs_t, _, _, _, _, topk_idx_t = self._transformer_pass(
-            src_flat[half:], mask_flat[half:], pos_flat[half:],
-            valid_ratios[half:], spatial_shapes)
+        hs_t, refs_t, tgt_undetach_t, ref_unsig_t, _, topk_idx_t = (
+            self._transformer_pass(src_flat[half:], mask_flat[half:],
+                                   pos_flat[half:], valid_ratios[half:],
+                                   spatial_shapes))
         proto_tgt = class_prototypes(hs_t[-1], self.class_head(hs_t[-1]),
                                      proto_src.new_global_proto,
                                      proto_src.new_amount)
@@ -434,6 +434,15 @@ class DINO(nn.Module):
         out["new_global_proto"] = proto_tgt.new_global_proto
         out["new_amount"] = proto_tgt.new_amount
         out["topk_idx_target"] = topk_idx_t
+        if self_training:  # dino.py:619-628
+            logits_t, coords_t = self._head_outputs(hs_t, refs_t)
+            out["pred_logits_target"] = logits_t[-1]
+            out["pred_boxes_target"] = coords_t[-1]
+            out["aux_logits_target"] = logits_t[:-1]
+            out["aux_boxes_target"] = coords_t[:-1]
+            out["interm_logits_target"] = self.enc_out_class_head(
+                tgt_undetach_t)
+            out["interm_boxes_target"] = ref_unsig_t.sigmoid()
         return out
 
 

@@ -1,0 +1,189 @@
+"""Checkpoints in the port's own format, with the best-model families (port
+of datr_tpu/train/checkpoint.py; reference main.py:395-412 per-epoch saves,
+:425-515 the best families checkpoint_best_regular, checkpoint_best_ema,
+best_ema_teacher, best_ema_model, auto-resume :226-245).
+
+A checkpoint is one `torch.save` file plus `<path>.meta.json` (the epoch
+and whatever the caller adds). The file holds either a whole TrainState
+(model, optimizer, the three EMA tracks, prototype state, counters, the CDN
+generator) or one model's state_dict (a best family). datr_tpu's orbax
+checkpoints are not read here: the card's machine has no orbax. The file
+is written under a temporary name and renamed, then the meta: a crash
+leaves either the old pair or the new checkpoint beside the old meta.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Dict, Optional, Tuple, Union
+
+import torch
+from torch import nn
+
+from ..convert import DA_HEADS
+from .state import EMA_TRACKS, TrainState
+
+
+def _payload(obj: Union[TrainState, nn.Module, Dict[str, torch.Tensor]]):
+    if isinstance(obj, TrainState):
+        return {
+            "model": obj.model.state_dict(),
+            "optimizer": obj.optimizer.opt.state_dict(),
+            **{name: getattr(obj, name).state_dict() for name in EMA_TRACKS},
+            "global_proto": obj.global_proto,
+            "amount": obj.amount,
+            "step": obj.step,
+            "ema_updates": obj.ema_updates,
+            "dn_generator": obj.dn_generator.get_state(),
+        }
+    if isinstance(obj, nn.Module):
+        return obj.state_dict()
+    return dict(obj)
+
+
+def _is_state(payload) -> bool:
+    return {"model", "optimizer"} <= set(payload)
+
+
+def _read_meta(path: str) -> dict:
+    if os.path.exists(path + ".meta.json"):
+        with open(path + ".meta.json") as f:
+            return json.load(f)
+    return {}
+
+
+def save_checkpoint(path: str, obj, epoch: int,
+                    extra: Optional[dict] = None):
+    """Save a TrainState, a module (its state_dict) or a state_dict at
+    `path`, and `{"epoch": epoch, **extra}` at `path + '.meta.json'`."""
+    path = os.path.abspath(path)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save(_payload(obj), tmp)
+    os.replace(tmp, path)
+    with open(path + ".meta.json", "w") as f:
+        json.dump({"epoch": epoch, **(extra or {})}, f)
+
+
+def _restore_state(state: TrainState, payload) -> TrainState:
+    state.model.load_state_dict(payload["model"])
+    state.optimizer.opt.load_state_dict(payload["optimizer"])
+    for name in EMA_TRACKS:
+        getattr(state, name).load_state_dict(payload[name])
+    dev = state.global_proto.device
+    state.global_proto = payload["global_proto"].to(dev)
+    state.amount = payload["amount"].to(dev)
+    state.step = int(payload["step"])
+    state.ema_updates = int(payload["ema_updates"])
+    state.dn_generator.set_state(payload["dn_generator"])
+    return state
+
+
+def _load(path: str):
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_checkpoint(path: str, state: TrainState) -> Tuple[TrainState, dict]:
+    """Restore a whole-state checkpoint into `state` in place. Returns
+    (state, meta)."""
+    path = os.path.abspath(path)
+    payload = _load(path)
+    if not _is_state(payload):
+        raise ValueError(f"{path} holds no training state (a best family?)")
+    return _restore_state(state, payload), _read_meta(path)
+
+
+def _pretrain_params(path: str, payload, model: nn.Module
+                     ) -> Dict[str, torch.Tensor]:
+    if _is_state(payload):
+        payload = payload["model"]
+    want = model.state_dict()
+    # published eval checkpoints may lack the train-only DA heads (the
+    # reference creates them only when training, dino.py:102-108): exactly
+    # these come from the model's own init, everything else is checked
+    missing = [k for k in want if k not in payload]
+    filled = {k: want[k] for k in missing if k.split(".")[0] in DA_HEADS}
+    unexpected = [k for k in payload if k not in want]
+    if len(filled) != len(missing) or unexpected:
+        raise ValueError(
+            f"pretrain checkpoint at {path} does not fit the model: missing "
+            f"{sorted(set(missing) - set(filled))}, unexpected {unexpected}")
+    out = {}
+    for k, t in want.items():
+        r = filled[k] if k in filled else payload[k]
+        # an exact shape: a transposed kernel of the right size must fail
+        if tuple(r.shape) != tuple(t.shape):
+            raise ValueError(
+                f"pretrain checkpoint at {path}: {k} has shape "
+                f"{tuple(r.shape)}, the model expects {tuple(t.shape)}")
+        out[k] = r.to(t.dtype)
+    return out
+
+
+def load_pretrain_params(path: str, model: nn.Module
+                         ) -> Dict[str, torch.Tensor]:
+    """The state_dict of a pretrain checkpoint, whole-state or one model's
+    (a best family), for `model` (datr_tpu/train/checkpoint.py:152-203):
+    DA heads it lacks filled from `model`, every shape checked exactly.
+    The caller loads it (`model.load_state_dict`)."""
+    path = os.path.abspath(path)
+    return _pretrain_params(path, _load(path), model)
+
+
+def maybe_auto_resume(output_dir: str, state: TrainState
+                      ) -> Tuple[TrainState, int, dict]:
+    """Resume from `<output_dir>/checkpoint` if it exists (main.py:226-245).
+    Returns (state, start_epoch, meta); meta carries the BestTracker's
+    `best` so a resumed run keeps its best families."""
+    path = os.path.join(output_dir, "checkpoint")
+    if os.path.exists(path):
+        state, meta = load_checkpoint(path, state)
+        return state, int(meta.get("epoch", -1)) + 1, meta
+    return state, 0, {}
+
+
+def load_resume(path: str, state: TrainState
+                ) -> Tuple[TrainState, int, dict]:
+    """Explicit resume (main.py:226-245 args.resume). A whole-state
+    checkpoint resumes training where it stopped. A params-only one (a best
+    family, e.g. best_ema_teacher for --eval --ema) loads its weights into
+    the model and every EMA track and does not advance the epoch: the
+    reference sets start_epoch only when optimizer, schedule and epoch are
+    all in the checkpoint (main.py:239-245). Returns (state, start_epoch,
+    meta)."""
+    path = os.path.abspath(path)
+    meta = _read_meta(path)
+    payload = _load(path)
+    if _is_state(payload):
+        return _restore_state(state, payload), int(
+            meta.get("epoch", -1)) + 1, meta
+    params = _pretrain_params(path, payload, state.model)
+    for m in (state.model, *(getattr(state, n) for n in EMA_TRACKS)):
+        m.load_state_dict(params)
+    return state, 0, meta
+
+
+class BestTracker:
+    """The best AP50 of each family, saved on improvement (util/utils.py
+    BestMetricHolder :398-470 + main.py's best families). `best` persists
+    across restarts through the main checkpoint's meta (pass the resumed
+    dict as `initial_best`)."""
+
+    def __init__(self, output_dir: str, initial_best: Optional[dict] = None):
+        self.output_dir = output_dir
+        self.best: dict = dict(initial_best or {})
+
+    def update(self, family: str, ap50: float, tree, epoch: int) -> bool:
+        """Save `tree` (a module or a state_dict) as `family` and log it to
+        log_best.txt when `ap50` beats the family's best. Returns whether
+        it did."""
+        if not ap50 > self.best.get(family, -1.0):  # a NaN never improves
+            return False
+        self.best[family] = float(ap50)
+        save_checkpoint(os.path.join(self.output_dir, family), tree, epoch,
+                        {"ap50": float(ap50)})
+        with open(os.path.join(self.output_dir, "log_best.txt"), "a") as f:
+            f.write(json.dumps({"family": family, "epoch": epoch,
+                                "ap50": float(ap50)}) + "\n")
+        return True

@@ -1,11 +1,13 @@
-"""Set criterion: matched detection losses, DN losses and the DA losses
-(port of datr_tpu/train/criterion.py:35-421), with the same loss keys.
+"""Set criterion: matched detection losses, DN losses and the DA losses,
+and the target-domain losses of self-training against pseudo-labels (port
+of datr_tpu/train/criterion.py), with the same loss keys.
 
 Targets have static shapes: boxes [B, T, 4] normalized cxcywh, labels [B, T]
 int, valid [B, T] bool. `num_boxes` is the valid-target count. The
 assignments of every decoder layer and of the encoder output are solved
 together (`ops.matcher.match_many`: one device-to-host copy of the costs per
-call of `criterion`).
+call of `criterion`; a self-training step makes two calls, source and
+target).
 """
 
 from __future__ import annotations
@@ -45,8 +47,13 @@ def detection_losses(
     assign: torch.Tensor,  # [B, T] matched query per target
     num_boxes: torch.Tensor,  # scalar
     focal_alpha: float,
+    img_mask: Optional[torch.Tensor] = None,  # [B]: 0 drops a whole image
 ) -> Dict[str, torch.Tensor]:
     B, N, K = logits.shape
+    if img_mask is not None:
+        # the reference drops images without pseudo-labels from the target
+        # loss (self_training_utils.py:103-137)
+        gt_valid = gt_valid & (img_mask > 0)[:, None]
     valid_f = gt_valid.to(torch.float32)
     assign_safe = torch.where(gt_valid, assign, 0)
     b_idx = torch.arange(B, device=logits.device)[:, None].expand_as(
@@ -58,8 +65,10 @@ def detection_losses(
     target_onehot = torch.zeros((B, N, K), dtype=torch.float32,
                                 device=logits.device)
     target_onehot.index_put_((b_idx, assign_safe), onehot_t, accumulate=True)
-    loss_ce = sigmoid_focal_loss(logits.float(), target_onehot,
-                                 focal_alpha).sum() / num_boxes
+    focal = sigmoid_focal_loss(logits.float(), target_onehot, focal_alpha)
+    if img_mask is not None:
+        focal = focal * img_mask[:, None, None]
+    loss_ce = focal.sum() / num_boxes
 
     # boxes: L1 + GIoU over matched pairs
     src_boxes = _gather_queries(boxes, assign_safe).float()  # [B, T, 4]
@@ -190,29 +199,42 @@ def da_contrast_loss(query_source, query_target, class_map_source,
 def criterion(outputs: Dict[str, torch.Tensor], gt_labels: torch.Tensor,
               gt_boxes: torch.Tensor, gt_valid: torch.Tensor,
               cfg: CriterionCfg,
-              num_boxes: Optional[torch.Tensor] = None
+              num_boxes: Optional[torch.Tensor] = None,
+              target_domain: bool = False,
+              img_mask: Optional[torch.Tensor] = None,
               ) -> Dict[str, torch.Tensor]:
-    """Every loss of the source domain's outputs: the final layer, the aux
-    layers (`_{i}`), the encoder output (`_interm`), the DN losses of every
-    layer and the three DA losses."""
+    """Every loss of one domain's outputs: the final layer, the aux layers
+    (`_{i}`), the encoder output (`_interm`), and for the source domain the
+    DN losses of every layer and the three DA losses. `target_domain` reads
+    the `*_target` outputs of a self-training forward against the
+    pseudo-labels and skips DN and DA; `img_mask` [B] drops whole images
+    (those without pseudo-labels), before `num_boxes` is counted."""
+    sfx = "_target" if target_domain else ""
+    if img_mask is not None:
+        gt_valid = gt_valid & (img_mask > 0)[:, None]
     if num_boxes is None:
         num_boxes = gt_valid.sum().to(torch.float32).clamp(min=1.0)
-    aux_logits, aux_boxes = outputs["aux_logits"], outputs["aux_boxes"]
+    aux_logits = outputs["aux_logits" + sfx]
+    aux_boxes = outputs["aux_boxes" + sfx]
     n_aux = aux_logits.shape[0]
-    preds = ([(outputs["pred_logits"], outputs["pred_boxes"])]
+    preds = ([(outputs["pred_logits" + sfx], outputs["pred_boxes" + sfx])]
              + [(aux_logits[i], aux_boxes[i]) for i in range(n_aux)]
-             + [(outputs["interm_logits"], outputs["interm_boxes"])])
+             + [(outputs["interm_logits" + sfx],
+                 outputs["interm_boxes" + sfx])])
     assigns = compute_assign(preds, gt_labels, gt_boxes, gt_valid, cfg)
 
     def losses_of(j):
         return detection_losses(*preds[j], gt_labels, gt_boxes, gt_valid,
-                                assigns[j], num_boxes, cfg.focal_alpha)
+                                assigns[j], num_boxes, cfg.focal_alpha,
+                                img_mask)
 
     losses: Dict[str, torch.Tensor] = dict(losses_of(0))
     for i in range(n_aux):
         losses.update({f"{k}_{i}": v for k, v in losses_of(1 + i).items()})
     losses.update({f"{k}_interm": v for k, v in losses_of(1 + n_aux).items()})
 
+    if target_domain:
+        return losses
     if "dn_logits" in outputs:
         dn_logits, dn_boxes = outputs["dn_logits"], outputs["dn_boxes"]
         n_dec = dn_logits.shape[0]

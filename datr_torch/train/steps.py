@@ -1,42 +1,68 @@
-"""The burn-in training step (port of datr_tpu/train/steps.py:36-97).
+"""Training and eval steps (port of datr_tpu/train/steps.py).
 
-forward (paired DA batch) -> criterion -> weighted total -> backward ->
-clip -> AdamW -> carry of the prototype state. Batches are dicts of tensors
-on the model's device:
+Burn-in: forward (paired DA batch) -> criterion -> weighted total ->
+backward -> clip -> AdamW -> carry of the prototype state. Self-training
+adds, in front, the EMA teacher's forward on the weak target half and its
+pseudo-labels, and behind the source criterion, the target criterion on the
+student's strong-view outputs. Batches are dicts of tensors on the model's
+device:
   images   [B, H, W, 3]  first half source, second half target
   pad_mask [B, H, W]
   boxes    [B//2, T, 4] | labels [B//2, T] | valid [B//2, T]   (source GT)
+  (self-training) images_strong [B, H, W, 3]: source weak, target strong
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from ..models.cdn import CdnDraws
+from ..models.postprocess import postprocess, postprocess_with_nms
 from .criterion import CriterionCfg, criterion, weighted_total
+from .ema import ema_update
+from .pseudo import pseudo_labels_from_outputs
 from .state import TrainState
+
+
+def _student_forward(state: TrainState, images, batch, dn_draws,
+                     self_training: bool = False):
+    model = state.model
+    model.train()
+    state.optimizer.zero_grad()
+    return model(images, batch["pad_mask"],
+                 targets={k: batch[k] for k in ("boxes", "labels", "valid")},
+                 train=True, global_proto=state.global_proto,
+                 amount=state.amount, dn_generator=state.dn_generator,
+                 dn_draws=dn_draws, self_training=self_training)
 
 
 def loss_and_grads(state: TrainState, batch: Dict[str, torch.Tensor],
                    ccfg: CriterionCfg, weight_dict: Dict[str, float],
                    dn_draws: Optional[CdnDraws] = None):
-    """Forward, losses and backward; the gradients are left in `.grad`.
-    Returns (total, losses, outputs)."""
-    model = state.model
-    model.train()
-    state.optimizer.zero_grad()
-    out = model(batch["images"], batch["pad_mask"],
-                targets={k: batch[k] for k in ("boxes", "labels", "valid")},
-                train=True, global_proto=state.global_proto,
-                amount=state.amount, dn_generator=state.dn_generator,
-                dn_draws=dn_draws)
+    """Burn-in forward, losses and backward; the gradients are left in
+    `.grad`. Returns (total, losses, outputs)."""
+    out = _student_forward(state, batch["images"], batch, dn_draws)
     losses = criterion(out, batch["labels"], batch["boxes"], batch["valid"],
                        ccfg)
     total = weighted_total(losses, weight_dict)
     total.backward()
     return total, losses, out
+
+
+def _update(state: TrainState, out, ema_decay: float) -> torch.Tensor:
+    """Clip + AdamW, the prototype carry, the step count and the per-step
+    `model_ema` lerp (datr_tpu/train/steps.py:91-96). Returns the pre-clip
+    gradient norm."""
+    grad_norm = state.optimizer.step(state.step)
+    state.optimizer.zero_grad()
+    state.global_proto = out["new_global_proto"].detach()
+    state.amount = out["new_amount"].detach()
+    state.step += 1
+    if ema_decay > 0.0:
+        ema_update(state.model_ema, state.model, ema_decay)
+    return grad_norm
 
 
 def train_step_burnin(state: TrainState, batch: Dict[str, torch.Tensor],
@@ -48,15 +74,90 @@ def train_step_burnin(state: TrainState, batch: Dict[str, torch.Tensor],
     0-d tensors on the device: `loss`, every loss term and `grad_norm` (the
     pre-clip norm over the trainable parameters). `dn_draws` replaces the
     CDN noise drawn from the state's generator (tests feed datr_tpu's)."""
-    if ema_decay != 0.0:
-        raise NotImplementedError("the EMA copies come with self-training")
     total, losses, out = loss_and_grads(state, batch, ccfg, weight_dict,
                                         dn_draws)
-    grad_norm = state.optimizer.step(state.step)
-    state.optimizer.zero_grad()
-    state.global_proto = out["new_global_proto"].detach()
-    state.amount = out["new_amount"].detach()
-    state.step += 1
+    grad_norm = _update(state, out, ema_decay)
     return {"loss": total.detach(),
             **{k: v.detach() for k, v in losses.items()},
             "grad_norm": grad_norm.detach()}
+
+
+@torch.no_grad()
+def teacher_pseudo_labels(state: TrainState, batch: Dict[str, torch.Tensor],
+                          class_thresholds: torch.Tensor,
+                          canvas_hw: Tuple[int, int], num_select: int = 300,
+                          max_pseudo: int = 100):
+    """The EMA teacher's eval forward on the weak target half and its
+    pseudo-labels (boxes, labels, valid, img_has_pseudo). The teacher
+    draws no CDN noise and leaves the prototype state alone."""
+    half = batch["images"].shape[0] // 2
+    out = state.ema_teacher(batch["images"][half:], batch["pad_mask"][half:])
+    return pseudo_labels_from_outputs(out["pred_logits"], out["pred_boxes"],
+                                      canvas_hw, class_thresholds,
+                                      num_select=num_select,
+                                      max_pseudo=max_pseudo)
+
+
+def self_training_loss_and_grads(state: TrainState,
+                                 batch: Dict[str, torch.Tensor],
+                                 ccfg: CriterionCfg,
+                                 weight_dict: Dict[str, float], pseudo,
+                                 dn_draws: Optional[CdnDraws] = None):
+    """The student's forward on the strong views, the source and the target
+    criterion, backward; the gradients are left in `.grad`. Returns (total,
+    source losses, target losses, outputs)."""
+    p_boxes, p_labels, p_valid, img_has = pseudo
+    out = _student_forward(state, batch["images_strong"], batch, dn_draws,
+                           self_training=True)
+    src = criterion(out, batch["labels"], batch["boxes"], batch["valid"],
+                    ccfg)
+    tgt = criterion(out, p_labels, p_boxes, p_valid, ccfg,
+                    target_domain=True, img_mask=img_has.to(torch.float32))
+    total = (weighted_total(src, weight_dict)
+             + weight_dict.get("loss_self_training", 1.0)
+             * weighted_total(tgt, weight_dict))
+    total.backward()
+    return total, src, tgt, out
+
+
+def train_step_self_training(state: TrainState,
+                             batch: Dict[str, torch.Tensor],
+                             ccfg: CriterionCfg,
+                             weight_dict: Dict[str, float],
+                             class_thresholds: torch.Tensor,
+                             canvas_hw: Tuple[int, int],
+                             num_select: int = 300, max_pseudo: int = 100,
+                             ema_decay: float = 0.0,
+                             dn_draws: Optional[CdnDraws] = None
+                             ) -> Dict[str, torch.Tensor]:
+    """One self-training step (datr_tpu/train/steps.py:146-231); updates
+    `state` in place. Returns `loss`, `num_pseudo`, `grad_norm`, the source
+    losses and the target losses as `{k}_target`, 0-d tensors on the
+    device."""
+    pseudo = teacher_pseudo_labels(state, batch, class_thresholds, canvas_hw,
+                                   num_select, max_pseudo)
+    total, src, tgt, out = self_training_loss_and_grads(
+        state, batch, ccfg, weight_dict, pseudo, dn_draws)
+    grad_norm = _update(state, out, ema_decay)
+    return {"loss": total.detach(), "num_pseudo": pseudo[2].sum(),
+            "grad_norm": grad_norm.detach(),
+            **{k: v.detach() for k, v in src.items()},
+            **{f"{k}_target": v.detach() for k, v in tgt.items()}}
+
+
+@torch.no_grad()
+def eval_step(model, batch: Dict[str, torch.Tensor], num_select: int = 300,
+              nms_iou_threshold: float = -1.0,
+              not_to_xyxy: bool = False) -> Dict[str, torch.Tensor]:
+    """Forward + postprocess for evaluation (datr_tpu/train/steps.py:
+    234-272, without masks): boxes scaled to `orig_sizes`. A positive
+    `nms_iou_threshold` adds the class-aware NMS, and the result a `valid`
+    mask; `not_to_xyxy` keeps the boxes cxcywh."""
+    out = model(batch["images"], batch["pad_mask"])
+    if nms_iou_threshold > 0:
+        return postprocess_with_nms(out["pred_logits"], out["pred_boxes"],
+                                    batch["orig_sizes"], num_select,
+                                    nms_iou_threshold, max_out=num_select)
+    return postprocess(out["pred_logits"], out["pred_boxes"],
+                       batch["orig_sizes"], num_select,
+                       not_to_xyxy=not_to_xyxy)

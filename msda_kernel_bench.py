@@ -65,21 +65,19 @@ def build_libraries(source_dirs: dict) -> tuple[dict, dict]:
              for n, _, log in built})
 
 
-def collect_cases(only=None) -> list:
+def collect_cases(only=None, device="cuda") -> list:
     """(name, value, shapes, loc, attn, grad_out or None) for every MSDA case
     whose name holds `only`; the backward is timed at the training shapes
     only, as on the main path."""
     cases = []
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    gen = torch.Generator(device=device).manual_seed(0)
 
     def kept(name):
         return not only or only in name
 
     def add(name, shapes, value, loc, attn, backward):
-        if not kept(name):
-            return
         g = (torch.randn(value.shape[0], loc.shape[1],
-                         value.shape[2] * value.shape[3], device="cuda",
+                         value.shape[2] * value.shape[3], device=device,
                          generator=gen) if backward else None)
         cases.append((name, value, tuple(shapes), loc, attn, g))
 
@@ -91,11 +89,13 @@ def collect_cases(only=None) -> list:
     training = (("encoder", cs.TRAIN_S), ("decoder_src", cs.TRAIN_DEC_LQ[0]),
                 ("decoder_tgt", cs.TRAIN_DEC_LQ[1]))
     for part, lq in serving:
-        add(f"serving {part} random", cs.SHAPES, *cs.msda_inputs(gen, lq),
-            False)
+        if kept(f"serving {part} random"):
+            add(f"serving {part} random", cs.SHAPES,
+                *cs.msda_inputs(gen, lq), False)
     for part, lq in training:
-        add(f"training {part} random", cs.TRAIN_SHAPES,
-            *cs.msda_inputs(gen, lq, shapes=cs.TRAIN_SHAPES), True)
+        if kept(f"training {part} random"):
+            add(f"training {part} random", cs.TRAIN_SHAPES,
+                *cs.msda_inputs(gen, lq, shapes=cs.TRAIN_SHAPES), True)
 
     if any(kept(f"serving {part} model") for part, _ in serving):
         srv = cs.flagship_server()
@@ -107,16 +107,18 @@ def collect_cases(only=None) -> list:
             srv.close()
         del srv
         for part, lq in serving:
-            add_captured(f"serving {part} model", calls[lq], False)
+            if kept(f"serving {part} model"):
+                add_captured(f"serving {part} model", calls[lq], False)
 
     if any(kept(f"training {part} model") for part, _ in training):
-        state, _, _ = cs.c2f_train_state(1)
-        calls = cs.training_msda_calls(msda, state,
-                                       cs.train_batches(1, "cuda")[0])
+        state, _, _, _ = cs.c2f_train_state(1, device=device)
+        calls = cs.training_msda_calls(
+            msda, state, cs.paired_batches(1, device, seed=0)[0])
         del state
         torch.cuda.empty_cache()
         for part, lq in training:
-            add_captured(f"training {part} model", calls[lq], True)
+            if kept(f"training {part} model"):
+                add_captured(f"training {part} model", calls[lq], True)
     return cases
 
 

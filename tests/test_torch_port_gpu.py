@@ -405,3 +405,99 @@ def test_tiny_train_step_cuda_matches_cpu(cuda):
     for n in g_c:
         err = (g_c[n] - g_g[n]).norm().item()
         assert err <= 1e-3 * max(g_c[n].norm().item(), 1e-3 * total), (n, err)
+
+
+def test_batched_nms_cuda_equals_cpu(cuda):
+    """The suppression matrix computed on the card and walked on the host
+    keeps exactly what the CPU path keeps (ties, duplicates, three
+    classes, candidates marked -1)."""
+    from datr_torch.models.postprocess import batched_nms
+
+    g = torch.Generator().manual_seed(4)
+    xy = torch.rand(2, 300, 2, generator=g) * 600
+    boxes = torch.cat([xy, xy + torch.rand(2, 300, 2, generator=g) * 200 + 8],
+                      -1)
+    boxes[:, 100:150] = boxes[:, :50] + 0.5
+    scores = (torch.rand(2, 300, generator=g) * 20).round() / 20
+    scores[:, 250:] = -1.0
+    labels = torch.randint(0, 3, (2, 300), generator=g)
+    want = batched_nms(boxes, scores, labels, 0.7, 300)
+    got = batched_nms(boxes.cuda(), scores.cuda(), labels.cuda(), 0.7, 300)
+    assert got[0].is_cuda and got[1].is_cuda
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    assert 0 < want[1].sum() < 600
+
+
+def test_tiny_self_training_step_cuda_matches_cpu(cuda):
+    """One self-training step's teacher pseudo-labels, losses and
+    gradients on the card (msda_fwd / msda_bwd) against the same on the
+    CPU (plain versions): same weights, batch, CDN noise and thresholds, f32
+    with TF32 off. num_pseudo equal, losses 1e-4 relative, gradients 1e-3
+    by relative norm as in the burn-in test above."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from datr_torch.models.cdn import cdn_layout, draw_cdn_noise
+    from datr_torch.train.criterion import CriterionCfg, build_weight_dict
+    from datr_torch.train.optim import Optimizer
+    from datr_torch.train.state import create_train_state
+    from datr_torch.train.steps import (
+        self_training_loss_and_grads,
+        teacher_pseudo_labels,
+    )
+
+    kw = dict(num_classes=4, num_queries=12, hidden_dim=32, nheads=2,
+              enc_layers=1, dec_layers=2, dim_feedforward=64, dn_number=4,
+              dn_single_pad=2)
+    gen = torch.Generator().manual_seed(2)
+    img = torch.randn(4, 64, 96, 3, generator=gen)
+    pad = torch.zeros(4, 64, 96, dtype=torch.bool)
+    pad[1, 50:] = True
+    pad[3, :, 80:] = True
+    batch = dict(images=img, images_strong=img * 1.2 + 0.1, pad_mask=pad,
+                 boxes=torch.rand(2, 3, 4, generator=gen) * 0.3 + 0.3,
+                 labels=torch.randint(0, 4, (2, 3), generator=gen),
+                 valid=torch.tensor([[True, True, False], [True] * 3]))
+    groups, _ = cdn_layout(4, 2)
+    draws = draw_cdn_noise(torch.Generator().manual_seed(3), 2, groups, 2, 4,
+                           "cpu")
+    ccfg = CriterionCfg(num_classes=4, dn_single_pad=2, dn_groups=groups)
+    wd = build_weight_dict(dec_layers=2)
+    results, thr = {}, None
+    for dev in ("cpu", "cuda"):
+        model = DINO(**kw, use_remat=(dev == "cuda"))
+        model.init_params(torch.Generator().manual_seed(0))
+        with torch.no_grad():  # box heads off their zero init
+            for head in (model.bbox_head, model.enc_out_bbox_head):
+                head.layer2.weight.normal_(0, 0.05, generator=torch.Generator(
+                ).manual_seed(5))
+        model.to(dev)
+        state = create_train_state(model, Optimizer(model))
+        b = {k: v.to(dev) for k, v in batch.items()}
+        if thr is None:  # in the widest gap of the teacher's top scores
+            with torch.no_grad():
+                s = state.ema_teacher(b["images"][2:], b["pad_mask"][2:])[
+                    "pred_logits"].sigmoid().flatten().sort(
+                        descending=True).values
+            k = int((s[2:16] - s[3:17]).argmax()) + 3
+            thr = torch.full((4,), float(s[k - 1] + s[k]) / 2)
+        d = type(draws)(*(t.to(dev) for t in draws))
+        pseudo = teacher_pseudo_labels(state, b, thr.to(dev), (64, 96))
+        total, src, tgt, _ = self_training_loss_and_grads(
+            state, b, ccfg, wd, pseudo, dn_draws=d)
+        losses = {**src, **{f"{k}_target": v for k, v in tgt.items()}}
+        results[dev] = (int(pseudo[2].sum()), total.item(),
+                        {k: v.item() for k, v in losses.items()},
+                        {n: p.grad.cpu() for n, p in model.named_parameters()
+                         if p.grad is not None})
+    (n_c, t_c, l_c, g_c), (n_g, t_g, l_g, g_g) = results["cpu"], \
+        results["cuda"]
+    assert n_c == n_g > 0
+    assert l_c.keys() == l_g.keys() and g_c.keys() == g_g.keys()
+    assert abs(t_c - t_g) <= 1e-4 * abs(t_c)
+    for k in l_c:
+        assert abs(l_c[k] - l_g[k]) <= 1e-4 * abs(l_c[k]) + 1e-5, k
+    total = torch.stack([g.norm() for g in g_c.values()]).norm().item()
+    for n in g_c:
+        err = (g_c[n] - g_g[n]).norm().item()
+        assert err <= 1e-3 * max(g_c[n].norm().item(), 1e-3 * total), (n, err)
