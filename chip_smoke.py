@@ -62,8 +62,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
      against the plain forward's; checkpoint and BestTracker round trips,
      bitwise; its state freed before phase 5 starts, so that each
      phase's peak memory is its own;
-  7. the result: a {"kernels": [...]} line, the card line, and as the last
-     line {"ok": true, "device": {...}}.
+  7. the training CLI at full width: datr_torch.main.main(args) in this
+     process on the C2F self-training config with --synthetic (one burn-in
+     and one self-training epoch of 2 steps, 2 + 2 images at 1216x2048,
+     fed by the augmenting host loader), in a temporary directory: its
+     log.txt lines hold datr_tpu's keys, the checkpoint and the best
+     families are written, the msda_fwd / msda_bwd launches equal the count
+     derived from the steps and eval batches it made; each epoch's parts
+     (train loop, evaluations, checkpoint saves, EMA update); then the host
+     loader's img/s at Cityscapes size (make_da_loader with the strong
+     view, 4 threads, 1024x2048 frames, C2F transforms). Runs after phase
+     6 and before phase 5, its state freed first;
+  8. the result: the wall time of each phase, a {"kernels": [...]} line,
+     the card line, and as the last line {"ok": true, "device": {...}}.
 Imports nothing of JAX or datr_tpu. Needs one CUDA card; fails without one.
 """
 
@@ -1321,6 +1332,192 @@ def check_gather_fma(gather, bench) -> dict:
     return errs
 
 
+# ---------------------------------------------------------------- phase 7
+
+LOG_KEYS = {"epoch", "lr", "ap50_student", "ap50_teacher", "time"}
+
+
+def loader_rate(threads=4, n_batches=8) -> dict:
+    """img/s of the host loader at Cityscapes size: make_da_loader over
+    synthetic 1024x2048 frames with the C2F transforms, the strong view
+    computed (a self-training epoch's batches), `threads` threads, 2 + 2
+    images per batch onto the 1216x2048 canvas. The first batch's wait is
+    reported apart (each thread starts on its first batch at once)."""
+    from datr_torch.config import load_config
+    from datr_torch.data.loader import make_da_loader
+    from datr_torch.data.synthetic import synthetic_da_pair
+    from datr_torch.data.transforms import DATrainTransform
+
+    cfg = load_config(C2F_ST)
+    ds = synthetic_da_pair(n_images=2 * n_batches, hw=(1024, 2048),
+                           num_classes=8)
+    tf = DATrainTransform(cfg.data_aug_scales, cfg.data_aug_max_size,
+                          cfg.data_aug_scales2_resize,
+                          cfg.data_aug_scales2_crop)
+    t0 = time.perf_counter()
+    n_img, first_s = 0, None
+    for b in make_da_loader(ds, 2, TRAIN_CANVAS, tf, 100, seed=0,
+                            num_threads=threads, compute_strong=True):
+        assert b["images"].shape == (4, *TRAIN_CANVAS, 3)
+        assert b["images_strong"].shape == b["images"].shape
+        n_img += b["images"].shape[0]
+        first_s = first_s or time.perf_counter() - t0
+    wall_s = time.perf_counter() - t0
+    res = dict(threads=threads, batches=n_batches, images=n_img,
+               wall_s=wall_s, img_s=n_img / wall_s, first_batch_s=first_s,
+               cpus=os.cpu_count())
+    log(f"  host loader (make_da_loader, compute_strong, {threads} threads, "
+        f"1024x2048 synthetic frames, C2F transforms): {n_img} images "
+        f"(+ {n_img // 2} strong views) in {wall_s:.2f} s = "
+        f"{res['img_s']:.3f} img/s; first batch after {first_s:.2f} s; "
+        f"{os.cpu_count()} CPUs")
+    return res
+
+
+def run_cli(msda, card) -> dict:
+    """`datr_torch.main.main(args)` in this process on the C2F
+    self-training config, --synthetic, synthetic_images=4 epochs=2
+    burn_epochs=1 (one burn-in and one self-training epoch of 2 steps,
+    2 + 2 images per step at 1216x2048), in a temporary output directory.
+    Holds the log.txt lines to datr_tpu's keys, checks the checkpoint and
+    the families, and the msda_fwd / msda_bwd launches against the count
+    derived from the steps and eval batches this run made. Times each
+    epoch's parts (the train loop, evaluations, checkpoint saves, the EMA
+    update) by wrapping main's calls, each synchronized at its end."""
+    import tempfile
+
+    from datr_torch import engine
+    from datr_torch import main as main_mod
+    from datr_torch.models.layers import MSDeformAttn
+    from datr_torch.train import checkpoint as ckpt
+
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    events, seen = [], {}
+    calls = {"burnin": 0, "self_training": 0, "eval": 0}
+
+    def timed(name, fn):
+        def f(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            events.append((name, time.perf_counter() - t0))
+            return out
+        return f
+
+    def counted(name, fn):
+        def f(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return f
+
+    def keep_state(fn):
+        def f(*a, **kw):
+            seen["state"] = fn(*a, **kw)
+            return seen["state"]
+        return f
+
+    patches = [
+        mock.patch.object(main_mod, name, timed(name, getattr(main_mod,
+                                                              name)))
+        for name in ("train_one_epoch", "train_one_epoch_self_training",
+                     "evaluate", "update_emas_per_epoch")]
+    save = timed("save_checkpoint", ckpt.save_checkpoint)
+    patches += [
+        mock.patch.object(main_mod, "save_checkpoint", save),
+        mock.patch.object(ckpt, "save_checkpoint", save),
+        mock.patch.object(main_mod, "create_train_state",
+                          keep_state(main_mod.create_train_state)),
+        mock.patch.object(engine, "train_step_burnin",
+                          counted("burnin", engine.train_step_burnin)),
+        mock.patch.object(engine, "train_step_self_training",
+                          counted("self_training",
+                                  engine.train_step_self_training)),
+        mock.patch.object(engine, "eval_step",
+                          counted("eval", engine.eval_step)),
+    ]
+    with tempfile.TemporaryDirectory() as out_dir:
+        args = main_mod.get_args_parser().parse_args([
+            "-c", C2F_ST, "--synthetic", "--output_dir", out_dir,
+            "--options", "synthetic_images=4", "epochs=2", "burn_epochs=1"])
+        torch.cuda.reset_peak_memory_stats()
+        for pt in patches:
+            pt.start()
+        # ---- the main path: counts from 0, the CLI, counts read ----
+        msda.msda_fwd.launches = msda.msda_bwd.launches = 0
+        t0 = time.perf_counter()
+        try:
+            main_mod.main(args)
+            torch.cuda.synchronize()
+        finally:
+            for pt in patches:
+                pt.stop()
+        wall_s = time.perf_counter() - t0
+        launches = dict(msda_fwd=msda.msda_fwd.launches,
+                        msda_bwd=msda.msda_bwd.launches)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        lines = [json.loads(ln) for ln in open(f"{out_dir}/log.txt")
+                 if ln.startswith("{")]
+        files = sorted(os.listdir(out_dir))
+        sizes = {f: os.path.getsize(f"{out_dir}/{f}") / 1e9 for f in files
+                 if not f.endswith((".json", ".txt"))}
+    state = seen.pop("state")
+    model = state.model
+    n_msda = sum(isinstance(m, MSDeformAttn) for m in model.modules())
+    remat = 2 if model.use_remat else 1
+    # burn-in step: 2 passes, recomputed under remat, 2 backward; a
+    # self-training step adds the teacher's one pass; eval: one pass
+    want = dict(
+        msda_fwd=(calls["burnin"] * 2 * n_msda * remat
+                  + calls["self_training"] * (n_msda + 2 * n_msda * remat)
+                  + calls["eval"] * n_msda),
+        msda_bwd=(calls["burnin"] + calls["self_training"]) * 2 * n_msda)
+    del state, model
+    # the parts of each epoch: events between one train loop and the next
+    epochs, cur = [], None
+    for name, sec in events:
+        if name.startswith("train_one_epoch"):
+            cur = {"train_s": sec}
+            epochs.append(cur)
+        else:
+            key = {"evaluate": "eval_s", "save_checkpoint": "save_s",
+                   "update_emas_per_epoch": "ema_s"}[name]
+            cur[key] = cur.get(key, 0.0) + sec
+            cur[f"n_{key[:-2]}"] = cur.get(f"n_{key[:-2]}", 0) + 1
+    for ep, ln in zip(epochs, lines):
+        ep["log_time_s"] = ln["time"]
+    res = dict(wall_s=wall_s, epochs=epochs, calls=calls, launches=launches,
+               launches_derived=want, n_msda=n_msda, peak_memory_gb=peak_gb,
+               allocated_before_gb=base_gb, files=files, sizes_gb=sizes,
+               log_lines=[{k: v for k, v in ln.items()
+                           if not k.startswith("train_") or k in (
+                               "train_loss", "train_num_pseudo")}
+                          for ln in lines])
+    log(f"  CLI (python -m datr_torch.main -c {C2F_ST} --synthetic --options "
+        f"synthetic_images=4 epochs=2 burn_epochs=1): {wall_s:.2f} s in "
+        f"main, peak {peak_gb:.2f} GB ({base_gb:.2f} GB before) on {card}")
+    for i, ep in enumerate(epochs):
+        log(f"  epoch {i}: " + ", ".join(
+            f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in ep.items()))
+    log(f"  steps and eval batches {calls}; launches {launches}, derived "
+        f"{want} ({n_msda} MSDeformAttn, remat x{remat})")
+    log(f"  log.txt lines {res['log_lines']}; files {files}")
+    assert len(lines) == 2, lines
+    for i, ln in enumerate(lines):
+        extra = {"ap50_best_ema"} if i == 1 else set()
+        assert {k for k in ln if not k.startswith("train_")} == \
+            LOG_KEYS | extra, ln.keys()
+        assert ln["epoch"] == i and np.isfinite(ln["train_loss"]), ln
+    assert "train_num_pseudo" in lines[1]
+    for name in ("checkpoint", "checkpoint0000", "checkpoint0001",
+                 "checkpoint_best_regular", "best_ema_teacher",
+                 "best_ema_model", "config_args_all.json", "log_best.txt"):
+        assert name in files, (name, files)
+    assert calls["burnin"] == calls["self_training"] == 2, calls
+    assert launches == want, (launches, want)
+    return res
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1333,6 +1530,12 @@ def main() -> int:
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
+    phase_s, t_phase = {}, [time.perf_counter()]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        phase_s[name] = now - t_phase[0]
+        t_phase[0] = now
     log(f"phase 1: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {sys.version.split()[0]}")
     t0 = time.perf_counter()
@@ -1344,15 +1547,19 @@ def main() -> int:
                   if any(w in ln for w in ("Compiling entry", "registers",
                                            "spill"))))
 
+    phase_done("1")
     log("phase 2: msda_fwd against its plain version, serving shapes")
     k = check_msda(msda)
+    phase_done("2")
 
     log("phase 2b: the training kernels against their plain versions")
     kt = check_train_msda(msda)
+    phase_done("2b")
 
     log("phase 3: serving slice at full width")
     s = run_slice(msda, card)
     log("slice " + json.dumps(dict(s, card=card)))
+    phase_done("3")
 
     log("phase 4: gather bench entry point, its kernels against their "
         "plain versions")
@@ -1362,20 +1569,34 @@ def main() -> int:
     gb = run_gather_bench(gather, bench)
     kg = gb["cases"]
     fma_errs = check_gather_fma(gather, bench)
+    phase_done("4")
 
-    # phase 6 runs before phase 5, whose profile must be the last work of
-    # the process; each phase's state is gone before the next one starts
+    # phases 6 and 7 run before phase 5, whose profile must be the last
+    # work of the process; each phase's state is gone before the next one
+    # starts
     log("phase 6: self-training slice at full width (C2F self-training, "
         "evaluation, checkpoints)")
     st = run_self_training(msda, card)
     log("self_training " + json.dumps(dict(st, card=card)))
     gc.collect()
     torch.cuda.empty_cache()
+    phase_done("6")
+
+    log("phase 7: the training CLI at full width (python -m datr_torch.main, "
+        "C2F self-training, --synthetic), then the host loader at "
+        "Cityscapes size")
+    cl = run_cli(msda, card)
+    cl["loader"] = loader_rate()
+    log("cli " + json.dumps(dict(cl, card=card)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("7")
 
     log("phase 5: training slice at full width (C2F burn-in), its profile "
         "last")
     tr = run_training(msda, card)
     log("training " + json.dumps(dict(tr, card=card)))
+    phase_done("5")
 
     enc, dec = k["timing"]["encoder"], k["timing"]["decoder"]
     per_fwd = {key: 6 * enc[key] + 6 * dec[key]
@@ -1409,11 +1630,13 @@ def main() -> int:
         "source": "datr_torch/csrc/msda_fwd.cu",
         "replaces": "datr_tpu/ops/msda_pallas.py:45",
         "launches": (s["launches"] + tr["launches"]["msda_fwd"]
-                     + st["launches"]["msda_fwd"] + st["eval"]["launches"]),
+                     + st["launches"]["msda_fwd"] + st["eval"]["launches"]
+                     + cl["launches"]["msda_fwd"]),
         "launches_by_path": {"serving": s["launches"],
                              "training": tr["launches"]["msda_fwd"],
                              "self_training": st["launches"]["msda_fwd"],
-                             "eval": st["eval"]["launches"]},
+                             "eval": st["eval"]["launches"],
+                             "cli": cl["launches"]["msda_fwd"]},
         "launches_per_forward": s["launches"] // s["batches"],
         "launches_per_train_step": tr["launches_per_step"]["msda_fwd"],
         "launches_per_self_training_step": st["launches_per_step"][
@@ -1447,9 +1670,11 @@ def main() -> int:
         "route": "cuda",
         "source": "datr_torch/csrc/msda_bwd.cu",
         "replaces": "datr_tpu/ops/msda_pallas.py:154",
-        "launches": tr["launches"]["msda_bwd"] + st["launches"]["msda_bwd"],
+        "launches": (tr["launches"]["msda_bwd"] + st["launches"]["msda_bwd"]
+                     + cl["launches"]["msda_bwd"]),
         "launches_by_path": {"training": tr["launches"]["msda_bwd"],
-                             "self_training": st["launches"]["msda_bwd"]},
+                             "self_training": st["launches"]["msda_bwd"],
+                             "cli": cl["launches"]["msda_bwd"]},
         "launches_per_train_step": tr["launches_per_step"]["msda_bwd"],
         "launches_per_self_training_step": st["launches_per_step"][
             "msda_bwd"],
@@ -1501,6 +1726,7 @@ def main() -> int:
         "max_abs_err_by_instantiation": fma_errs,
     }]
     log("gather bench " + json.dumps(kg))
+    log("phase wall times, s: " + json.dumps(phase_s))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,271 @@
+"""COCO-format detection datasets and the source/target DA pairing (port of
+datr_tpu/data/coco.py; images are uint8 [H, W, 3] arrays).
+
+The COCO JSON is parsed directly; annotations are filtered as the
+reference's ConvertCocoPolysToMask does: crowd dropped, boxes clamped to the
+image, degenerate ones dropped. Labels are the raw category_id. Instance
+masks and the panoptic layout are not ported (ROADMAP §A 7).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import random
+from typing import Dict, List
+
+import numpy as np
+
+from .strong_aug import strong_augment
+from .transforms import _MASKS
+
+
+def open_rgb(path: str) -> np.ndarray:
+    """Decode an image file to uint8 [H, W, 3] RGB. The decoder is PIL's,
+    imported here and nowhere else in the package: the --synthetic path
+    and everything after decoding run without PIL."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            "decoding image files needs PIL, which this machine lacks; a "
+            "decoder without PIL is not ported yet (ROADMAP §A 10). Use "
+            "--synthetic, or run where PIL is installed") from e
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"), np.uint8)
+
+
+class CocoIndex:
+    """Minimal in-memory COCO index (replaces pycocotools.coco.COCO)."""
+
+    def __init__(self, ann_file: str):
+        with open(ann_file) as f:
+            data = json.load(f)
+        self.images = {im["id"]: im for im in data["images"]}
+        self.image_ids = [im["id"] for im in data["images"]]
+        self.cats = {c["id"]: c for c in data.get("categories", [])}
+        self.anns_by_image: Dict[int, List[dict]] = {
+            i: [] for i in self.image_ids
+        }
+        for a in data.get("annotations", []):
+            if a["image_id"] in self.anns_by_image:
+                self.anns_by_image[a["image_id"]].append(a)
+
+
+class CocoDetectionDataset:
+    """Single-domain detection dataset: load(i) -> (image, target)."""
+
+    def __init__(self, img_dir: str, ann_file: str,
+                 return_masks: bool = False):
+        if return_masks:
+            raise NotImplementedError(_MASKS)
+        self.img_dir = img_dir
+        self.index = CocoIndex(ann_file)
+
+    def __len__(self):
+        return len(self.index.image_ids)
+
+    def category_ids(self):
+        """Sorted GT category ids (main builds the evaluator's category
+        list from this)."""
+        return sorted(self.index.cats)
+
+    def load(self, i: int):
+        image_id = self.index.image_ids[i]
+        info = self.index.images[image_id]
+        img = open_rgb(os.path.join(self.img_dir, info["file_name"]))
+        h, w = img.shape[:2]
+
+        boxes, labels = [], []
+        for a in self.index.anns_by_image[image_id]:
+            if a.get("iscrowd", 0):
+                continue
+            x, y, bw, bh = a["bbox"]  # xywh
+            x0 = max(0.0, min(x, w))
+            y0 = max(0.0, min(y, h))
+            x1 = max(0.0, min(x + bw, w))
+            y1 = max(0.0, min(y + bh, h))
+            if x1 <= x0 or y1 <= y0:
+                continue
+            boxes.append([x0, y0, x1, y1])
+            labels.append(a["category_id"])
+        target = {
+            "boxes": np.asarray(boxes, np.float32).reshape(-1, 4),
+            "labels": np.asarray(labels, np.int64),
+            "image_id": image_id,
+            "orig_size": np.array([h, w], np.int64),
+            "size": np.array([h, w], np.int64),
+        }
+        return img, target
+
+    def eval_annotations(self, image_id: int, with_masks: bool = False):
+        """Raw GT for COCO evaluation: unlike the training targets, crowd
+        annotations are kept (they become ignore regions in the evaluator)
+        and the annotation's 'area' is used when present, as the
+        reference's evaluation against the COCO API GT does."""
+        if with_masks:
+            raise NotImplementedError(_MASKS)
+        boxes, labels, iscrowd, areas = [], [], [], []
+        for a in self.index.anns_by_image[image_id]:
+            x, y, bw, bh = a["bbox"]
+            boxes.append([x, y, x + bw, y + bh])
+            labels.append(a["category_id"])
+            iscrowd.append(bool(a.get("iscrowd", 0)))
+            areas.append(float(a.get("area", bw * bh)))
+        return {
+            "boxes": np.asarray(boxes, np.float64).reshape(-1, 4),
+            "labels": np.asarray(labels, np.int64),
+            "iscrowd": np.asarray(iscrowd, bool),
+            "areas": np.asarray(areas, np.float64),
+        }
+
+
+class ConcatDetectionDataset:
+    """Several COCO-format shards presented as one dataset (the 'o365'
+    layout's annotation shards)."""
+
+    def __init__(self, parts: List[CocoDetectionDataset]):
+        assert parts, "ConcatDetectionDataset needs at least one shard"
+        self.parts = parts
+        self._cum = np.cumsum([len(p) for p in parts])
+
+    def __len__(self):
+        return int(self._cum[-1])
+
+    def category_ids(self):
+        ids = set()
+        for p in self.parts:
+            ids.update(p.category_ids())
+        return sorted(ids)
+
+    def _locate(self, i: int):
+        p = int(np.searchsorted(self._cum, i, side="right"))
+        prev = 0 if p == 0 else int(self._cum[p - 1])
+        return self.parts[p], i - prev
+
+    def load(self, i: int):
+        part, j = self._locate(i)
+        return part.load(j)
+
+    def eval_annotations(self, image_id: int, with_masks: bool = False):
+        for p in self.parts:
+            if image_id in p.index.anns_by_image:
+                return p.eval_annotations(image_id, with_masks=with_masks)
+        raise KeyError(image_id)
+
+
+class DAPairedDataset:
+    """Zip of source + target datasets with modulo indexing, len = max.
+    load returns (src_img, src_strong, src_tgt, tgt_img, tgt_strong,
+    tgt_tgt)."""
+
+    def __init__(self, source, target, strong_aug: bool = True):
+        self.source = source
+        self.target = target
+        self.strong_aug = strong_aug
+
+    def __len__(self):
+        return max(len(self.source), len(self.target))
+
+    def load(self, i: int, rng: random.Random, strong: bool = True):
+        s_img, s_tgt = self.source.load(i % len(self.source))
+        t_img, t_tgt = self.target.load(i % len(self.target))
+        # the strong view is the target domain's only: the student's strong
+        # input is [source weak ; target strong]. `strong=False` (burn-in
+        # epochs, which never read it) skips the work.
+        do_strong = self.strong_aug and strong
+        s_strong = s_img
+        t_strong = strong_augment(t_img, rng) if do_strong else t_img
+        return s_img, s_strong, s_tgt, t_img, t_strong, t_tgt
+
+
+# -----------------------------------------------------------------------
+# dataset registry: every name maps onto a documented layout under
+# data_root (datr_tpu/data/coco.py:263-395)
+# -----------------------------------------------------------------------
+def build_coco_classic(image_set: str, root: str,
+                       return_masks: bool = False):
+    """Classic COCO-2017 layout: <root>/{train2017,val2017} +
+    annotations/instances_*.json."""
+    split = "train2017" if image_set == "train" else "val2017"
+    return CocoDetectionDataset(
+        os.path.join(root, split),
+        os.path.join(root, "annotations", f"instances_{split}.json"),
+        return_masks=return_masks,
+    )
+
+
+def build_o365_combine(image_set: str, root: str,
+                       return_masks: bool = False):
+    """Objects365-style layout: <root>/<split>/images plus one
+    annotations.json or several annotations*.json shards, combined."""
+    import glob
+
+    split = "train" if image_set == "train" else "val"
+    d = os.path.join(root, split)
+    shards = sorted(glob.glob(os.path.join(d, "annotations*.json")))
+    if not shards:
+        raise FileNotFoundError(
+            f"no annotations*.json under {d} (o365 layout)")
+    parts = [CocoDetectionDataset(os.path.join(d, "images"), s,
+                                  return_masks=return_masks) for s in shards]
+    if len(parts) == 1:
+        return parts[0]
+    return ConcatDetectionDataset(parts)
+
+
+def build_dataset(
+    image_set: str,
+    dataset_file: str,
+    data_root: str,
+    strong_aug: bool = True,
+    return_masks: bool = False,
+):
+    """image_set: 'train' (paired DA, or single-domain) or 'val'.
+
+      'coco'          classic COCO-2017 tree (build_coco_classic)
+      'coco_panoptic' not ported (ROADMAP §A 7)
+      'o365'          sharded-annotations tree (build_o365_combine)
+      any other name  <data_root>/<name>/ with either
+                        source/{images,annotations.json},
+                        target/{images,annotations.json} and
+                        val/{images,annotations.json} (paired DA),
+                      or train/{images,annotations.json} (+ val/) for
+                      single-domain training.
+    """
+    if return_masks:
+        raise NotImplementedError(_MASKS)
+    if dataset_file == "coco":
+        return build_coco_classic(image_set, os.path.join(data_root, "coco"))
+    if dataset_file == "coco_panoptic":
+        raise NotImplementedError(
+            "the coco_panoptic layout is not ported (ROADMAP §A 7: "
+            "data/panoptic.py)")
+    if dataset_file == "o365":
+        return build_o365_combine(image_set, os.path.join(data_root, "o365"))
+    d = os.path.join(data_root, dataset_file)
+    single_domain = (
+        not os.path.isdir(os.path.join(d, "source"))
+        and os.path.isdir(os.path.join(d, "train"))
+    )
+    if image_set == "train":
+        if single_domain:
+            return CocoDetectionDataset(
+                os.path.join(d, "train/images"),
+                os.path.join(d, "train/annotations.json"),
+            )
+        src = CocoDetectionDataset(
+            os.path.join(d, "source/images"),
+            os.path.join(d, "source/annotations.json"),
+        )
+        tgt = CocoDetectionDataset(
+            os.path.join(d, "target/images"),
+            os.path.join(d, "target/annotations.json"),
+        )
+        return DAPairedDataset(src, tgt, strong_aug)
+    if image_set == "val":
+        return CocoDetectionDataset(
+            os.path.join(d, "val/images"),
+            os.path.join(d, "val/annotations.json"),
+        )
+    raise ValueError(image_set)

@@ -1,11 +1,13 @@
-"""Epoch loops: burn-in, self-training, the per-epoch EMA updates,
-evaluation and the --test dump (port of datr_tpu/engine.py).
+"""Epoch loops: burn-in, single-domain, self-training, the per-epoch EMA
+updates, evaluation and the --test dump (port of datr_tpu/engine.py).
 
-The training loops average the scalar metrics and stop on a non-finite loss
-(reference engine.py:81-84). The metrics stay on the device between drains:
-every DRAIN_EVERY steps one copy brings them to the host, so the loop does
-not wait for the card each step. Evaluation is single-process and bbox
-only.
+The loops take batches as the host loaders make them (numpy dicts) or as
+tensors; numpy arrays go to the model's device through pinned memory
+without blocking. The training loops average the scalar metrics in a
+MetricLogger and stop on a non-finite loss (reference engine.py:81-84). The
+metrics stay on the device between drains: every DRAIN_EVERY steps one copy
+brings them to the host, so the loop does not wait for the card each step.
+Evaluation is single-process and bbox only.
 """
 
 from __future__ import annotations
@@ -19,16 +21,27 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .data.loader import to_device
 from .eval.coco_eval import CocoEvaluator
 from .train.criterion import CriterionCfg
 from .train.ema import cosine_decay, ema_update, ramped_decay
 from .train.state import TrainState
-from .train.steps import eval_step, train_step_burnin, train_step_self_training
+from .train.steps import (
+    eval_step,
+    train_step_burnin,
+    train_step_plain,
+    train_step_self_training,
+)
+from .utils.logger import MetricLogger
 
 DRAIN_EVERY = 10  # steps between host copies of the metrics
 
-def _drain(pending: List[Dict[str, torch.Tensor]],
-           sums: Dict[str, float], counts: Dict[str, int]):
+
+def _host(v) -> np.ndarray:
+    return v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+
+
+def _drain(pending: List[Dict[str, torch.Tensor]], ml: MetricLogger):
     """One host copy of the pending metric dicts; exit on a non-finite
     loss."""
     if not pending:
@@ -42,52 +55,71 @@ def _drain(pending: List[Dict[str, torch.Tensor]],
             print(f"Loss is {metrics['loss']}, stopping training",
                   file=sys.stderr)
             sys.exit(1)
-        for k, v in metrics.items():
-            sums[k] = sums.get(k, 0.0) + v
-            counts[k] = counts.get(k, 0) + 1
+        ml.update(**metrics)
     pending.clear()
 
 
 def _run_epoch(step: Callable[[Dict[str, torch.Tensor]],
                               Dict[str, torch.Tensor]],
-               loader: Iterable) -> Dict[str, float]:
+               loader: Iterable, device: torch.device, logger=None,
+               header: str = "") -> Dict[str, float]:
     """Steps over `loader` with the windowed drain; the mean of every
-    metric."""
-    sums: Dict[str, float] = {}
-    counts: Dict[str, int] = {}
+    metric. With a logger, a progress line after each drain."""
+    ml = MetricLogger(logger=logger)
+    batches = ml.log_every(loader, DRAIN_EVERY, header) if logger else loader
     pending: List[Dict[str, torch.Tensor]] = []
-    for i, batch in enumerate(loader):
-        pending.append(step(batch))
+    for i, batch in enumerate(batches):
+        pending.append(step(to_device(batch, device)))
         if i % DRAIN_EVERY == 0:
-            _drain(pending, sums, counts)
-    _drain(pending, sums, counts)
-    return {k: sums[k] / counts[k] for k in sums}
+            _drain(pending, ml)
+    _drain(pending, ml)
+    return {k: m.global_avg for k, m in ml.meters.items()}
+
+
+def _device(state: TrainState) -> torch.device:
+    return state.global_proto.device
 
 
 def train_one_epoch(state: TrainState, loader: Iterable,
                     ccfg: CriterionCfg, weight_dict: Dict[str, float],
-                    ema_decay: float = 0.0) -> Dict[str, float]:
-    """Burn-in epoch over `loader` (batches as `synthetic_da_batch` builds
-    them, on the model's device). Returns the mean of every metric."""
+                    ema_decay: float = 0.0, logger=None, epoch: int = 0
+                    ) -> Dict[str, float]:
+    """Burn-in epoch over paired batches (`make_da_loader`'s or
+    `synthetic_da_batch`'s; the strong views are dropped). Returns the mean
+    of every metric."""
     return _run_epoch(lambda b: train_step_burnin(
-        state, b, ccfg, weight_dict, ema_decay=ema_decay), loader)
+        state, b, ccfg, weight_dict, ema_decay=ema_decay),
+        ({k: v for k, v in b.items()
+          if k not in ("images_strong", "real_sizes")} for b in loader),
+        _device(state), logger, f"Epoch: [{epoch}]")
+
+
+def train_one_epoch_plain(state: TrainState, loader: Iterable,
+                          ccfg: CriterionCfg, weight_dict: Dict[str, float],
+                          ema_decay: float = 0.0, logger=None,
+                          epoch: int = 0) -> Dict[str, float]:
+    """Single-domain supervised epoch (datr_tpu/engine.py:100-115) over
+    `make_single_loader`'s batches."""
+    return _run_epoch(lambda b: train_step_plain(
+        state, b, ccfg, weight_dict, ema_decay=ema_decay), loader,
+        _device(state), logger, f"Epoch: [{epoch}]")
 
 
 def train_one_epoch_self_training(
         state: TrainState, loader: Iterable, ccfg: CriterionCfg,
         weight_dict: Dict[str, float], class_thresholds,
-        canvas_hw: Tuple[int, int], ema_decay: float = 0.0
-) -> Dict[str, float]:
+        canvas_hw: Tuple[int, int], ema_decay: float = 0.0, logger=None,
+        epoch: int = 0) -> Dict[str, float]:
     """Self-training epoch (datr_tpu/engine.py:118-139) over batches with
-    `images_strong` (`synthetic_da_batch(..., strong=True)`); the EMA
-    teacher labels the weak target half with per-class score thresholds
-    `class_thresholds` [K]. Returns the mean of every metric, `num_pseudo`
-    included."""
+    `images_strong`; the EMA teacher labels the weak target half with
+    per-class score thresholds `class_thresholds` [K]. Returns the mean of
+    every metric, `num_pseudo` included."""
     thr = torch.as_tensor(class_thresholds, dtype=torch.float32,
-                          device=state.global_proto.device)
+                          device=_device(state))
     return _run_epoch(lambda b: train_step_self_training(
         state, b, ccfg, weight_dict, thr, tuple(canvas_hw),
-        ema_decay=ema_decay), loader)
+        ema_decay=ema_decay), loader, _device(state), logger,
+        f"SelfTrain Epoch: [{epoch}]")
 
 
 def update_emas_per_epoch(state: TrainState, epoch: int, cfg) -> TrainState:
@@ -120,27 +152,40 @@ _GT_KEYS = ("image_ids", "batch_valid", "orig_sizes", "boxes", "labels",
 
 
 def _eval_batches(model, loader: Iterable, num_select: int,
-                  nms_iou_threshold: float, not_to_xyxy: bool = False):
+                  nms_iou_threshold: float, not_to_xyxy: bool = False,
+                  logger=None):
     """(results, batch GT) of each batch, as numpy on the host."""
+    dev = next(model.parameters()).device
+    if logger:
+        loader = MetricLogger(logger=logger).log_every(loader, 50, "Test:")
     for batch in loader:
-        res = eval_step(model, batch, num_select=num_select,
+        res = eval_step(model, to_device(batch, dev, ("images", "pad_mask",
+                                                      "orig_sizes")),
+                        num_select=num_select,
                         nms_iou_threshold=nms_iou_threshold,
                         not_to_xyxy=not_to_xyxy)
         yield ({k: v.cpu().numpy() for k, v in res.items()},
-               {k: batch[k].cpu().numpy() for k in _GT_KEYS})
+               {k: _host(batch[k]) for k in _GT_KEYS})
 
 
 def evaluate(model, loader: Iterable, categories: Sequence[int],
-             num_select: int = 300, nms_iou_threshold: float = -1.0
-             ) -> Dict:
+             num_select: int = 300, nms_iou_threshold: float = -1.0,
+             logger=None, save_results_path: Optional[str] = None) -> Dict:
     """Detection eval of `model` (the student or an EMA track) over eval
-    batches (`synthetic_eval_batches`; datr_tpu's EvalLoader keys): the 12
-    COCO stats (datr_tpu/engine.py:161-323 -> coco_eval_bbox) and AP50.
-    A positive `nms_iou_threshold` applies the class-aware eval NMS
-    (dino.py:989-992). Ground truth comes from the batches' boxes."""
+    batches (`EvalLoader`'s or `synthetic_eval_batches`'): the 12 COCO
+    stats (datr_tpu/engine.py:161-323 -> coco_eval_bbox) and AP50. A
+    positive `nms_iou_threshold` applies the class-aware eval NMS
+    (dino.py:989-992). The ground truth is the raw annotations when the
+    loader's dataset has `eval_annotations` (crowd regions and annotation
+    areas, as the reference evaluates against the COCO API's GT), else the
+    batches' boxes. `save_results_path` dumps each image's detections and
+    GT to an npz (`results`: one dict per image)."""
     evaluator = CocoEvaluator(categories)
+    raw_gt = getattr(getattr(loader, "dataset", None), "eval_annotations",
+                     None)
+    dumped = [] if save_results_path else None
     for res, gt in _eval_batches(model, loader, num_select,
-                                 float(nms_iou_threshold)):
+                                 float(nms_iou_threshold), logger=logger):
         for i, image_id in enumerate(gt["image_ids"]):
             if not gt["batch_valid"][i]:
                 continue
@@ -148,19 +193,34 @@ def evaluate(model, loader: Iterable, categories: Sequence[int],
             if "valid" in res:  # NMS: the surviving detections only
                 keep = res["valid"][i]
                 db, ds, dl = db[keep], ds[keep], dl[keep]
-            gv = gt["valid"][i]
-            evaluator.add_image(
-                int(image_id),
-                gt_boxes=_gt_xyxy(gt["boxes"][i], gt["orig_sizes"][i])[gv],
-                gt_labels=gt["labels"][i][gv],
-                det_boxes=db, det_scores=ds, det_labels=dl)
+            if raw_gt is not None:
+                ann = raw_gt(int(image_id))
+                gt_kw = dict(gt_boxes=ann["boxes"], gt_labels=ann["labels"],
+                             gt_iscrowd=ann["iscrowd"],
+                             gt_areas=ann["areas"])
+            else:
+                gv = gt["valid"][i]
+                gt_kw = dict(
+                    gt_boxes=_gt_xyxy(gt["boxes"][i], gt["orig_sizes"][i])[gv],
+                    gt_labels=gt["labels"][i][gv])
+            evaluator.add_image(int(image_id), det_boxes=db, det_scores=ds,
+                                det_labels=dl, **gt_kw)
+            if dumped is not None:
+                dumped.append(dict(image_id=int(image_id), boxes=db,
+                                   scores=ds, labels=dl, **gt_kw))
+    if dumped is not None:
+        np.savez_compressed(save_results_path,
+                            results=np.array(dumped, dtype=object))
     stats = evaluator.summarize()
+    if logger:
+        logger.info("COCO stats: AP=%.4f AP50=%.4f AP75=%.4f"
+                    % tuple(stats[:3]))
     return {"coco_eval_bbox": stats, "ap50": stats[1]}
 
 
 def test(model, loader: Iterable, output_dir: Optional[str],
-         num_select: int = 300, nms_iou_threshold: float = -1.0
-         ) -> List[dict]:
+         num_select: int = 300, nms_iou_threshold: float = -1.0,
+         logger=None) -> List[dict]:
     """--test mode (reference engine.py:527-597): every detection as a
     COCO-format record, boxes cxcywh in original-image pixels, written to
     `<output_dir>/results0.json`. With eval NMS, the survivors only: NMS
@@ -170,7 +230,7 @@ def test(model, loader: Iterable, output_dir: Optional[str],
     final_res = []
     for res, gt in _eval_batches(model, loader, num_select,
                                  float(nms_iou_threshold),
-                                 not_to_xyxy=not use_nms):
+                                 not_to_xyxy=not use_nms, logger=logger):
         for i, image_id in enumerate(gt["image_ids"]):
             if not gt["batch_valid"][i]:
                 continue
@@ -183,12 +243,15 @@ def test(model, loader: Iterable, output_dir: Optional[str],
                 x0, y0, x1, y1 = boxes.T
                 boxes = np.stack([(x0 + x1) / 2, (y0 + y1) / 2, x1 - x0,
                                   y1 - y0], 1)
-            for s, lab, b in zip(scores, labels, boxes):
+            for sc, lab, b in zip(scores, labels, boxes):
                 final_res.append({"image_id": int(image_id),
                                   "category_id": int(lab),
                                   "bbox": [float(x) for x in b],
-                                  "score": float(s)})
+                                  "score": float(sc)})
     if output_dir:
-        with open(os.path.join(output_dir, "results0.json"), "w") as f:
+        path = os.path.join(output_dir, "results0.json")
+        with open(path, "w") as f:
             json.dump(final_res, f)
+        if logger:
+            logger.info(f"wrote {len(final_res)} detections to {path}")
     return final_res

@@ -1,0 +1,350 @@
+"""The training CLI (port of datr_tpu/main.py).
+
+Config load + CLI overrides, model / criterion build, datasets, the burn-in
+-> self-training epoch schedule, per-epoch evaluation of the student, the
+EMA teacher and (after burn-in) the best-EMA model, the best-checkpoint
+families keyed on AP50, auto-resume, and one JSON line per epoch in
+`<output_dir>/log.txt`. One process on one device: the CUDA card unless
+`--device cpu` is passed.
+
+Usage:
+  python -m datr_torch.main -c configs/DA/Cityscapes2FoggyCityscapes/\\
+DINO_4scale_C2F.py --data_root /data --output_dir runs/c2f \\
+      [--options lr=2e-4 ...] [--eval [--ema]] [--test] [--resume path] \\
+      [--synthetic] [--device cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import itertools
+import json
+import os
+import subprocess
+import time
+
+import numpy as np
+
+from .config import apply_overrides, load_config
+from .data.coco import DAPairedDataset, build_dataset
+from .data.loader import make_da_loader, make_eval_loader, make_single_loader
+from .data.synthetic import SyntheticDetectionDataset, synthetic_da_pair
+from .data.transforms import (
+    DATrainTransform,
+    EvalTransform,
+    SingleDomainTrainTransform,
+)
+from .engine import (
+    evaluate,
+    test,
+    train_one_epoch,
+    train_one_epoch_plain,
+    train_one_epoch_self_training,
+    update_emas_per_epoch,
+)
+from .models.dino import build_dino_from_config
+from .train.checkpoint import (
+    BestTracker,
+    load_pretrain_params,
+    load_resume,
+    maybe_auto_resume,
+    save_checkpoint,
+    update_checkpoint_meta,
+)
+from .train.criterion import criterion_from_config
+from .train.optim import Optimizer
+from .train.state import EMA_TRACKS, create_train_state
+from .utils.logger import setup_logger
+
+
+def get_args_parser():
+    p = argparse.ArgumentParser("DATR-torch trainer", add_help=False)
+    p.add_argument("--config_file", "-c", required=True)
+    p.add_argument("--options", nargs="+", default=[])
+    p.add_argument("--data_root", default="data")
+    p.add_argument("--output_dir", default="runs/exp")
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--device", default=None,
+                   help="torch device to run on (default: the CUDA card; "
+                        "'cpu' runs the kernels' plain versions)")
+    p.add_argument("--eval", action="store_true")
+    p.add_argument("--ema", action="store_true",
+                   help="with --eval / --test: the use_ema ModelEma track "
+                        "instead of the student")
+    p.add_argument("--resume", default="")
+    p.add_argument("--pretrain_model_path", default="")
+    p.add_argument("--finetune_ignore", nargs="+", default=[],
+                   help="parameter-name keywords NOT loaded from the "
+                        "pretrain checkpoint")
+    p.add_argument("--synthetic", action="store_true",
+                   help="use the synthetic dataset (smoke runs)")
+    p.add_argument("--save_results", action="store_true",
+                   help="with --eval: dump each image's detections and GT "
+                        "to <output_dir>/results.npz")
+    p.add_argument("--debug", action="store_true",
+                   help="stop each training epoch after 4 steps")
+    p.add_argument("--dataset_file", default="",
+                   help="override the config's dataset_file")
+    p.add_argument("--note", default="",
+                   help="free-text note recorded in config_args_all.json")
+    p.add_argument("--num_workers", type=int, default=4,
+                   help="host loader threads")
+    p.add_argument("--start_epoch", type=int, default=0,
+                   help="force the starting epoch")
+    p.add_argument("--test", action="store_true",
+                   help="dump COCO-format detections to results0.json")
+    # not ported yet: each raises in main (see _refuse_unported)
+    p.add_argument("--amp", action="store_true",
+                   help="bfloat16 (not ported: ROADMAP §A 4)")
+    p.add_argument("--distill_teacher_ckpt", default="",
+                   help="external pseudo-label teacher (not ported: "
+                        "ROADMAP §A 3)")
+    p.add_argument("--distill_teacher_config", default="",
+                   help="the external teacher's config (not ported: "
+                        "ROADMAP §A 3)")
+    return p
+
+
+def _refuse_unported(args, cfg):
+    """The flags and config keys whose parts are not ported raise here,
+    before anything is built."""
+    unported = [
+        (args.amp, "--amp (bfloat16: ROADMAP §A 4)"),
+        (cfg.get("amp_dtype", "float32") != "float32",
+         "amp_dtype other than float32 (ROADMAP §A 4)"),
+        (cfg.get("fast_norm", False), "fast_norm (ROADMAP §A 4)"),
+        (args.distill_teacher_ckpt or args.distill_teacher_config,
+         "--distill_teacher_ckpt / --distill_teacher_config (the external "
+         "teacher: ROADMAP §A 3)"),
+        (cfg.get("masks", False), "masks (ROADMAP §A 7)"),
+        (cfg.get("use_tensorboard", False),
+         "use_tensorboard (utils/tb.py: ROADMAP §A 9)"),
+    ]
+    bad = [name for on, name in unported if on]
+    if bad:
+        raise NotImplementedError(f"datr_torch does not port {bad} yet")
+
+
+def _load_into_all(state, params):
+    """The weights into the student and every EMA track (the tracks start
+    from the loaded weights, reference main.py:292)."""
+    for m in (state.model, *(getattr(state, n) for n in EMA_TRACKS)):
+        m.load_state_dict(params)
+
+
+def main(args):
+    cfg = load_config(args.config_file)
+    cfg = apply_overrides(cfg, args.options)
+    if args.dataset_file:
+        cfg["dataset_file"] = args.dataset_file
+    _refuse_unported(args, cfg)
+    os.makedirs(args.output_dir, exist_ok=True)
+    logger = setup_logger(args.output_dir)
+    try:  # git sha for reproducibility
+        sha = subprocess.run(
+            ["git", "rev-parse", "HEAD"], capture_output=True, text=True,
+            cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        ).stdout.strip()
+        logger.info(f"git sha: {sha}")
+    except Exception:
+        pass
+    logger.info(f"config: {json.dumps(dict(cfg), default=str)}")
+    with open(os.path.join(args.output_dir, "config_args_all.json"),
+              "w") as f:
+        json.dump({**dict(cfg), **vars(args)}, f, default=str, indent=1)
+
+    model = build_dino_from_config(cfg, args.device, seed=args.seed)
+    ccfg, weight_dict = criterion_from_config(cfg, model)
+    canvas_hw = (cfg.get("canvas_h", 800), cfg.get("canvas_w", 1344))
+    max_boxes = cfg.get("max_boxes", 100)
+
+    # --- datasets ---
+    if args.synthetic:
+        train_ds = synthetic_da_pair(
+            n_images=cfg.get("synthetic_images", 16),
+            num_classes=cfg.num_classes - 1,
+        )
+        val_ds = SyntheticDetectionDataset(
+            8, num_classes=cfg.num_classes - 1, seed=1, fog=0.35)
+        categories = val_ds.categories
+    else:
+        train_ds = build_dataset("train", cfg.dataset_file, args.data_root,
+                                 cfg.get("strong_aug", True))
+        val_ds = build_dataset("val", cfg.dataset_file, args.data_root)
+        categories = val_ds.category_ids() or list(range(1, cfg.num_classes))
+
+    single_domain = not isinstance(train_ds, DAPairedDataset) and not (
+        args.synthetic)
+    if single_domain:
+        train_tf = SingleDomainTrainTransform(
+            cfg.data_aug_scales, cfg.data_aug_max_size,
+            cfg.data_aug_scales2_resize, cfg.data_aug_scales2_crop,
+            strong_aug=cfg.get("strong_aug", False),
+        )
+    else:
+        train_tf = DATrainTransform(
+            cfg.data_aug_scales, cfg.data_aug_max_size,
+            cfg.data_aug_scales2_resize, cfg.data_aug_scales2_crop,
+        )
+    eval_tf = EvalTransform(max(cfg.data_aug_scales), cfg.data_aug_max_size)
+
+    # --- state ---
+    n_params = sum(p.numel() for p in model.parameters())
+    logger.info(f"params: {n_params / 1e6:.2f}M")
+    steps_per_epoch = max(len(train_ds) // cfg.batch_size, 1)
+    lr_drop_step = (int(cfg.lr_drop) * steps_per_epoch
+                    if cfg.get("lr_drop") else None)
+    schedule_type = "step"
+    if cfg.get("onecyclelr"):
+        schedule_type = "onecycle"
+    elif cfg.get("multi_step_lr"):
+        schedule_type = "multistep"
+    optimizer = Optimizer(
+        model, lr=cfg.lr, lr_backbone=cfg.lr_backbone,
+        weight_decay=cfg.weight_decay, clip_max_norm=cfg.clip_max_norm,
+        lr_drop_step=lr_drop_step, schedule_type=schedule_type,
+        lr_drop_steps=[e * steps_per_epoch
+                       for e in cfg.get("lr_drop_list", [])],
+        total_steps=cfg.epochs * steps_per_epoch,
+    )
+    state = create_train_state(model, optimizer, seed=args.seed)
+
+    if args.pretrain_model_path:
+        loaded = load_pretrain_params(args.pretrain_model_path, state.model)
+        if args.finetune_ignore:
+            old = state.model.state_dict()
+            loaded = {k: old[k] if any(kw in k for kw in args.finetune_ignore)
+                      else v for k, v in loaded.items()}
+        _load_into_all(state, loaded)
+        logger.info(f"loaded pretrain weights: {args.pretrain_model_path}")
+    if args.resume:
+        # an explicit --resume wins over auto-resume (reference
+        # main.py:226-245)
+        state, start_epoch, resume_meta = load_resume(args.resume, state)
+        logger.info(f"resumed from {args.resume} (epoch {start_epoch})")
+    else:
+        state, start_epoch, resume_meta = maybe_auto_resume(
+            args.output_dir, state)
+    if args.start_epoch:
+        start_epoch = args.start_epoch
+
+    val_loader = make_eval_loader(val_ds, cfg.batch_size, canvas_hw, eval_tf,
+                                  max_boxes, num_threads=args.num_workers)
+    nms_thr = float(cfg.get("nms_iou_threshold") or -1.0)
+
+    if args.test:
+        test(state.model_ema if args.ema else state.model, val_loader,
+             args.output_dir, cfg.num_select, nms_iou_threshold=nms_thr,
+             logger=logger)
+        return
+    if args.eval:
+        stats = evaluate(
+            state.model_ema if args.ema else state.model, val_loader,
+            categories, cfg.num_select, nms_iou_threshold=nms_thr,
+            logger=logger,
+            save_results_path=os.path.join(args.output_dir, "results.npz")
+            if args.save_results else None)
+        logger.info(json.dumps(stats))
+        return stats
+
+    best = BestTracker(args.output_dir, initial_best=resume_meta.get("best"))
+    burn_epochs = cfg.get("burn_epochs", cfg.epochs)
+    thresholds = np.full((cfg.num_classes,),
+                         cfg.get("pseudo_label_threshold", 0.3), np.float32)
+
+    def eval_stats(m):
+        return evaluate(m, val_loader, categories, cfg.num_select,
+                        nms_iou_threshold=nms_thr, logger=logger)
+
+    for epoch in range(start_epoch, cfg.epochs):
+        t0 = time.time()
+        # at the lr drop, restart the student from the best EMA teacher
+        # (reference main.py:321-327)
+        if epoch == cfg.get("lr_drop") and epoch > start_epoch:
+            best_teacher = os.path.join(args.output_dir, "best_ema_teacher")
+            if os.path.exists(best_teacher):
+                state.model.load_state_dict(
+                    load_pretrain_params(best_teacher, state.model))
+                logger.info("reloaded best_ema_teacher weights at lr_drop")
+        if single_domain:
+            loader = make_single_loader(
+                train_ds, cfg.batch_size, canvas_hw, train_tf, max_boxes,
+                seed=args.seed, epoch=epoch, num_threads=args.num_workers)
+        else:
+            loader = make_da_loader(
+                train_ds, cfg.batch_size, canvas_hw, train_tf, max_boxes,
+                seed=args.seed, epoch=epoch, num_threads=args.num_workers,
+                # burn-in steps never read the strong views
+                compute_strong=(epoch >= burn_epochs))
+        if args.debug:
+            loader = itertools.islice(loader, 4)
+        # the use_ema per-step ModelEma, from ema_epoch on
+        ema_decay = float(cfg.get("ema_decay", 0.9997)) if (
+            cfg.get("use_ema") and epoch >= int(cfg.get("ema_epoch", 0))
+        ) else 0.0
+        kw = dict(ema_decay=ema_decay, logger=logger, epoch=epoch)
+        if single_domain:
+            train_stats = train_one_epoch_plain(state, loader, ccfg,
+                                                weight_dict, **kw)
+        elif epoch < burn_epochs:
+            train_stats = train_one_epoch(state, loader, ccfg, weight_dict,
+                                          **kw)
+        else:
+            train_stats = train_one_epoch_self_training(
+                state, loader, ccfg, weight_dict, thresholds, canvas_hw,
+                **kw)
+        update_emas_per_epoch(state, epoch, cfg)
+
+        save_checkpoint(os.path.join(args.output_dir, "checkpoint"), state,
+                        epoch, extra={"best": best.best})
+        if cfg.get("save_checkpoint_interval", 1) and (
+                (epoch + 1) % cfg.save_checkpoint_interval == 0):
+            save_checkpoint(
+                os.path.join(args.output_dir, f"checkpoint{epoch:04d}"),
+                state, epoch)
+
+        # --- per-epoch eval: student + EMA teacher (+ best-EMA after
+        # burn-in), best families keyed on AP50 (main.py:416-515) ---
+        stats = eval_stats(state.model)
+        best.update("checkpoint_best_regular", stats["ap50"], state.model,
+                    epoch)
+        t_stats = eval_stats(state.ema_teacher)
+        best.update("best_ema_teacher", t_stats["ap50"], state.ema_teacher,
+                    epoch)
+        if cfg.get("use_ema"):
+            # the fourth family: the use_ema ModelEma track
+            e_stats = eval_stats(state.model_ema)
+            best.update("checkpoint_best_ema", e_stats["ap50"],
+                        state.model_ema, epoch)
+        log_line = {
+            "epoch": epoch,
+            "lr": state.optimizer.lr_at(state.step),
+            **{f"train_{k}": v for k, v in train_stats.items()},
+            "ap50_student": stats["ap50"],
+            "ap50_teacher": t_stats["ap50"],
+            **({"ap50_ema": e_stats["ap50"]} if cfg.get("use_ema") else {}),
+            "time": time.time() - t0,
+        }
+        if epoch >= burn_epochs:
+            b_stats = eval_stats(state.best_ema)
+            best.update("best_ema_model", b_stats["ap50"], state.best_ema,
+                        epoch)
+            log_line["ap50_best_ema"] = b_stats["ap50"]
+        # the best families as they stand after this epoch's evaluations,
+        # in the resumable checkpoint
+        update_checkpoint_meta(os.path.join(args.output_dir, "checkpoint"),
+                               {"best": best.best})
+        with open(os.path.join(args.output_dir, "log.txt"), "a") as f:
+            f.write(json.dumps(log_line) + "\n")
+        logger.info(json.dumps(log_line))
+
+
+def cli():
+    """Console entry point, the same surface as `python -m
+    datr_torch.main`."""
+    parser = argparse.ArgumentParser("DATR-torch", parents=[get_args_parser()])
+    main(parser.parse_args())
+
+
+if __name__ == "__main__":
+    cli()

@@ -319,7 +319,8 @@ class DINO(nn.Module):
                 amount: Optional[torch.Tensor] = None,
                 dn_generator: Optional[torch.Generator] = None,
                 dn_draws: Optional[CdnDraws] = None,
-                self_training: bool = False) -> Dict[str, torch.Tensor]:
+                self_training: bool = False,
+                domain_adapt: bool = True) -> Dict[str, torch.Tensor]:
         """images [B, H, W, 3] f32 normalized, pad_mask [B, H, W] True = pad.
 
         Eval (`train=False`): the eval outputs of datr_tpu's DINO (pred_*,
@@ -333,7 +334,9 @@ class DINO(nn.Module):
         `dn_draws`, else from `dn_generator`. Returns datr_tpu's train
         outputs (dn_*, pred_*, aux_*, interm_*, da_*, new_global_proto,
         new_amount; with `self_training` also pred_/aux_/interm_*_target)
-        plus `topk_idx` / `topk_idx_target`."""
+        plus `topk_idx` / `topk_idx_target`. With `domain_adapt=False` the
+        whole batch is supervised (single-domain training): `targets`
+        covers every image, and the outputs stop before the DA branch."""
         srcs, masks, poss = self._extract_features(images, pad_mask)
         src_flat, mask_flat, pos_flat, spatial_shapes = self._flatten_levels(
             srcs, masks, poss)
@@ -356,15 +359,16 @@ class DINO(nn.Module):
         return self._train_forward(srcs, src_flat, mask_flat, pos_flat,
                                    valid_ratios, spatial_shapes, targets,
                                    global_proto, amount, dn_generator,
-                                   dn_draws, self_training)
+                                   dn_draws, self_training, domain_adapt)
 
     def _train_forward(self, srcs, src_flat, mask_flat, pos_flat,
                        valid_ratios, spatial_shapes, targets, global_proto,
-                       amount, dn_generator, dn_draws, self_training):
+                       amount, dn_generator, dn_draws, self_training,
+                       domain_adapt=True):
         B = src_flat.shape[0]
-        if B % 2:
+        if domain_adapt and B % 2:
             raise ValueError("paired DA batches must have an even batch size")
-        half = B // 2
+        half = B // 2 if domain_adapt else B
         dev = src_flat.device
         K, C = self.num_classes, self.hidden_dim
         if global_proto is None:
@@ -410,6 +414,8 @@ class DINO(nn.Module):
         out["interm_boxes"] = ref_unsig.sigmoid()
         out["init_box_proposal"] = init_box_proposal
         out["topk_idx"] = topk_idx
+        if not domain_adapt:
+            return out
 
         # ---- DA branch (dino.py:579-617)
         # image-level discriminator over both domains, every level

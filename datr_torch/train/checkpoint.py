@@ -66,6 +66,18 @@ def save_checkpoint(path: str, obj, epoch: int,
         json.dump({"epoch": epoch, **(extra or {})}, f)
 
 
+def update_checkpoint_meta(path: str, extra: dict):
+    """Merge `extra` into the meta of the checkpoint at `path` (main records
+    the BestTracker's `best` there after the epoch's evaluations, so a
+    resumed run keeps its best families; datr_tpu/train/checkpoint.py:
+    123-138)."""
+    path = os.path.abspath(path)
+    meta = _read_meta(path)
+    meta.update(extra)
+    with open(path + ".meta.json", "w") as f:
+        json.dump(meta, f)
+
+
 def _restore_state(state: TrainState, payload) -> TrainState:
     state.model.load_state_dict(payload["model"])
     state.optimizer.opt.load_state_dict(payload["optimizer"])

@@ -1,4 +1,4 @@
-"""Parameter groups, AdamW, gradient clipping and the learning-rate schedule
+"""Parameter groups, AdamW, gradient clipping and the learning-rate schedules
 (port of datr_tpu/train/optim.py:20-132).
 
 Groups, by the flax path datr_tpu labels (`_label_for_path`):
@@ -13,7 +13,8 @@ clip_by_global_norm does after datr_tpu zeroes the frozen group.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+import math
+from typing import Dict, List, Optional, Sequence
 
 import torch
 from torch import nn
@@ -45,20 +46,61 @@ def freeze_and_group(model: nn.Module) -> Dict[str, List[nn.Parameter]]:
     return groups
 
 
+def piecewise_constant(base: float, step: int,
+                       boundaries_and_scales: Dict[int, float]) -> float:
+    """optax.piecewise_constant_schedule: `base` times every scale whose
+    boundary `step` has reached."""
+    v = base
+    for boundary, scale in sorted(boundaries_and_scales.items()):
+        if step >= boundary:
+            v *= scale
+    return v
+
+
+def cosine_onecycle(peak: float, step: int, total_steps: int,
+                    pct_start: float = 0.3, div_factor: float = 25.0,
+                    final_div_factor: float = 1e4) -> float:
+    """optax.cosine_onecycle_schedule: from peak / div_factor up to `peak`
+    over the first pct_start of `total_steps`, then down to
+    peak / div_factor / final_div_factor, each leg a half cosine."""
+    bounds = [0, int(pct_start * total_steps), int(total_steps)]
+    values = [peak / div_factor]
+    values += [values[-1] * div_factor,
+               values[-1] * div_factor / (div_factor * final_div_factor)]
+    for i in range(2):
+        if bounds[i] <= step < bounds[i + 1]:
+            pct = (step - bounds[i]) / (bounds[i + 1] - bounds[i])
+            start, end = values[i], values[i + 1]
+            return end + (start - end) / 2.0 * (math.cos(math.pi * pct) + 1)
+    return values[-1]
+
+
 class Optimizer:
     """AdamW over the main and backbone groups, with global-norm clipping and
-    a step schedule: lr until `lr_drop_step` updates have been made, then
-    lr * lr_drop_factor (optax.piecewise_constant_schedule)."""
+    datr_tpu's schedules (make_optimizer, datr_tpu/train/optim.py:83-96),
+    each group's from its own base lr, in this order of precedence:
+    - 'onecycle' with `total_steps`: optax.cosine_onecycle_schedule;
+    - 'multistep' with `lr_drop_steps`: times lr_drop_factor at each;
+    - `lr_drop_step`: times lr_drop_factor from that update on;
+    - else constant."""
 
     def __init__(self, model: nn.Module, lr: float = 1e-4,
                  lr_backbone: float = 1e-5, weight_decay: float = 1e-4,
                  clip_max_norm: float = 0.1, lr_drop_factor: float = 0.1,
-                 lr_drop_step: Optional[int] = None):
+                 lr_drop_step: Optional[int] = None,
+                 schedule_type: str = "step",
+                 lr_drop_steps: Optional[Sequence[int]] = None,
+                 total_steps: Optional[int] = None):
+        if schedule_type not in ("step", "multistep", "onecycle"):
+            raise ValueError(f"unknown schedule_type {schedule_type!r}")
         groups = freeze_and_group(model)
         self.base_lr = {"main": lr, "backbone": lr_backbone}
         self.clip_max_norm = clip_max_norm
         self.lr_drop_factor = lr_drop_factor
         self.lr_drop_step = lr_drop_step
+        self.schedule_type = schedule_type
+        self.lr_drop_steps = list(lr_drop_steps or [])
+        self.total_steps = total_steps
         self.params = groups["main"] + groups["backbone"]
         # optax.adamw defaults: b1 0.9, b2 0.999, eps 1e-8, decoupled decay
         self.opt = torch.optim.AdamW(
@@ -66,10 +108,19 @@ class Optimizer:
              for g in ("main", "backbone")],
             betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
 
-    def lr_scale(self, step: int) -> float:
-        if self.lr_drop_step is not None and step >= self.lr_drop_step:
-            return self.lr_drop_factor
-        return 1.0
+    def lr_at(self, step: int, group: str = "main") -> float:
+        """The group's learning rate for update number `step` (0-based)."""
+        base = self.base_lr[group]
+        if self.schedule_type == "onecycle" and self.total_steps:
+            return cosine_onecycle(base, step, self.total_steps)
+        if self.schedule_type == "multistep" and self.lr_drop_steps:
+            return piecewise_constant(
+                base, step, {s: self.lr_drop_factor
+                             for s in self.lr_drop_steps})
+        if self.lr_drop_step is not None:
+            return piecewise_constant(base, step,
+                                      {self.lr_drop_step: self.lr_drop_factor})
+        return base
 
     def grad_norm(self) -> torch.Tensor:
         """Global norm of the trainable gradients (missing ones count 0)."""
@@ -91,7 +142,7 @@ class Optimizer:
                                 self.clip_max_norm / norm)
             torch._foreach_mul_([p.grad for p in self.params], scale)
         for group in self.opt.param_groups:
-            group["lr"] = self.base_lr[group["name"]] * self.lr_scale(step)
+            group["lr"] = self.lr_at(step, group["name"])
         self.opt.step()
         return norm
 

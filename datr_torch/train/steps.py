@@ -10,6 +10,8 @@ device:
   pad_mask [B, H, W]
   boxes    [B//2, T, 4] | labels [B//2, T] | valid [B//2, T]   (source GT)
   (self-training) images_strong [B, H, W, 3]: source weak, target strong
+Single-domain training (`train_step_plain`) supervises the whole batch:
+boxes / labels / valid are [B, T, ...] and there is no DA branch.
 """
 
 from __future__ import annotations
@@ -52,13 +54,14 @@ def loss_and_grads(state: TrainState, batch: Dict[str, torch.Tensor],
 
 
 def _update(state: TrainState, out, ema_decay: float) -> torch.Tensor:
-    """Clip + AdamW, the prototype carry, the step count and the per-step
-    `model_ema` lerp (datr_tpu/train/steps.py:91-96). Returns the pre-clip
-    gradient norm."""
+    """Clip + AdamW, the prototype carry (when `out` has one), the step
+    count and the per-step `model_ema` lerp (datr_tpu/train/steps.py:
+    91-96). Returns the pre-clip gradient norm."""
     grad_norm = state.optimizer.step(state.step)
     state.optimizer.zero_grad()
-    state.global_proto = out["new_global_proto"].detach()
-    state.amount = out["new_amount"].detach()
+    if "new_global_proto" in out:
+        state.global_proto = out["new_global_proto"].detach()
+        state.amount = out["new_amount"].detach()
     state.step += 1
     if ema_decay > 0.0:
         ema_update(state.model_ema, state.model, ema_decay)
@@ -76,6 +79,31 @@ def train_step_burnin(state: TrainState, batch: Dict[str, torch.Tensor],
     CDN noise drawn from the state's generator (tests feed datr_tpu's)."""
     total, losses, out = loss_and_grads(state, batch, ccfg, weight_dict,
                                         dn_draws)
+    grad_norm = _update(state, out, ema_decay)
+    return {"loss": total.detach(),
+            **{k: v.detach() for k, v in losses.items()},
+            "grad_norm": grad_norm.detach()}
+
+
+def train_step_plain(state: TrainState, batch: Dict[str, torch.Tensor],
+                     ccfg: CriterionCfg, weight_dict: Dict[str, float],
+                     ema_decay: float = 0.0,
+                     dn_draws: Optional[CdnDraws] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """One single-domain supervised step, no DA branch (datr_tpu/train/
+    steps.py:103-143); updates `state` in place and leaves the prototype
+    state alone. Returns `loss`, every loss term and `grad_norm`."""
+    model = state.model
+    model.train()
+    state.optimizer.zero_grad()
+    out = model(batch["images"], batch["pad_mask"],
+                targets={k: batch[k] for k in ("boxes", "labels", "valid")},
+                train=True, dn_generator=state.dn_generator,
+                dn_draws=dn_draws, domain_adapt=False)
+    losses = criterion(out, batch["labels"], batch["boxes"], batch["valid"],
+                       ccfg)
+    total = weighted_total(losses, weight_dict)
+    total.backward()
     grad_norm = _update(state, out, ema_decay)
     return {"loss": total.detach(),
             **{k: v.detach() for k, v in losses.items()},

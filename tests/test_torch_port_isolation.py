@@ -1,6 +1,7 @@
 """The port stands alone: importing any module of datr_torch, chip_smoke.py
 or msda_kernel_bench.py (without running its main) loads none of jax,
-jaxlib, flax, optax or datr_tpu. One subprocess (this test process has
+jaxlib, flax, optax or datr_tpu, nor PIL (the card's machine has none; the
+port decodes files through it only inside `coco.open_rgb`). One subprocess (this test process has
 imported jax already) imports the modules one after another and reports,
 after each import, which of those packages are loaded; each module is a
 case of its own."""
@@ -13,7 +14,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "datr_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "datr_tpu", "PIL")
 MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
         ".__init__")

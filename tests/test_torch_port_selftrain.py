@@ -6,6 +6,8 @@ TrainState, the strong view and the self-training epoch loop. Inputs come
 from numpy seeds (or datr_tpu's own draws, fed to the port); each test
 states its tolerance."""
 
+import random
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +17,7 @@ import torch
 from PIL import Image
 
 from datr_torch.convert import load_flax_train_state, state_dict_from_flax
+from datr_torch.data import strong_aug as taug
 from datr_torch.data import synthetic as tsynth
 from datr_torch.engine import train_one_epoch_self_training
 from datr_torch.engine import update_emas_per_epoch as t_update_emas
@@ -486,16 +489,22 @@ def test_self_training_step_leaves_the_teacher(step):
 
 
 def test_strong_view_matches_datr_tpu():
-    """The numpy brightness and contrast copies equal datr_tpu's PIL ones
-    pixel for pixel."""
+    """The strong view of the synthetic batches is datr_tpu's
+    strong_augment, pixel for pixel, and so are the numpy brightness and
+    contrast copies of its single-domain extras."""
     img = np.random.default_rng(9).integers(0, 256, (30, 40, 3), np.uint8)
     for f in (0.6, 1.0, 1.37):
         np.testing.assert_array_equal(
-            tsynth.adjust_brightness(img, f),
+            taug.adjust_brightness(img, f),
             np.asarray(jaug.adjust_brightness(Image.fromarray(img), f)))
         np.testing.assert_array_equal(
-            tsynth.adjust_contrast(img, f),
+            taug.adjust_contrast(img, f),
             np.asarray(jaug.adjust_contrast(Image.fromarray(img), f)))
+    for seed in (0, 1):
+        np.testing.assert_array_equal(
+            taug.strong_augment(img, random.Random(seed)),
+            np.asarray(jaug.strong_augment(Image.fromarray(img),
+                                           random.Random(seed))))
 
 
 def test_synthetic_strong_batch():

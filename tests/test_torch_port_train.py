@@ -533,3 +533,53 @@ def test_train_one_epoch_stops_on_a_non_finite_loss():
                         tcrit.CriterionCfg(num_classes=K, dn_single_pad=2,
                                            dn_groups=2),
                         tcrit.build_weight_dict(dec_layers=2))
+
+
+# ---------------- single-domain training ----------------
+
+
+def test_train_step_plain_matches_datr_tpu(step):
+    """One single-domain step (no DA branch, the whole batch supervised)
+    from the same weights and CDN draws as datr_tpu's train_step_plain:
+    every loss and grad_norm within test_train_step_losses' tolerances,
+    every parameter within 2 lr of datr_tpu's after the AdamW step (as in
+    test_train_step_update_and_prototypes), the prototype state untouched."""
+    from datr_tpu.train.steps import train_step_plain as jax_train_step_plain
+    from datr_torch.train.steps import train_step_plain
+
+    b = _tiny_batch()
+    batch = {k: v[:2] for k, v in b.items()}  # 2 images, both supervised
+    params = step["params"]
+    tx = make_optimizer(params, lr=LR, lr_backbone=LR_BACKBONE)
+    jstate = jax_train_state(params, tx, K, HD, jax.random.PRNGKey(5))
+    ccfg = jcrit.CriterionCfg(num_classes=K, dn_single_pad=2, dn_groups=2)
+    wd = jcrit.build_weight_dict(dec_layers=2)
+    _, dn_rng = jax.random.split(jstate.rng)  # datr_tpu/train/steps.py:31-33
+    jm = JaxDINO(**KW, dn_labelbook_size=K, use_remat=False)
+    # the step donates its state: a copy keeps the fixture's params alive
+    new_state, want = jax.device_get(jax_train_step_plain(
+        jax.tree.map(jnp.copy, jstate),
+        {k: jnp.asarray(v) for k, v in batch.items()}, jm, tx, ccfg, wd))
+
+    tm = TorchDINO(**KW, dn_labelbook_size=K)
+    assert load_flax_params(tm, params) == []
+    pstate = create_train_state(tm, Optimizer(tm, lr=LR,
+                                              lr_backbone=LR_BACKBONE))
+    groups, _ = tcdn.cdn_layout(KW["dn_number"], KW["dn_single_pad"])
+    got = train_step_plain(
+        pstate, {k: t(v) for k, v in batch.items()},
+        tcrit.CriterionCfg(num_classes=K, dn_single_pad=2, dn_groups=2),
+        tcrit.build_weight_dict(dec_layers=2),
+        dn_draws=_jax_cdn_draws(dn_rng, 2, groups, KW["dn_single_pad"], K))
+    assert set(got) == set(want)
+    assert not any("_DA" in k for k in got)
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), want[k], rtol=1e-4,
+                                   atol=1e-5, err_msg=k)
+    new = state_dict_from_flax(new_state.params)
+    for n, p in pstate.model.state_dict().items():
+        group = param_group(n)
+        lr = LR if group == "main" else LR_BACKBONE
+        tol = 0.0 if group == "frozen" else 2 * lr + 1e-6
+        assert (p - new[n]).abs().max().item() <= tol, n
+    assert pstate.step == 1 and pstate.amount.sum().item() == 0
