@@ -14,11 +14,17 @@
 // Corners outside the level carry no weight and no gradient, as in the plain
 // version's where(valid, w, 0).
 //
-// Layouts (all contiguous, f32):
-//   value, grad_value [B, S, H, D]   (grad_value zeroed by the wrapper)
-//   loc, grad_loc     [B, Lq, H, L, P, 2]
-//   attn, grad_attn   [B, Lq, H, L, P]
-//   grad_out          [B, Lq, H, D]
+// Layouts (all contiguous):
+//   value [B, S, H, D], grad_out [B, Lq, H, D]   float, or both bfloat16
+//   work  [B, S, H, D]  float, zeroed by the wrapper: grad_value's sum
+//   grad_value          value's type (for float, the wrapper passes work)
+//   loc, grad_loc     [B, Lq, H, L, P, 2]  float
+//   attn, grad_attn   [B, Lq, H, L, P]     float
+// In bf16 the rows of value and grad_out are read as bf16 and widened to
+// f32; every product and sum is f32; grad_loc / grad_attn are written in
+// f32; grad_value is summed in the f32 workspace and rounded once to bf16
+// by a second pass (msda_round_bf16_kernel). That is more exact than
+// datr_tpu's bf16 scatter-add through XLA: a documented difference.
 //
 // What bounds it on this card: the rate at which L2 takes the reductions into
 // grad_value, then L1's gather rate as in the forward (msda_fwd.cu); about 4
@@ -65,7 +71,12 @@
 // p[0..VEC) += v, as one reduction of VEC*4 bytes (p aligned to them).
 template <int VEC>
 __device__ __forceinline__ void red_add_vec(float* p, const float (&v)[VEC]) {
-  if constexpr (VEC == 4) {
+  if constexpr (VEC == 8) {  // a bf16 lane's 8 channels: two reductions
+    atomicAdd(reinterpret_cast<float4*>(p),
+              make_float4(v[0], v[1], v[2], v[3]));
+    atomicAdd(reinterpret_cast<float4*>(p + 4),
+              make_float4(v[4], v[5], v[6], v[7]));
+  } else if constexpr (VEC == 4) {
     atomicAdd(reinterpret_cast<float4*>(p),
               make_float4(v[0], v[1], v[2], v[3]));
   } else if constexpr (VEC == 2) {
@@ -76,11 +87,12 @@ __device__ __forceinline__ void red_add_vec(float* p, const float (&v)[VEC]) {
 }
 
 // LG as in the forward: the lanes per row fixed at compile time (D = 32), or
-// read from the launch's geometry where LG < 0.
-template <int VEC, int LG>
+// read from the launch's geometry where LG < 0. T is value's and grad_out's
+// type; grad_value is the f32 sum.
+template <typename T, int VEC, int LG>
 __global__ void __launch_bounds__(MSDA_THREADS) msda_bwd_kernel(
-    const float* __restrict__ value, const float* __restrict__ loc,
-    const float* __restrict__ attn, const float* __restrict__ grad_out,
+    const T* __restrict__ value, const float* __restrict__ loc,
+    const float* __restrict__ attn, const T* __restrict__ grad_out,
     float* __restrict__ grad_value, float* __restrict__ grad_loc,
     float* __restrict__ grad_attn, int S, int Lq, int H, int D, int P,
     const Work wk, const __grid_constant__ Levels lv) {
@@ -176,25 +188,29 @@ __global__ void __launch_bounds__(MSDA_THREADS) msda_bwd_kernel(
   }
 }
 
-// The long launches at D = 32 (the encoder's): 8 lanes x float4 per row, 4
-// rows per gather. A warp serves MSDA_RUN_Q CONSECUTIVE queries of its
-// (batch, head), one group of 4 samples at a time: lane j sets up sample
+// The long launches at D = 32 (the encoder's): 8 lanes x 4 channels per
+// row, 4 rows per gather. A warp serves MSDA_RUN_Q CONSECUTIVE queries of
+// its (batch, head), one group of 4 samples at a time: lane j sets up sample
 // k0 + j % 4 of query q0 + j / 4, then the queries go by in order, and each
 // lane holds, per corner, the row and the sum of what it has not yet sent.
 // Where the next query's same sample falls on the same row (neighbouring
 // pixels do on every coarser level: 2, 4 or 8 queries to a cell), the
 // contribution joins the sum in registers and one reduction goes out for the
-// run of them.
+// run of them. bf16 runs f32's geometry (8-byte value loads, the same
+// 16-byte f32 reductions): 4 lanes x 8 bf16 a row, with two set-ups and two
+// reductions a lane, took 122 registers against f32's 72 and 4.43 ms against
+// 2.40 ms at the training encoder shape on an H100.
 #define MSDA_RUN_Q 8
+template <typename T>
 __global__ void __launch_bounds__(MSDA_THREADS) msda_bwd_run_kernel(
-    const float* __restrict__ value, const float* __restrict__ loc,
-    const float* __restrict__ attn, const float* __restrict__ grad_out,
+    const T* __restrict__ value, const float* __restrict__ loc,
+    const float* __restrict__ attn, const T* __restrict__ grad_out,
     float* __restrict__ grad_value, float* __restrict__ grad_loc,
     float* __restrict__ grad_attn, int S, int Lq, int H, int P, int n_runs,
     const __grid_constant__ Levels lv) {
   constexpr int D = 32, VEC = 4, R = 4;
   const int lane = threadIdx.x & 31;
-  const int r = lane >> 3;         // which of the 4 rows of a gather
+  const int r = lane >> 3;          // which of the 4 rows of a gather
   const int ch = (lane & 7) * VEC;  // this lane's channels
   const int jq = lane >> 2, js = lane & 3;  // the set-up this lane does
   const int LP = lv.n * P;
@@ -207,7 +223,7 @@ __global__ void __launch_bounds__(MSDA_THREADS) msda_bwd_run_kernel(
   // index of (b, q0, h) into the [B, Lq, H] arrays; a query further is + H
   const long long bqh0 = ((long long)b * Lq + q0) * H + h;
   const long long bh_off = (long long)b * S * row_stride + (long long)h * D;
-  const float* val_ch = value + bh_off + ch;
+  const T* val_ch = value + bh_off + ch;
   float* gval_ch = grad_value + bh_off + ch;
   const long long mine = bqh0 + (long long)jq * H;
 
@@ -283,85 +299,142 @@ __global__ void __launch_bounds__(MSDA_THREADS) msda_bwd_run_kernel(
   }
 }
 
-template <int VEC, int LG>
+// bf16 grad_value: the f32 sum rounded once, 4 elements a thread per step
+// (16-byte loads, 8-byte stores) where both pointers allow it.
+__global__ void __launch_bounds__(256) msda_round_bf16_kernel(
+    const float* __restrict__ in, __nv_bfloat16* __restrict__ out,
+    long long n, int vec4) {
+  const long long n4 = vec4 ? n / 4 : 0;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  for (long long i = t; i < n4; i += stride) {
+    const float4 v = __ldcs(reinterpret_cast<const float4*>(in) + i);
+    reinterpret_cast<uint2*>(out)[i] =
+        make_uint2(pack_bf16x2(v.x, v.y), pack_bf16x2(v.z, v.w));
+  }
+  for (long long i = 4 * n4 + t; i < n; i += stride)
+    out[i] = __float2bfloat16(in[i]);
+}
+
+template <typename T, int VEC, int LG>
 static cudaError_t launch_bwd_as(const void* value, const void* loc,
                                  const void* attn, const void* grad_out,
-                                 void* grad_value, void* grad_loc,
-                                 void* grad_attn, int S, int Lq, int H, int D,
-                                 int P, const Work& wk, long long blocks,
+                                 float* work, void* grad_loc, void* grad_attn,
+                                 int S, int Lq, int H, int D, int P,
+                                 const Work& wk, long long blocks,
                                  const Levels& lv, int device,
                                  cudaStream_t stream) {
   static bool asked[MSDA_MAX_DEVICES];
-  cudaError_t err = msda_prefer_l1(msda_bwd_kernel<VEC, LG>, device, asked);
+  cudaError_t err =
+      msda_prefer_l1(msda_bwd_kernel<T, VEC, LG>, device, asked);
   if (err != cudaSuccess) return err;
-  msda_bwd_kernel<VEC, LG><<<(unsigned)blocks, MSDA_THREADS, 0, stream>>>(
-      (const float*)value, (const float*)loc, (const float*)attn,
-      (const float*)grad_out, (float*)grad_value, (float*)grad_loc,
-      (float*)grad_attn, S, Lq, H, D, P, wk, lv);
+  msda_bwd_kernel<T, VEC, LG><<<(unsigned)blocks, MSDA_THREADS, 0, stream>>>(
+      (const T*)value, (const float*)loc, (const float*)attn,
+      (const T*)grad_out, work, (float*)grad_loc, (float*)grad_attn, S, Lq,
+      H, D, P, wk, lv);
   return cudaGetLastError();
 }
 
-template <int VEC>
+template <typename T, int VEC>
 static cudaError_t launch_bwd(const void* value, const void* loc,
                               const void* attn, const void* grad_out,
-                              void* grad_value, void* grad_loc,
-                              void* grad_attn, int B, int S, int Lq, int H,
-                              int D, int P, const Levels& lv, int device,
+                              float* work, void* grad_loc, void* grad_attn,
+                              int B, int S, int Lq, int H, int D, int P,
+                              const Levels& lv, int device,
                               cudaStream_t stream) {
   Work wk;
   long long blocks;
   cudaError_t err = msda_plan(&wk, B, Lq, H, D, VEC, device, &blocks);
   if (err != cudaSuccess) return err;
   // D = 32 in 16-byte vectors: the compile-time geometry
-  if constexpr (VEC == 4) {
+  if constexpr (VEC * sizeof(T) == 16) {
     if (D == 32 && wk.qpw > 1) {  // a long launch: runs of queries per warp
       const int n_runs = (Lq + MSDA_WARPS * MSDA_RUN_Q - 1) /
                          (MSDA_WARPS * MSDA_RUN_Q);
       static bool asked[MSDA_MAX_DEVICES];
-      err = msda_prefer_l1(msda_bwd_run_kernel, device, asked);
+      err = msda_prefer_l1(msda_bwd_run_kernel<T>, device, asked);
       if (err != cudaSuccess) return err;
-      msda_bwd_run_kernel<<<(unsigned)((long long)B * H * n_runs),
-                            MSDA_THREADS, 0, stream>>>(
-          (const float*)value, (const float*)loc, (const float*)attn,
-          (const float*)grad_out, (float*)grad_value, (float*)grad_loc,
-          (float*)grad_attn, S, Lq, H, P, n_runs, lv);
+      msda_bwd_run_kernel<T><<<(unsigned)((long long)B * H * n_runs),
+                               MSDA_THREADS, 0, stream>>>(
+          (const T*)value, (const float*)loc, (const float*)attn,
+          (const T*)grad_out, work, (float*)grad_loc, (float*)grad_attn, S,
+          Lq, H, P, n_runs, lv);
       return cudaGetLastError();
     }
-    if (D == 32)  // 8 lanes per row
-      return launch_bwd_as<VEC, 3>(value, loc, attn, grad_out, grad_value,
+    if (D == 32)  // 32 / VEC lanes per row
+      return launch_bwd_as<T, VEC, (VEC == 8 ? 2 : 3)>(
+          value, loc, attn, grad_out, work, grad_loc, grad_attn, S, Lq, H, D,
+          P, wk, blocks, lv, device, stream);
+  }
+  return launch_bwd_as<T, VEC, -1>(value, loc, attn, grad_out, work,
                                    grad_loc, grad_attn, S, Lq, H, D, P, wk,
                                    blocks, lv, device, stream);
-  }
-  return launch_bwd_as<VEC, -1>(value, loc, attn, grad_out, grad_value,
-                                grad_loc, grad_attn, S, Lq, H, D, P, wk,
-                                blocks, lv, device, stream);
+}
+
+static cudaError_t launch_round_bf16(const float* work, void* grad_value,
+                                     long long n, int device,
+                                     cudaStream_t stream) {
+  int sms = 0;
+  const cudaError_t err = msda_sm_count(device, &sms);
+  if (err != cudaSuccess) return err;
+  const int vec4 = (((size_t)work | (size_t)grad_value) % 16) == 0;
+  const long long want = ((vec4 ? n / 4 : n) + 255) / 256;
+  const long long blocks = want < 1 ? 1 : (want < 8LL * sms ? want : 8LL * sms);
+  msda_round_bf16_kernel<<<(unsigned)blocks, 256, 0, stream>>>(
+      work, (__nv_bfloat16*)grad_value, n, vec4);
+  return cudaGetLastError();
 }
 
 extern "C" {
 
-// Returns the cudaError_t of the launch (0 = success). grad_value must hold
-// zeros on entry; grad_loc and grad_attn are overwritten.
+// Returns the cudaError_t of the launches (0 = success). `work` (f32, the
+// shape of value) must hold zeros on entry and receives grad_value's sum;
+// for float value the caller passes grad_value itself as `work`, for
+// bfloat16 value (value_is_bf16 = 1, grad_out bf16 too) the sum is then
+// rounded into grad_value. grad_loc and grad_attn are overwritten.
 int msda_bwd(const void* value, const void* loc, const void* attn,
-             const void* grad_out, void* grad_value, void* grad_loc,
-             void* grad_attn, int B, int S, int Lq, int H, int D, int L,
-             int P, const int* shapes, int device, void* stream) {
+             const void* grad_out, void* work, void* grad_value,
+             void* grad_loc, void* grad_attn, int B, int S, int Lq, int H,
+             int D, int L, int P, const int* shapes, int value_is_bf16,
+             int device, void* stream) {
   Levels lv;
   cudaError_t err = fill_levels(&lv, shapes, L, S);
   if (err != cudaSuccess) return (int)err;
   err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if ((long long)B * Lq * H == 0) return (int)cudaSuccess;
+  if ((long long)B * Lq * H == 0 && !value_is_bf16) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
-#define MSDA_BWD(VEC)                                                        \
-  return (int)launch_bwd<VEC>(value, loc, attn, grad_out, grad_value,       \
-                              grad_loc, grad_attn, B, S, Lq, H, D, P, lv,   \
-                              device, s)
-  switch (msda_vec_width(D, 4, 4, value, grad_out, grad_value)) {
-    case 4: MSDA_BWD(4);
-    case 2: MSDA_BWD(2);
-    default: MSDA_BWD(1);
+  float* w = (float*)work;
+#define MSDA_BWD(T, VEC)                                                  \
+  err = launch_bwd<T, VEC>(value, loc, attn, grad_out, w, grad_loc,       \
+                           grad_attn, B, S, Lq, H, D, P, lv, device, s); \
+  break
+  if (value_is_bf16) {
+    // the rows of value and grad_out in bf16, the reductions into the f32
+    // workspace: the narrower of the two vectors
+    const int vb = msda_vec_width(D, 8, 2, value, grad_out, grad_out);
+    const int vw = msda_vec_width(D, 8, 4, work, work, work);
+    if ((long long)B * Lq * H == 0) {
+      err = cudaSuccess;
+    } else {
+      switch (vb < vw ? vb : vw) {
+        case 8: MSDA_BWD(__nv_bfloat16, 8);
+        case 4: MSDA_BWD(__nv_bfloat16, 4);
+        case 2: MSDA_BWD(__nv_bfloat16, 2);
+        default: MSDA_BWD(__nv_bfloat16, 1);
+      }
+    }
+    if (err != cudaSuccess) return (int)err;
+    return (int)launch_round_bf16(w, grad_value, (long long)B * S * H * D,
+                                  device, s);
+  }
+  switch (msda_vec_width(D, 4, 4, value, grad_out, work)) {
+    case 4: MSDA_BWD(float, 4);
+    case 2: MSDA_BWD(float, 2);
+    default: MSDA_BWD(float, 1);
   }
 #undef MSDA_BWD
+  return (int)err;
 }
 
 }  // extern "C"

@@ -236,6 +236,13 @@ __device__ __forceinline__ void unpack_bf16x2(unsigned int u, float* lo,
   *hi = __uint_as_float(u & 0xffff0000u);
 }
 
+// Two floats rounded to bf16 (to nearest, ties to even, as PyTorch's
+// conversion rounds), packed low then high.
+__device__ __forceinline__ unsigned int pack_bf16x2(float lo, float hi) {
+  return (unsigned int)__bfloat16_as_ushort(__float2bfloat16(lo)) |
+         ((unsigned int)__bfloat16_as_ushort(__float2bfloat16(hi)) << 16);
+}
+
 template <int VEC>
 __device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
                                          float (&v)[VEC]) {

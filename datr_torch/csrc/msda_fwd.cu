@@ -68,11 +68,6 @@ __device__ __forceinline__ void store_vec(float* p, const float (&v)[VEC]) {
   }
 }
 
-__device__ __forceinline__ unsigned int pack_bf16x2(float lo, float hi) {
-  return (unsigned int)__bfloat16_as_ushort(__float2bfloat16(lo)) |
-         ((unsigned int)__bfloat16_as_ushort(__float2bfloat16(hi)) << 16);
-}
-
 template <int VEC>
 __device__ __forceinline__ void store_vec(__nv_bfloat16* p,
                                           const float (&v)[VEC]) {

@@ -164,7 +164,9 @@ def _eval_batches(model, loader: Iterable, num_select: int,
                         num_select=num_select,
                         nms_iou_threshold=nms_iou_threshold,
                         not_to_xyxy=not_to_xyxy)
-        yield ({k: v.cpu().numpy() for k, v in res.items()},
+        # a bf16 model's scores reach the evaluator and the JSON in f32
+        yield ({k: (v.float() if v.is_floating_point() else v).cpu().numpy()
+                for k, v in res.items()},
                {k: _host(batch[k]) for k in _GT_KEYS})
 
 

@@ -11,7 +11,11 @@ Usage:
   python -m datr_torch.main -c configs/DA/Cityscapes2FoggyCityscapes/\\
 DINO_4scale_C2F.py --data_root /data --output_dir runs/c2f \\
       [--options lr=2e-4 ...] [--eval [--ema]] [--test] [--resume path] \\
-      [--synthetic] [--device cpu]
+      [--synthetic] [--device cpu] [--amp]
+
+`--amp` (or `--options amp_dtype=bfloat16`) runs the model in bfloat16 with
+f32 parameters, optimizer moments and EMA tracks, as datr_tpu's does;
+`--options fast_norm=True` adds its fast bf16 norms.
 """
 
 from __future__ import annotations
@@ -93,9 +97,9 @@ def get_args_parser():
                    help="force the starting epoch")
     p.add_argument("--test", action="store_true",
                    help="dump COCO-format detections to results0.json")
-    # not ported yet: each raises in main (see _refuse_unported)
     p.add_argument("--amp", action="store_true",
-                   help="bfloat16 (not ported: ROADMAP §A 4)")
+                   help="shorthand for amp_dtype='bfloat16'")
+    # not ported yet: each raises in main (see _refuse_unported)
     p.add_argument("--distill_teacher_ckpt", default="",
                    help="external pseudo-label teacher (not ported: "
                         "ROADMAP §A 3)")
@@ -109,10 +113,9 @@ def _refuse_unported(args, cfg):
     """The flags and config keys whose parts are not ported raise here,
     before anything is built."""
     unported = [
-        (args.amp, "--amp (bfloat16: ROADMAP §A 4)"),
-        (cfg.get("amp_dtype", "float32") != "float32",
-         "amp_dtype other than float32 (ROADMAP §A 4)"),
-        (cfg.get("fast_norm", False), "fast_norm (ROADMAP §A 4)"),
+        (cfg.get("amp_dtype", "float32") not in ("float32", "bfloat16"),
+         f"amp_dtype={cfg.get('amp_dtype')!r} (float32 and bfloat16 are "
+         "ported; float64: ROADMAP §A 4)"),
         (args.distill_teacher_ckpt or args.distill_teacher_config,
          "--distill_teacher_ckpt / --distill_teacher_config (the external "
          "teacher: ROADMAP §A 3)"),
@@ -137,6 +140,8 @@ def main(args):
     cfg = apply_overrides(cfg, args.options)
     if args.dataset_file:
         cfg["dataset_file"] = args.dataset_file
+    if args.amp:
+        cfg["amp_dtype"] = "bfloat16"
     _refuse_unported(args, cfg)
     os.makedirs(args.output_dir, exist_ok=True)
     logger = setup_logger(args.output_dir)

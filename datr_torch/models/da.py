@@ -1,5 +1,12 @@
 """Domain-adaptation parts: gradient reversal, the image discriminator and
-class prototypes (port of datr_tpu/models/da.py:20-92)."""
+class prototypes (port of datr_tpu/models/da.py:20-92).
+
+In bf16, `class_prototypes` builds its one-hot and class counts in the
+queries' dtype, as datr_tpu does (da.py:80-83): a count above 256 is
+rounded to bf16 there (the sum is taken in f32 and rounded once, in both),
+and the port rounds it in the same place. The running state
+(`global_proto`, `amount`) stays f32.
+"""
 
 from __future__ import annotations
 
@@ -8,6 +15,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .layers import Conv2d
 
 
 class _GradReverse(torch.autograd.Function):
@@ -29,12 +38,13 @@ class ImageDiscriminator(nn.Module):
     """Patch-level domain discriminator: four 3x3 convolutions with leaky
     ReLU 0.2 between them. NCHW [B, C, h, w] -> [B, 1, h, w] logits."""
 
-    def __init__(self, in_ch: int, ndf1: int = 256, ndf2: int = 128):
+    def __init__(self, in_ch: int, ndf1: int = 256, ndf2: int = 128,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_ch, ndf1, 3, padding=1)
-        self.conv2 = nn.Conv2d(ndf1, ndf2, 3, padding=1)
-        self.conv3 = nn.Conv2d(ndf2, ndf2, 3, padding=1)
-        self.classifier = nn.Conv2d(ndf2, 1, 3, padding=1)
+        self.conv1 = Conv2d(in_ch, ndf1, 3, padding=1, dtype=dtype)
+        self.conv2 = Conv2d(ndf1, ndf2, 3, padding=1, dtype=dtype)
+        self.conv3 = Conv2d(ndf2, ndf2, 3, padding=1, dtype=dtype)
+        self.classifier = Conv2d(ndf2, 1, 3, padding=1, dtype=dtype)
 
     def forward(self, x):
         y = F.leaky_relu(self.conv1(x), 0.2)

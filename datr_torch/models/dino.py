@@ -11,9 +11,18 @@ outputs, the image discriminator behind gradient reversal over every level,
 class prototypes of both domains, and the target pass without DN. With
 `use_remat` each encoder and decoder layer is recomputed in the backward
 (torch.utils.checkpoint). With `self_training` the target pass's own
-detection outputs come back too (`*_target`). f32 only; no masks.
+detection outputs come back too (`*_target`). No masks.
 Module attribute names mirror the flax parameter tree (`input_proj0_conv`,
 `enc_layer3`, `class_head`, `d_img`, ...).
+
+`dtype` (f32 or bf16, from the config's `amp_dtype`) is the compute dtype of
+every Linear, Conv2d and norm; parameters stay f32. The casts are datr_tpu's
+(dino.py:253,375,392,538): the position embeddings, the content queries, the
+decoder's sine query embedding and the CDN label embeddings go to `dtype`;
+frozen BN returns f32; the box refinement adds bf16 deltas to f32
+`inverse_sigmoid` references, so references, boxes and the sampling
+locations stay f32 while logits and hidden states are bf16. `fast_norm`
+picks the fast bf16 norms (models/norms.py).
 """
 
 from __future__ import annotations
@@ -36,7 +45,8 @@ from .cdn import (
     draw_cdn_noise,
 )
 from .da import ImageDiscriminator, class_prototypes, grad_reverse
-from .layers import MLP, MSDeformAttn
+from .layers import MLP, Conv2d, Linear, MSDeformAttn
+from .norms import FastGroupNorm, FastLayerNorm, group_norm, layer_norm
 from .position_encoding import position_embedding_sine_hw
 from .resnet import FrozenBatchNorm, ResNet
 from .transformer import (
@@ -49,6 +59,7 @@ from .transformer import (
 
 RESNET_STAGES = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3)}
 RESNET_CHANNELS = (256, 512, 1024, 2048)  # stage 0..3 output widths
+AMP_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _stable_topk_indices(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -85,9 +96,12 @@ class DINO(nn.Module):
         dn_box_noise_scale: float = 1.0,
         dn_labelbook_size: Optional[int] = None,  # None: num_classes
         use_remat: bool = False,
+        dtype: torch.dtype = torch.float32,
+        fast_norm: bool = False,
     ):
         super().__init__()
         C = hidden_dim
+        self.dtype, self.fast_norm = dtype, fast_norm
         self.num_classes = num_classes
         self.num_queries = num_queries
         self.dn_number, self.dn_single_pad = dn_number, dn_single_pad
@@ -101,42 +115,43 @@ class DINO(nn.Module):
         if backbone_name not in RESNET_STAGES:
             raise ValueError(f"unsupported backbone {backbone_name!r}")
         self.backbone = ResNet(RESNET_STAGES[backbone_name],
-                               return_interm_indices)
+                               return_interm_indices, dtype)
         in_chs = [RESNET_CHANNELS[s] for s in return_interm_indices]
         for i in range(num_feature_levels):
             if i < len(in_chs):
-                conv = nn.Conv2d(in_chs[i], C, 1)
+                conv = Conv2d(in_chs[i], C, 1, dtype=dtype)
             else:  # level len(feats) projects the raw last backbone stage
                 cin = in_chs[-1] if i == len(in_chs) else C
-                conv = nn.Conv2d(cin, C, 3, stride=2, padding=1)
+                conv = Conv2d(cin, C, 3, stride=2, padding=1, dtype=dtype)
             self.add_module(f"input_proj{i}_conv", conv)
             self.add_module(f"input_proj{i}_norm",
-                            nn.GroupNorm(32, C, eps=1e-5))
+                            group_norm(C, dtype, fast_norm))
         self.level_embed = nn.Parameter(torch.empty(num_feature_levels, C))
         for i in range(enc_layers):
             self.add_module(f"enc_layer{i}", DeformableEncoderLayer(
                 C, dim_feedforward, num_feature_levels, nheads,
-                enc_n_points))
+                enc_n_points, dtype, fast_norm))
         for i in range(dec_layers):
             self.add_module(f"dec_layer{i}", DeformableDecoderLayer(
                 C, dim_feedforward, num_feature_levels, nheads,
-                dec_n_points))
-        self.decoder_norm = nn.LayerNorm(C, eps=1e-5)
-        self.ref_point_head = MLP(2 * C, C, C, 2)
-        self.class_head = nn.Linear(C, num_classes)
-        self.bbox_head = MLP(C, C, 4, 3, last_zero_init=True)
-        self.enc_out_class_head = nn.Linear(C, num_classes)
-        self.enc_out_bbox_head = MLP(C, C, 4, 3, last_zero_init=True)
-        self.enc_output = nn.Linear(C, C)
-        self.enc_output_norm = nn.LayerNorm(C, eps=1e-5)
+                dec_n_points, dtype, fast_norm))
+        self.decoder_norm = layer_norm(C, dtype, fast_norm)
+        self.ref_point_head = MLP(2 * C, C, C, 2, dtype=dtype)
+        self.class_head = Linear(C, num_classes, dtype=dtype)
+        self.bbox_head = MLP(C, C, 4, 3, last_zero_init=True, dtype=dtype)
+        self.enc_out_class_head = Linear(C, num_classes, dtype=dtype)
+        self.enc_out_bbox_head = MLP(C, C, 4, 3, last_zero_init=True,
+                                     dtype=dtype)
+        self.enc_output = Linear(C, C, dtype=dtype)
+        self.enc_output_norm = layer_norm(C, dtype, fast_norm)
         self.tgt_embed = nn.Parameter(torch.empty(num_queries, C))
         labelbook = num_classes if dn_labelbook_size is None \
             else dn_labelbook_size
         self.label_enc = nn.Parameter(torch.empty(labelbook + 1, C))
         # DA heads, registered last so the seeded init of everything before
         # them does not depend on them
-        self.d_img = ImageDiscriminator(C)
-        self.proto_d = MLP(C, C, 1, 3)
+        self.d_img = ImageDiscriminator(C, dtype=dtype)
+        self.proto_d = MLP(C, C, 1, 3, dtype=dtype)
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -155,7 +170,8 @@ class DINO(nn.Module):
                 lecun_(m.weight, m.weight[0].numel())
                 if m.bias is not None:
                     m.bias.zero_()
-            elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
+            elif isinstance(m, (nn.LayerNorm, nn.GroupNorm, FastLayerNorm,
+                                FastGroupNorm)):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
             elif isinstance(m, FrozenBatchNorm):
@@ -202,7 +218,7 @@ class DINO(nn.Module):
             m = m[:, 0].to(torch.bool)
             p = position_embedding_sine_hw(
                 m, self.hidden_dim // 2, self.pe_temperature_h,
-                self.pe_temperature_w)
+                self.pe_temperature_w).to(self.dtype)
             srcs.append(s)
             masks.append(m)
             poss.append(p)
@@ -283,7 +299,7 @@ class DINO(nn.Module):
         ref_unsig_undetach, tgt_undetach, init_box_proposal, topk_idx = (
             self._two_stage_select(memory, mask_flat, spatial_shapes))
         ref_unsig = ref_unsig_undetach.detach()
-        x = self.tgt_embed[None].expand(B, -1, -1)
+        x = self.tgt_embed[None].expand(B, -1, -1).to(self.dtype)
         if dn_embed is not None:
             x = torch.cat([dn_embed, x], 1)
             ref_unsig = torch.cat([dn_bbox_unsig, ref_unsig], 1)
@@ -293,7 +309,7 @@ class DINO(nn.Module):
         for i in range(self.dec_layers):
             ref_input = ref[:, :, None, :] * vr4[:, None, :, :]  # [B,N,L,4]
             query_pos = self.ref_point_head(sine_embed_for_position(
-                ref_input[:, :, 0, :], self.hidden_dim // 2))
+                ref_input[:, :, 0, :], self.hidden_dim // 2).to(self.dtype))
             x = self._layer(getattr(self, f"dec_layer{i}"), x, query_pos,
                             memory, ref_input, spatial_shapes, mask_flat,
                             self_attn_mask)
@@ -391,7 +407,8 @@ class DINO(nn.Module):
                 self.dn_box_noise_scale)
             attn_mask = cdn_self_attn_mask(self.num_queries,
                                            self.dn_single_pad, groups, dev)
-            dn_embed, dn_bbox = cdn.query_label_embed, cdn.query_bbox_unsig
+            dn_embed = cdn.query_label_embed.to(self.dtype)
+            dn_bbox = cdn.query_bbox_unsig
 
         # ---- source pass, DN split off (dino.py:545-568)
         hs, refs, tgt_undetach, ref_unsig, init_box_proposal, topk_idx = (
@@ -455,17 +472,19 @@ class DINO(nn.Module):
 def build_dino_from_config(cfg, device=None, seed: int = 0) -> DINO:
     """Config -> model with seeded weights, on `device` (default: the CUDA
     card), in eval mode. Mirrors datr_tpu/models/dino.py:632-674 for the
-    settings the f32 eval and burn-in paths read, and refuses those it does
-    not implement."""
+    settings the eval and training paths read, `amp_dtype` ("float32" or
+    "bfloat16") and `fast_norm` included, and refuses those it does not
+    implement (masks, shared two-stage heads, any other amp_dtype:
+    datr_tpu's "float64" is its x64 debugging mode)."""
     get = cfg.get if hasattr(cfg, "get") else lambda k, d=None: getattr(
         cfg, k, d)
     dev = resolve_device(device)
+    amp_dtype = get("amp_dtype", "float32")
     unsupported = {
         "masks": get("masks", False),
         "two_stage_bbox_embed_share": get("two_stage_bbox_embed_share",
                                           False),
-        "amp_dtype": get("amp_dtype", "float32") != "float32",
-        "fast_norm": get("fast_norm", False),
+        f"amp_dtype={amp_dtype!r}": amp_dtype not in AMP_DTYPES,
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
@@ -492,6 +511,8 @@ def build_dino_from_config(cfg, device=None, seed: int = 0) -> DINO:
         dn_box_noise_scale=get("dn_box_noise_scale", 1.0),
         dn_labelbook_size=get("dn_labelbook_size", num_classes),
         use_remat=get("use_remat", True),
+        dtype=AMP_DTYPES[amp_dtype],
+        fast_norm=bool(get("fast_norm", False)),
     )
     model.init_params(torch.Generator().manual_seed(seed))
     return model.to(dev).eval()

@@ -1,8 +1,19 @@
-"""MLP head and the MSDeformAttn module (port of datr_tpu/models/layers.py).
+"""The compute-dtype Linear and Conv2d, the MLP head and the MSDeformAttn
+module (port of datr_tpu/models/layers.py).
 
 Attribute names mirror the flax parameter tree (`layer0`, `value_proj`,
 `sampling_offsets`, ...) so converted weights load by a mechanical walk
 (datr_torch/convert.py).
+
+The compute dtype is explicit, as flax's `dtype=` is: parameters stay f32,
+and a `Linear` / `Conv2d` casts its input, weight and bias to its `dtype`
+and returns that dtype (the sum is f32 inside the product). As flax's
+Dense / Conv do, it rounds the product to `dtype` and then adds the bias,
+a second rounding in bf16 (the fused bias of F.linear / conv2d rounds once
+and differs in about a quarter of the outputs by an ulp); in f32 the fused
+add differs by at most an f32 rounding and stays. No autocast: autocast
+would keep norms, softmax and reductions in f32 where datr_tpu computes
+them in bf16. At f32 every cast is a no-op.
 """
 
 from __future__ import annotations
@@ -17,17 +28,84 @@ from torch import nn
 from ..ops import msda
 
 
+def linear(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor], dtype: torch.dtype) -> torch.Tensor:
+    """F.linear in `dtype` as flax's Dense computes it: the product rounded
+    to `dtype`, then the bias added (see the module docstring)."""
+    x, w = x.to(dtype), weight.to(dtype)
+    if bias is None or dtype == torch.float32:
+        return F.linear(x, w, bias)
+    return F.linear(x, w) + bias.to(dtype)
+
+
+class Linear(nn.Linear):
+    """flax Dense(dtype=dtype): f32 parameters, computed in `dtype`."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias)
+        self.dtype = dtype
+
+    def forward(self, x):
+        return linear(x, self.weight, self.bias, self.dtype)
+
+
+class Conv2d(nn.Conv2d):
+    """flax Conv(dtype=dtype), NCHW: f32 parameters, computed in `dtype`."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.dtype = dtype
+
+    def forward(self, x):
+        x, w = x.to(self.dtype), self.weight.to(self.dtype)
+        if self.bias is None or self.dtype == torch.float32:
+            return self._conv_forward(x, w, self.bias)
+        return (self._conv_forward(x, w, None)
+                + self.bias.to(self.dtype)[:, None, None])
+
+
+class _RoundedSoftmax(torch.autograd.Function):
+    """jax.nn.softmax's ops in the input's dtype, each rounded as XLA
+    rounds it, and the VJP of its JVP rule (jax/_src/nn/functions.py,
+    `_softmax` / `_softmax_jvp`)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        e = (x - x.amax(-1, keepdim=True)).exp()
+        y = e / e.sum(-1, keepdim=True)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        yg = y * g
+        return yg - y * yg.sum(-1, keepdim=True)
+
+
+def softmax(x: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last axis as datr_tpu takes it: in bf16, each op
+    rounds to bf16 (torch's fused softmax rounds once); in f32 the fused one
+    differs by a few f32 roundings and stays."""
+    if x.dtype == torch.float32:
+        return x.softmax(-1)
+    return _RoundedSoftmax.apply(x)
+
+
 class MLP(nn.Module):
     """ReLU MLP with layers `layer0` .. `layer{n-1}`."""
 
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
-                 num_layers: int, last_zero_init: bool = False):
+                 num_layers: int, last_zero_init: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_layers = num_layers
         self.last_zero_init = last_zero_init
         dims = [in_dim] + [hidden_dim] * (num_layers - 1) + [out_dim]
         for i in range(num_layers):
-            self.add_module(f"layer{i}", nn.Linear(dims[i], dims[i + 1]))
+            self.add_module(f"layer{i}", Linear(dims[i], dims[i + 1],
+                                                dtype=dtype))
 
     def forward(self, x):
         for i in range(self.num_layers):
@@ -52,18 +130,22 @@ def directional_offset_bias(n_heads: int, n_levels: int,
 
 
 class MSDeformAttn(nn.Module):
-    """Multi-scale deformable attention over flattened multi-level tokens."""
+    """Multi-scale deformable attention over flattened multi-level tokens.
+    In bf16 the value, offsets and attention logits are bf16 (the softmax
+    too), the sampling locations f32: value bf16 and loc / attn f32 reach
+    the MSDA op (datr_tpu/models/layers.py:85,131-134)."""
 
     def __init__(self, d_model: int = 256, n_levels: int = 4,
-                 n_heads: int = 8, n_points: int = 4):
+                 n_heads: int = 8, n_points: int = 4,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.d_model, self.n_levels = d_model, n_levels
         self.n_heads, self.n_points = n_heads, n_points
         hlp = n_heads * n_levels * n_points
-        self.value_proj = nn.Linear(d_model, d_model)
-        self.sampling_offsets = nn.Linear(d_model, hlp * 2)
-        self.attention_weights = nn.Linear(d_model, hlp)
-        self.output_proj = nn.Linear(d_model, d_model)
+        self.value_proj = Linear(d_model, d_model, dtype=dtype)
+        self.sampling_offsets = Linear(d_model, hlp * 2, dtype=dtype)
+        self.attention_weights = Linear(d_model, hlp, dtype=dtype)
+        self.output_proj = Linear(d_model, d_model, dtype=dtype)
 
     @torch.no_grad()
     def reset_sampling(self):
@@ -94,7 +176,7 @@ class MSDeformAttn(nn.Module):
 
         offsets = self.sampling_offsets(query).reshape(B, Lq, H, L, P, 2)
         attn = self.attention_weights(query).reshape(B, Lq, H, L * P)
-        attn = attn.softmax(-1).reshape(B, Lq, H, L, P)
+        attn = softmax(attn).reshape(B, Lq, H, L, P)
 
         if reference_points.shape[-1] == 2:
             # normalize offsets by each level's (W, H)

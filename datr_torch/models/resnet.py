@@ -2,7 +2,10 @@
 datr_tpu/models/resnet.py:21-111).
 
 Takes images channels-last [B, H, W, 3] like the JAX package and runs NCHW
-inside; the returned stage features are NCHW [B, C, h, w].
+inside; the returned stage features are NCHW [B, C, h, w]. The convolutions
+compute in `dtype`; frozen BN returns f32 (datr_tpu/models/resnet.py:35), so
+each block's output and the stage features are f32 and the next
+convolution casts again.
 """
 
 from __future__ import annotations
@@ -12,6 +15,8 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .layers import Conv2d
 
 
 class FrozenBatchNorm(nn.Module):
@@ -38,26 +43,29 @@ class FrozenBatchNorm(nn.Module):
                 * scale[:, None, None] + self.bias[:, None, None])
 
 
-def _conv(cin, cout, k, stride=1, padding=0, dilation=1):
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=padding,
-                     dilation=dilation, bias=False)
+def _conv(cin, cout, k, stride=1, padding=0, dilation=1,
+          dtype=torch.float32):
+    return Conv2d(cin, cout, k, stride=stride, padding=padding,
+                  dilation=dilation, bias=False, dtype=dtype)
 
 
 class Bottleneck(nn.Module):
     """1x1 -> 3x3 -> 1x1 bottleneck with identity/projection shortcut."""
 
     def __init__(self, in_features: int, features: int, strides: int = 1,
-                 dilation: int = 1):
+                 dilation: int = 1, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = _conv(in_features, features, 1)
+        self.conv1 = _conv(in_features, features, 1, dtype=dtype)
         self.bn1 = FrozenBatchNorm(features)
-        self.conv2 = _conv(features, features, 3, strides, dilation, dilation)
+        self.conv2 = _conv(features, features, 3, strides, dilation, dilation,
+                           dtype=dtype)
         self.bn2 = FrozenBatchNorm(features)
-        self.conv3 = _conv(features, features * 4, 1)
+        self.conv3 = _conv(features, features * 4, 1, dtype=dtype)
         self.bn3 = FrozenBatchNorm(features * 4)
         self.has_downsample = in_features != features * 4 or strides != 1
         if self.has_downsample:
-            self.downsample_conv = _conv(in_features, features * 4, 1, strides)
+            self.downsample_conv = _conv(in_features, features * 4, 1, strides,
+                                         dtype=dtype)
             self.downsample_bn = FrozenBatchNorm(features * 4)
 
     def forward(self, x):
@@ -74,11 +82,12 @@ class ResNet(nn.Module):
     """return_stages: 0 = layer1 (stride 4) ... 3 = layer4 (stride 32)."""
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
-                 return_stages: Sequence[int] = (1, 2, 3)):
+                 return_stages: Sequence[int] = (1, 2, 3),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.return_stages = tuple(return_stages)
         self.stage_sizes = tuple(stage_sizes)
-        self.conv1 = _conv(3, 64, 7, stride=2, padding=3)
+        self.conv1 = _conv(3, 64, 7, stride=2, padding=3, dtype=dtype)
         self.bn1 = FrozenBatchNorm(64)
         cin = 64
         for stage, (blocks, width) in enumerate(
@@ -86,7 +95,7 @@ class ResNet(nn.Module):
             for b in range(blocks):
                 strides = 2 if (b == 0 and stage > 0) else 1
                 self.add_module(f"layer{stage + 1}_block{b}",
-                                Bottleneck(cin, width, strides))
+                                Bottleneck(cin, width, strides, dtype=dtype))
                 cin = width * 4
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:

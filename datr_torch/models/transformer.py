@@ -2,18 +2,22 @@
 datr_tpu/models/transformer.py:26-161): no dropout (datr_tpu's train steps
 run deterministic); the decoder's query self-attention takes the CDN mask.
 
-LayerNorms use eps 1e-5, as datr_tpu/models/norms.py:74-77 passes it.
+LayerNorms use eps 1e-5, as datr_tpu/models/norms.py:74-77 passes it, and
+come from the norm factory (`fast_norm`). Every layer computes in its
+`dtype`, as datr_tpu's do.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import MSDeformAttn
+from .layers import Linear, MSDeformAttn, linear, softmax
+from .norms import layer_norm
 
 
 def encoder_reference_points(
@@ -48,11 +52,12 @@ def valid_ratios_from_mask(masks) -> torch.Tensor:
 
 
 class FFN(nn.Module):
-    def __init__(self, d_model: int, d_ffn: int):
+    def __init__(self, d_model: int, d_ffn: int,
+                 dtype: torch.dtype = torch.float32, fast_norm: bool = False):
         super().__init__()
-        self.linear1 = nn.Linear(d_model, d_ffn)
-        self.linear2 = nn.Linear(d_ffn, d_model)
-        self.norm = nn.LayerNorm(d_model, eps=1e-5)
+        self.linear1 = Linear(d_model, d_ffn, dtype=dtype)
+        self.linear2 = Linear(d_ffn, d_model, dtype=dtype)
+        self.norm = layer_norm(d_model, dtype, fast_norm)
 
     def forward(self, x):
         return self.norm(x + self.linear2(F.relu(self.linear1(x))))
@@ -60,38 +65,56 @@ class FFN(nn.Module):
 
 class MultiheadAttention(nn.Module):
     """Dense multi-head attention with separate q/k/v inputs and PyTorch's
-    `in_proj_weight` / `out_proj` parameter layout."""
+    `in_proj_weight` / `out_proj` parameter layout, computed in `dtype`.
 
-    def __init__(self, d_model: int, n_heads: int):
+    In bf16 it takes flax's MultiHeadDotProductAttention(dtype=bf16)'s ops
+    (datr_tpu/models/transformer.py:141-145, flax/linen/attention.py): the
+    query divided by sqrt(depth) in bf16, the logits and jax's softmax in
+    bf16, each rounded where flax rounds it. In f32 it takes
+    scaled_dot_product_attention, which differs by f32 roundings."""
+
+    def __init__(self, d_model: int, n_heads: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.n_heads = n_heads
+        self.n_heads, self.dtype = n_heads, dtype
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * d_model))
-        self.out_proj = nn.Linear(d_model, d_model)
+        self.out_proj = Linear(d_model, d_model, dtype=dtype)
 
     def forward(self, q, k, v, attn_mask: Optional[torch.Tensor] = None):
         """q, k, v [B, N, C]; attn_mask [N, N] bool, True = may attend."""
         B, N, C = q.shape
-        wq, wk, wv = self.in_proj_weight.chunk(3)
-        bq, bk, bv = self.in_proj_bias.chunk(3)
+        depth = C // self.n_heads
 
         def heads(x, w, b):
-            return F.linear(x, w, b).reshape(B, -1, self.n_heads,
-                                             C // self.n_heads).transpose(1, 2)
+            return linear(x, w, b, self.dtype).reshape(
+                B, -1, self.n_heads, depth).transpose(1, 2)
 
-        o = F.scaled_dot_product_attention(
-            heads(q, wq, bq), heads(k, wk, bk), heads(v, wv, bv),
-            attn_mask=attn_mask)
+        q, k, v = (heads(x, w, b) for x, w, b in zip(
+            (q, k, v), self.in_proj_weight.chunk(3),
+            self.in_proj_bias.chunk(3)))
+        if self.dtype == torch.float32:
+            o = F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask)
+        else:
+            q = q / torch.tensor(math.sqrt(depth), dtype=self.dtype,
+                                 device=q.device)
+            logits = q @ k.transpose(-1, -2)
+            if attn_mask is not None:
+                logits = logits.masked_fill(~attn_mask,
+                                            torch.finfo(self.dtype).min)
+            o = softmax(logits) @ v
         return self.out_proj(o.transpose(1, 2).reshape(B, N, C))
 
 
 class DeformableEncoderLayer(nn.Module):
     def __init__(self, d_model: int = 256, d_ffn: int = 2048,
-                 n_levels: int = 4, n_heads: int = 8, n_points: int = 4):
+                 n_levels: int = 4, n_heads: int = 8, n_points: int = 4,
+                 dtype: torch.dtype = torch.float32, fast_norm: bool = False):
         super().__init__()
-        self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points)
-        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
-        self.ffn = FFN(d_model, d_ffn)
+        self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points,
+                                      dtype)
+        self.norm1 = layer_norm(d_model, dtype, fast_norm)
+        self.ffn = FFN(d_model, d_ffn, dtype, fast_norm)
 
     def forward(
         self,
@@ -110,13 +133,15 @@ class DeformableDecoderLayer(nn.Module):
     """Query self-attention -> deformable cross-attention -> FFN."""
 
     def __init__(self, d_model: int = 256, d_ffn: int = 2048,
-                 n_levels: int = 4, n_heads: int = 8, n_points: int = 4):
+                 n_levels: int = 4, n_heads: int = 8, n_points: int = 4,
+                 dtype: torch.dtype = torch.float32, fast_norm: bool = False):
         super().__init__()
-        self.self_attn = MultiheadAttention(d_model, n_heads)
-        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
-        self.cross_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points)
-        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
-        self.ffn = FFN(d_model, d_ffn)
+        self.self_attn = MultiheadAttention(d_model, n_heads, dtype)
+        self.norm2 = layer_norm(d_model, dtype, fast_norm)
+        self.cross_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points,
+                                       dtype)
+        self.norm1 = layer_norm(d_model, dtype, fast_norm)
+        self.ffn = FFN(d_model, d_ffn, dtype, fast_norm)
 
     def forward(
         self,

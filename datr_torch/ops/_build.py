@@ -33,8 +33,8 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "msda_fwd": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                   ctypes.POINTER(_I), _I, _I, _P], _I),
-    "msda_bwd": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                  ctypes.POINTER(_I), _I, _P], _I),
+    "msda_bwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                  _I, ctypes.POINTER(_I), _I, _I, _P], _I),
     "row_gather": ([_P, _P, _P, _I, _L, _I, _I, _I, _P], _I),
     "gather_fma": ([_P, _P, _P, _P, _I, _L, _I, _I, _I, _P], _I),
     "datr_cuda_error_string": ([_I], ctypes.c_char_p),

@@ -24,8 +24,13 @@ The functions:
   (narrower where D or a pointer's alignment asks for it: every D and any
   contiguous tensor is taken), blocks serve runs of consecutive queries of
   one (batch, head), and the backward scatters with 16-byte vector
-  reductions into the zeroed grad_value (on long launches at D = 32 it first
+  reductions into a zeroed f32 sum (on long launches at D = 32 it first
   merges, in registers, the reductions of consecutive queries onto one row).
+  Both take value in f32 or bf16; in bf16 the backward reads value and
+  grad_out as bf16, writes grad_loc / grad_attn in f32 and rounds
+  grad_value's f32 sum once to bf16, as the plain version's autograd does
+  (datr_tpu's bf16 VJP scatter-adds in bf16: less exact, a documented
+  difference).
 - `MSDeformAttnFunction`: the autograd Function built from the two kernels.
 - `ms_deform_attn`: the dispatcher. CPU tensors go to the plain version, CUDA
   tensors through `MSDeformAttnFunction`, anything else raises.
@@ -203,30 +208,37 @@ def msda_bwd(value: torch.Tensor, spatial_shapes: Shapes,
              grad_out: torch.Tensor):
     """Launch the CUDA kernel (csrc/msda_bwd.cu) on the current stream.
 
-    All inputs f32, contiguous, on one CUDA device; grad_out [B, Lq, H*D].
-    Returns (grad_value, grad_loc, grad_attn), shaped as value, loc, attn.
-    grad_value is a sum of atomic adds, so its last bits vary from run to
-    run. Raises on other inputs, and when the kernel fails to build or
-    launch."""
+    value and grad_out [B, Lq, H*D] both f32 or both bf16, loc and attn
+    f32, all contiguous on one CUDA device. Returns (grad_value, grad_loc,
+    grad_attn), shaped as value, loc, attn; grad_value in value's dtype
+    (bf16: the f32 sum rounded once, by a second launch of the entry
+    point), grad_loc and grad_attn f32. grad_value is a sum of atomic adds,
+    so its last bits vary from run to run. Raises on other inputs, and when
+    the kernel fails to build or launch."""
     B, S, Lq, H, D, L, P = _check_msda_inputs(
         "msda_bwd", value, spatial_shapes, sampling_locations,
         attention_weights, grad_out)
-    if value.dtype != torch.float32 or grad_out.dtype != torch.float32:
-        raise ValueError("msda_bwd needs float32 value and grad_out")
+    if value.dtype not in (torch.float32, torch.bfloat16) or (
+            grad_out.dtype != value.dtype):
+        raise ValueError(f"msda_bwd needs float32 or bfloat16 value and "
+                         f"grad_out of one dtype, got {value.dtype} and "
+                         f"{grad_out.dtype}")
     if grad_out.shape != (B, Lq, H * D):
         raise ValueError(f"grad_out {tuple(grad_out.shape)} is not "
                          f"{(B, Lq, H * D)}")
 
     lib = _build.load_library()
-    grad_value = torch.zeros_like(value)
+    bf16 = value.dtype == torch.bfloat16
+    work = torch.zeros(value.shape, dtype=torch.float32, device=value.device)
+    grad_value = torch.empty_like(value) if bf16 else work
     grad_loc = torch.empty_like(sampling_locations)
     grad_attn = torch.empty_like(attention_weights)
     stream = torch.cuda.current_stream(value.device).cuda_stream
     rc = lib.msda_bwd(
         value.data_ptr(), sampling_locations.data_ptr(),
-        attention_weights.data_ptr(), grad_out.data_ptr(),
+        attention_weights.data_ptr(), grad_out.data_ptr(), work.data_ptr(),
         grad_value.data_ptr(), grad_loc.data_ptr(), grad_attn.data_ptr(),
-        B, S, Lq, H, D, L, P, _shapes_arg(spatial_shapes),
+        B, S, Lq, H, D, L, P, _shapes_arg(spatial_shapes), int(bf16),
         value.device.index, stream)
     _build.check(lib, rc, "msda_bwd launch")
     with _launch_lock:
@@ -242,7 +254,9 @@ def ms_deform_attn_plain_bwd(value: torch.Tensor, spatial_shapes: Shapes,
                              attention_weights: torch.Tensor,
                              grad_out: torch.Tensor):
     """(grad_value, grad_loc, grad_attn): the VJP of `ms_deform_attn_plain`
-    by autograd, the plain version of `msda_bwd`."""
+    by autograd, the plain version of `msda_bwd`, with its dtypes: for bf16
+    value and grad_out, grad_value is the f32 sum rounded once to bf16,
+    grad_loc and grad_attn f32."""
     with torch.enable_grad():
         inputs = [t.detach().requires_grad_() for t in
                   (value, sampling_locations, attention_weights)]

@@ -70,10 +70,12 @@ class InferenceServer:
     Batches always have `batch_size` slots; short batches are padded with
     empty images whose outputs are discarded. `submit` returns a Future of
     {"boxes": [N, 4] xyxy px, "scores": [N], "labels": [N]}. The model runs
-    on `device` (default: the CUDA card; raises without one), in f32: on a
-    CUDA device the server turns TF32 off for cuDNN convolutions and for
-    matmuls (PyTorch's process-wide flags), so it runs what the kernel-vs-plain
-    check holds."""
+    on `device` (default: the CUDA card; raises without one) in its own
+    dtype (`amp_dtype`: the wire decode stays f32 to the canvas, the model
+    casts). On a CUDA device the server turns TF32 off for cuDNN
+    convolutions and for matmuls (PyTorch's process-wide flags), so an f32
+    model runs what the kernel-vs-plain check holds; a bf16 model's
+    products are bf16 either way."""
 
     def __init__(
         self,
@@ -145,7 +147,7 @@ class InferenceServer:
             ones = torch.ones((x.shape[0], 2), device=self.device)
             res = postprocess(out["pred_logits"], out["pred_boxes"], ones,
                               num_select=self.num_select)
-            return torch.cat([res["scores"][..., None],
+            return torch.cat([res["scores"].to(torch.float32)[..., None],
                               res["labels"].to(torch.float32)[..., None],
                               res["boxes"].to(torch.float32)], -1)
 

@@ -2,6 +2,11 @@
 and the target-domain losses of self-training against pseudo-labels (port
 of datr_tpu/train/criterion.py), with the same loss keys.
 
+A bf16 model's outputs are upcast where datr_tpu upcasts them
+(criterion.py:74,81,100,128-134,188-195,226): the focal loss, the matched
+and DN boxes, the prototype BCE and the matcher's costs take f32; the
+image discriminator's BCE stays in the logits' dtype, as there.
+
 Targets have static shapes: boxes [B, T, 4] normalized cxcywh, labels [B, T]
 int, valid [B, T] bool. `num_boxes` is the valid-target count. The
 assignments of every decoder layer and of the encoder output are solved
@@ -168,7 +173,8 @@ def da_proto_loss(da_protos: torch.Tensor, class_map_source: torch.Tensor,
                   class_map_target: torch.Tensor) -> torch.Tensor:
     """Prototype adversarial BCE, masked by class presence."""
     K = class_map_source.shape[0]
-    target = torch.cat([torch.zeros(K, 1), torch.ones(K, 1)]).to(da_protos)
+    target = torch.cat([torch.zeros(K, 1), torch.ones(K, 1)]).to(
+        da_protos.device)
     loss = sigmoid_ce(da_protos.float(), target)
     mask = torch.cat([class_map_source, class_map_target])[:, None]
     return (loss * mask).mean()
@@ -188,7 +194,8 @@ def da_contrast_loss(query_source, query_target, class_map_source,
     eye = torch.eye(K, device=g.device)
 
     def one_side(q, cmap):
-        logits = normalize(q) @ g.T
+        # bf16 prototypes meet the f32 global ones in f32, as JAX promotes
+        logits = normalize(q).to(g.dtype) @ g.T
         label = eye * cmap
         return (-(label * F.log_softmax(logits, -1)).sum(-1)).mean()
 

@@ -27,18 +27,19 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(lq, h, d, p, dtype, case, seed=0):
+def _inputs(lq, h, d, p, dtype, case, seed=0, shapes=SHAPES):
     g = torch.Generator(device="cuda").manual_seed(seed)
-    value = torch.randn(2, S, h, d, device="cuda", generator=g).to(dtype)
-    attn = torch.rand(2, lq, h, L, p, device="cuda", generator=g)
+    s_tok, n_l = sum(hh * w for hh, w in shapes), len(shapes)
+    value = torch.randn(2, s_tok, h, d, device="cuda", generator=g).to(dtype)
+    attn = torch.rand(2, lq, h, n_l, p, device="cuda", generator=g)
     attn = (attn / attn.sum((-1, -2), keepdim=True)).contiguous()
-    loc = torch.rand(2, lq, h, L, p, 2, device="cuda", generator=g)
+    loc = torch.rand(2, lq, h, n_l, p, 2, device="cuda", generator=g)
     if case == "outside":
         loc = loc * 1.6 - 0.3
     elif case == "all_outside":  # no corner of any sample inside a level
         loc = loc + 2.0
-    elif case == "integer":
-        wh = torch.tensor([(w, hh) for hh, w in SHAPES], device="cuda")
+    elif case == "integer":  # exactly on pixel centres, borders included
+        wh = torch.tensor([(w, hh) for hh, w in shapes], device="cuda")
         ij = (loc * (wh + 2)[:, None, :]).floor() - 1
         loc = (ij + 0.5) / wh[:, None, :]
     return value, loc.contiguous(), attn
@@ -252,10 +253,93 @@ def test_dispatcher_on_cuda_keeps_the_gradient(cuda):
 
 
 def test_msda_bwd_refuses_bf16(cuda):
+    """bf16 value takes a bf16 grad_out: an f32 one with it raises, and so
+    do the dtypes the kernel has no path for (f16)."""
     value, loc, attn = _inputs(5, 2, 32, 2, torch.bfloat16, "random")
     g = torch.zeros(2, 5, 64, device="cuda")
     with pytest.raises(ValueError, match="float32"):
         msda.msda_bwd(value, SHAPES, loc, attn, g)
+    with pytest.raises(ValueError, match="float16"):
+        msda.msda_bwd(value.half(), SHAPES, loc, attn, g.half())
+
+
+# ---------------- MSDA backward in bf16 ----------------
+
+SHAPES5 = SHAPES + ((2, 3),)  # five levels, as DINO_5scale has
+
+
+def _assert_bwd_bf16_close(got, value, shapes, loc, attn, g):
+    """grad_value (bf16) within one bf16 rounding of the plain version's f32
+    sum on the same bf16 values (rtol 2^-8, plus the f32 tolerances for the
+    sum's order); grad_loc / grad_attn (f32) at the f32 tolerances of
+    chip_smoke.py's check_bwd: rtol 1e-4 / atol 1e-5, grad_loc's atol times
+    the largest level side (it is the bilinear slope times the side, a sum
+    over the channels and corners whose order differs from the plain
+    version's)."""
+    want = msda.ms_deform_attn_plain_bwd(value.float(), shapes, loc, attn,
+                                         g.float())
+    assert [t.dtype for t in got] == [torch.bfloat16, torch.float32,
+                                      torch.float32]
+    max_side = max(max(hw) for hw in shapes)
+    for name, a, b in zip(("value", "loc", "attn"), got, want):
+        assert a.shape == b.shape
+        rtol = 2.0 ** -8 + 1e-4 if name == "value" else 1e-4
+        atol = 1e-5 * (max_side if name == "loc" else 1)
+        torch.testing.assert_close(a.float(), b, rtol=rtol, atol=atol,
+                                   msg=lambda m: f"grad_{name}: {m}")
+
+
+def _bf16_case(lq, h, d, p, case, shapes=SHAPES):
+    value, loc, attn = _inputs(lq, h, d, p, torch.bfloat16, case,
+                               shapes=shapes)
+    return value, loc, attn, _grad_out(lq, h, d).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", ["random", "integer", "outside"])
+@pytest.mark.parametrize("d", [32, 64, 16, 5])
+def test_msda_bwd_bf16_matches_plain(cuda, case, d):
+    value, loc, attn, g = _bf16_case(37, 4, d, 3, case)
+    before = msda.msda_bwd.launches
+    got = msda.msda_bwd(value, SHAPES, loc, attn, g)
+    torch.cuda.synchronize()
+    assert msda.msda_bwd.launches == before + 1
+    _assert_bwd_bf16_close(got, value, SHAPES, loc, attn, g)
+
+
+@pytest.mark.parametrize("lq,h,p,shapes", [
+    (LONG_LQ, LONG_H, 3, SHAPES),  # the run kernel: 8 lanes x 4 bf16 a row
+    (LONG_LQ, LONG_H, 2, SHAPES),  # P = 2, as DINO_4scale_fast has
+    (37, 4, 2, SHAPES),
+    (37, 4, 4, SHAPES5),  # L = 5, as DINO_5scale has
+    (LONG_LQ, LONG_H, 4, SHAPES5),
+])
+def test_msda_bwd_bf16_geometries(cuda, lq, h, p, shapes):
+    value, loc, attn, g = _bf16_case(lq, h, 32, p, "outside", shapes)
+    got = msda.msda_bwd(value, shapes, loc, attn, g)
+    torch.cuda.synchronize()
+    _assert_bwd_bf16_close(got, value, shapes, loc, attn, g)
+
+
+@pytest.mark.parametrize("d", [32, 6])
+def test_msda_bwd_bf16_takes_misaligned_value(cuda, d):
+    value, loc, attn, g = _bf16_case(37, 4, d, 3, "random")
+    got = msda.msda_bwd(_misaligned(value), SHAPES, loc, attn,
+                        _misaligned(g))
+    torch.cuda.synchronize()
+    _assert_bwd_bf16_close(got, value, SHAPES, loc, attn, g)
+
+
+def test_dispatcher_on_cuda_keeps_the_bf16_gradient(cuda):
+    """ms_deform_attn on bf16 CUDA values: the gradients through msda_bwd
+    come back in the leaves' dtypes (value bf16, loc / attn f32)."""
+    value, loc, attn, _ = _bf16_case(11, 2, 32, 2, "integer")
+    leaves = [t.clone().requires_grad_() for t in (value, loc, attn)]
+    out = msda.ms_deform_attn(leaves[0], SHAPES, leaves[1], leaves[2])
+    assert out.dtype == torch.bfloat16
+    g = torch.randn_like(out)
+    out.backward(g)
+    _assert_bwd_bf16_close([x.grad for x in leaves], value, SHAPES, loc,
+                           attn, g)
 
 
 # ---------------- gathers ----------------

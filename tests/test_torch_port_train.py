@@ -137,14 +137,18 @@ def test_scipy_assignments_equal_jax_hungarian(seed):
 
 def _jax_cdn_draws(rng_key, b, groups, sp, num_classes):
     """The four draws datr_tpu's build_cdn_queries makes from its key
-    (datr_tpu/models/cdn.py:95-112)."""
-    k_flip, k_cls, k_sign, k_part = jax.random.split(rng_key, 4)
+    (datr_tpu/models/cdn.py:95-112), in one jit (eagerly they take seconds
+    of small compiles)."""
     shape = (b, groups, 2, sp)
-    return tcdn.CdnDraws(
-        t(jax.random.uniform(k_flip, shape)),
-        t(jax.random.randint(k_cls, shape, 0, num_classes)),
-        t(jax.random.randint(k_sign, (*shape, 4), 0, 2)),
-        t(jax.random.uniform(k_part, (*shape, 4))))
+
+    def draw(key):
+        k_flip, k_cls, k_sign, k_part = jax.random.split(key, 4)
+        return (jax.random.uniform(k_flip, shape),
+                jax.random.randint(k_cls, shape, 0, num_classes),
+                jax.random.randint(k_sign, (*shape, 4), 0, 2),
+                jax.random.uniform(k_part, (*shape, 4)))
+
+    return tcdn.CdnDraws(*map(t, jax.jit(draw)(rng_key)))
 
 
 @pytest.mark.parametrize("nmax", [3, 7])
