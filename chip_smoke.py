@@ -92,7 +92,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
      step against the plain bf16 step, evaluate of the EMA teacher on 8
      images); phase 7's CLI run again with `--amp` (launches as derived,
      f32 parameters); each part's state freed before the next;
-  9. the result: the wall time of each phase, a {"kernels": [...]} line,
+  9. the serving surface (runs after 4, before 6): the flagship behind
+     serve_http on a local port, in f32 (TF32 off) and in bf16, with the
+     u8 and the yuv420 wire: /healthz and /stats, 48 POSTs of PNG bodies
+     (8 seeded 1024x2048 frames, the five PNG filters cycled over the rows,
+     decoded on the host by data/png.py) from 8 client threads, msda_fwd
+     at 12 launches per batch, every answer held to the server's own
+     detections of the same decoded image (boxes atol 1e-4 x 2048, scores
+     1e-3); with yuv420 the decode on the card held to its plain CPU run
+     (atol 1e-5) and the answers to a forward on the RGB the wire
+     reconstructs; each wire's decode launches per batch; 16 JPEG bodies
+     in f32 where libjpeg was found (else a line says why not); then
+     datr_torch.tools.serve_bench through submit (4 clients, 64 images,
+     in-flight 2; f32 and bf16, u8 and yuv420): img/s, p50 / p95 latency,
+     occupancy; then a burst of 16 POSTs against max_queue 2 and 4
+     concurrent requests: at least one 503 overloaded, close() returns;
+  10. the result: the wall time of each phase, a {"kernels": [...]} line,
      the card line, and as the last line {"ok": true, "device": {...}}.
 Imports nothing of JAX or datr_tpu. Needs one CUDA card; fails without one.
 """
@@ -477,7 +492,8 @@ def check_forward_against_plain(model, batch, sizes, msda, dino_mod,
     topk = dino_mod._stable_topk_indices
     try:
         with torch.inference_mode():
-            x, pad = wire_decode(images, sizes)
+            x, pad = wire_decode(images, sizes, tuple(images.shape[1:3]),
+                                 "u8")
             out_k = model(x, pad)
             kernel_idx = out_k["topk_idx"]
 
@@ -536,12 +552,11 @@ def check_forward_against_plain(model, batch, sizes, msda, dino_mod,
     return diffs
 
 
-def flagship_server(config="configs/DINO/DINO_4scale.py", **overrides):
+def flagship_model(config="configs/DINO/DINO_4scale.py", **overrides):
     """The flagship DINO-R50 4-scale model (or `config`, with `overrides`),
-    seeded random weights, behind InferenceServer at 800x1344, batch 2."""
+    seeded random weights, on the card."""
     from datr_torch.config import load_config
     from datr_torch.models import dino as dino_mod
-    from datr_torch.serve import InferenceServer
 
     cfg = load_config(config)
     cfg["num_classes"] = 9
@@ -551,10 +566,18 @@ def flagship_server(config="configs/DINO/DINO_4scale.py", **overrides):
     log(f"  {config} {overrides or ''}: {n_params} parameters, on "
         f"{next(model.parameters()).device}, {model.dtype}, fast_norm "
         f"{model.fast_norm}")
+    return model
+
+
+def flagship_server(config="configs/DINO/DINO_4scale.py", **overrides):
+    """`flagship_model` behind InferenceServer at 800x1344, batch 2."""
+    from datr_torch.serve import InferenceServer
+
     # threshold 0 keeps all 300 detections of the random-weight model; the
     # long batch timeout fills each batch although submit() resizes on the
     # host first (so the smoke times no latency)
-    return InferenceServer(model, canvas_hw=(800, 1344), batch_size=2,
+    return InferenceServer(flagship_model(config, **overrides),
+                           canvas_hw=(800, 1344), batch_size=2,
                            score_threshold=0.0, batch_timeout_s=1.0)
 
 
@@ -2075,6 +2098,388 @@ def run_bf16(msda, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 9
+
+CANVAS = (800, 1344)  # the flagship's serving canvas
+FRAME_HW = (1024, 2048)  # Cityscapes-sized requests
+HTTP_CLIENTS, HTTP_REQUESTS, JPEG_REQUESTS = 8, 48, 16
+NUM_SELECT = 300  # the server's default: detections per answer
+MSDA_PER_FORWARD = 12  # 6 encoder + 6 decoder layers
+# HTTP answers against detect on the same decoded image (PERF.md §2's
+# eval tolerance): boxes atol 1e-4 x the image's longer side, scores 1e-3
+DETECT_TOL = dict(boxes=1e-4 * max(FRAME_HW), scores=1e-3)
+
+
+def http_post(url, body, timeout=600.0):
+    """(status, JSON answer) of one POST."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+@contextlib.contextmanager
+def http_front_end(srv, **kw):
+    """serve_http over `srv` on a free local port, served from a thread;
+    yields its URL, shut down and joined after."""
+    import threading
+
+    from datr_torch.serve import serve_http
+
+    httpd = serve_http(srv, "127.0.0.1", 0, start=False, **kw)
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    try:
+        yield f"http://127.0.0.1:{httpd.server_address[1]}"
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        t.join(timeout=30)
+        assert not t.is_alive(), "the HTTP server thread did not stop"
+
+
+def http_get(url) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def post_traffic(msda, srv, url, bodies, n, clients) -> dict:
+    """`n` POSTs of `bodies` (cycled) from `clients` threads: the main path
+    of this part (msda_fwd counted from 0, stats reset just before), every
+    answer 200; img/s by wall clock, the clients' p50 / p95, the server's
+    stats, launches against MSDA_PER_FORWARD per batch."""
+    import threading
+
+    answers, lats, errors = {}, [], []
+
+    def client(idxs):
+        try:
+            for i in idxs:
+                t = time.perf_counter()
+                code, out = http_post(url + "/detect", bodies[i % len(bodies)])
+                assert code == 200, (code, out)
+                lats.append(time.perf_counter() - t)
+                answers[i] = out
+        except Exception as e:  # re-raised in the calling thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=client,
+                                args=(range(c, n, clients),))
+               for c in range(clients)]
+    srv.reset_stats()
+    msda.msda_fwd.launches = 0
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    launches = msda.msda_fwd.launches
+    if errors:
+        raise errors[0]
+    st = srv.stats()
+    assert len(answers) == n == st["requests"], (len(answers), st)
+    assert launches == MSDA_PER_FORWARD * st["batches"], (launches,
+                                                          st["batches"])
+    lats.sort()
+    return dict(answers=answers, img_s=n / wall, wall_s=wall,
+                http_p50_latency_s=lats[len(lats) // 2],
+                http_p95_latency_s=lats[min(len(lats) - 1,
+                                            int(len(lats) * 0.95))],
+                p50_latency_s=st["p50_latency_s"],
+                p95_latency_s=st["p95_latency_s"],
+                mean_batch_occupancy=st["mean_batch_occupancy"],
+                batches=st["batches"], launches=launches)
+
+
+def detections_diff(got, want) -> dict:
+    """Largest differences of one answer (lists or arrays) from another."""
+    gb, wb = np.asarray(got["boxes"], np.float32), np.asarray(want["boxes"])
+    gs, ws = np.asarray(got["scores"], np.float32), np.asarray(want["scores"])
+    assert gb.shape == wb.shape == (NUM_SELECT, 4), (gb.shape, wb.shape)
+    assert np.isfinite(gb).all() and np.isfinite(gs).all()
+    return dict(boxes=float(np.abs(gb - wb).max()),
+                scores=float(np.abs(gs - ws).max()))
+
+
+def hold_answers(answers, want) -> dict:
+    """Each HTTP answer i against want[i % len(want)]: the largest
+    differences, held to DETECT_TOL."""
+    worst = {"boxes": 0.0, "scores": 0.0}
+    for i, out in answers.items():
+        d = detections_diff(out, want[i % len(want)])
+        worst = {k: max(worst[k], d[k]) for k in worst}
+    for k, tol in DETECT_TOL.items():
+        assert worst[k] <= tol, f"HTTP answer against detect: {k} {worst}"
+    return worst
+
+
+def wire_decode_launches(wire, sizes, fmt, reps=20) -> dict:
+    """The launches of one batch's wire decode on the card: `ops`, the ATen
+    ops it dispatches there that are not views (each one kernel or one
+    copy), counted by a dispatch mode; and the profiler's device events
+    over `reps` decodes, divided by `reps` (`kernels`, `copies`: short
+    sessions of the profiler can lose events, so these may read below
+    `ops`)."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    from datr_torch.serve import wire_decode
+
+    dev = wire.cuda().device
+
+    class CountOps(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not func.is_view and any(
+                    isinstance(t, torch.Tensor) and t.device == dev
+                    for t in tree_leaves(out)):
+                CountOps.n += 1
+            return out
+
+    cuda = torch.autograd.DeviceType.CUDA
+    wire, sizes = wire.cuda(), sizes.cuda()
+    wire_decode(wire, sizes, CANVAS, fmt)
+    with CountOps():
+        wire_decode(wire, sizes, CANVAS, fmt)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            wire_decode(wire, sizes, CANVAS, fmt)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == cuda]
+    copies = sum(n.startswith(("Memcpy", "Memset")) for n in names)
+    return dict(ops=CountOps.n, kernels=(len(names) - copies) / reps,
+                copies=copies / reps)
+
+
+def check_wire_decode(srv_y, frames) -> dict:
+    """The yuv420 decode of one batch on the card against the same plain
+    ops on the CPU (f32 atol 1e-5, the pad mask exactly), and the launches
+    of a batch's decode in both wires."""
+    from datr_torch import native
+    from datr_torch.serve import wire_decode
+
+    packed = [srv_y._preprocess(f) for f in frames[:2]]
+    wire = torch.from_numpy(np.stack([w for w, _ in packed]))
+    sizes = torch.tensor([hw for _, hw in packed], dtype=torch.int32)
+    want_x, want_m = wire_decode(wire, sizes, CANVAS, "yuv420")
+    with torch.inference_mode():
+        got_x, got_m = wire_decode(wire.cuda(), sizes.cuda(), CANVAS,
+                                   "yuv420")
+    err = (got_x.cpu() - want_x).abs().max().item()
+    assert torch.equal(got_m.cpu(), want_m), "yuv420 pad mask"
+    assert err <= 1e-5, f"yuv420 wire decode on the card: {err}"
+    u8 = torch.from_numpy(np.stack([native.resize_pad_u8(f, hw, CANVAS)
+                                    for f, (_, hw) in zip(frames, packed)]))
+    return dict(max_abs_err=err,
+                launches_per_batch={"yuv420": wire_decode_launches(
+                    wire, sizes, "yuv420"), "u8": wire_decode_launches(
+                    u8, sizes, "u8")})
+
+
+def reconstructed_detections(srv_y, frames) -> list:
+    """Each frame's detections by the model's forward on the RGB that the
+    yuv420 wire reconstructs (the host packing, the decode on the card),
+    outside the server's queue and threads: what the u8 path computes on
+    that RGB."""
+    from datr_torch.models.postprocess import postprocess
+    from datr_torch.serve import wire_decode
+
+    out = []
+    for f in frames:
+        wire, (oh, ow) = srv_y._preprocess(f)
+        # batch of 2 as the server runs it: the second slot empty (padded)
+        wire = torch.from_numpy(np.stack([wire, np.zeros_like(wire)])).cuda()
+        sizes = torch.tensor([[oh, ow], [0, 0]], dtype=torch.int32).cuda()
+        with torch.inference_mode():
+            x, pad = wire_decode(wire, sizes, CANVAS, "yuv420")
+            out_d = srv_y.model(x, pad)
+            res = postprocess(out_d["pred_logits"], out_d["pred_boxes"],
+                              torch.ones((2, 2), device=x.device),
+                              num_select=NUM_SELECT)
+        h0, w0 = f.shape[:2]
+        b = res["boxes"][0].float().cpu().numpy() * np.array(
+            [w0, h0, w0, h0], np.float32)
+        b[:, 0::2] = np.clip(b[:, 0::2], 0, w0)
+        b[:, 1::2] = np.clip(b[:, 1::2], 0, h0)
+        out.append(dict(boxes=b, scores=res["scores"][0].float().cpu()
+                        .numpy()))
+    return out
+
+
+def serving_surface_dtype(msda, card, name, overrides, frames, bodies,
+                          jpeg) -> dict:
+    """Step 1-3 of phase 9 for one dtype: the u8 server over HTTP (PNG
+    bodies, then JPEG ones), then the yuv420 server."""
+    from datr_torch import native
+    from datr_torch.serve import InferenceServer
+
+    model = flagship_model(**overrides)
+    out = {}
+    for wire in ("u8", "yuv420"):
+        srv = InferenceServer(model, canvas_hw=CANVAS, batch_size=2,
+                              num_select=NUM_SELECT, score_threshold=0.0,
+                              wire_format=wire)
+        try:
+            srv.warmup()
+            with http_front_end(srv) as url:
+                assert http_get(url + "/healthz") == {"ok": True}
+                res = post_traffic(msda, srv, url, bodies, HTTP_REQUESTS,
+                                   HTTP_CLIENTS)
+                st = http_get(url + "/stats")
+                assert st["requests"] == HTTP_REQUESTS, st
+                if wire == "u8":
+                    want = [f.result(timeout=600)
+                            for f in [srv.submit(f) for f in frames]]
+                    res["held"] = hold_answers(res["answers"], want)
+                    if jpeg["driven"] and name == "f32":
+                        decoded = [native.decode_jpeg_rgb(b)
+                                   for b in jpeg["bodies"]]
+                        jp = post_traffic(msda, srv, url, jpeg["bodies"],
+                                          JPEG_REQUESTS, HTTP_CLIENTS)
+                        want = [f.result(timeout=600)
+                                for f in [srv.submit(d) for d in decoded]]
+                        jp["held"] = hold_answers(jp.pop("answers"), want)
+                        res["jpeg"] = jp
+                else:
+                    res["wire_decode"] = check_wire_decode(srv, frames)
+                    res["held"] = hold_answers(
+                        res["answers"],
+                        reconstructed_detections(srv, frames))
+            del res["answers"]
+        finally:
+            srv.close()
+        log(f"  {name} {wire} over HTTP: {HTTP_REQUESTS} PNG requests from "
+            f"{HTTP_CLIENTS} clients, {res['img_s']:.2f} img/s, p50 / p95 "
+            f"{res['http_p50_latency_s']:.3f} / "
+            f"{res['http_p95_latency_s']:.3f} s (server "
+            f"{res['p50_latency_s']:.3f} / {res['p95_latency_s']:.3f}), "
+            f"occupancy {res['mean_batch_occupancy']:.2f}, msda_fwd "
+            f"{res['launches']} in {res['batches']} batches; against detect "
+            f"{res['held']} on {card}")
+        out[wire] = res
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def overload(msda) -> dict:
+    """A burst of 16 POSTs at a server that takes 2 queued requests and an
+    HTTP front end that takes 4 at once: at least one 503 overloaded, every
+    request answered, and close() returns with every thread stopped."""
+    import threading
+
+    from datr_torch.data import png
+    from datr_torch.serve import InferenceServer
+    from datr_torch.tools.serve_bench import synthetic_frames
+
+    # a small body: the front end sheds before reading it, and a client
+    # still sending a large one would see the connection reset
+    body = png.encode_png(synthetic_frames(1, (64, 128), seed=5)[0])
+    srv = InferenceServer(flagship_model(), canvas_hw=CANVAS, batch_size=2,
+                          num_select=NUM_SELECT, score_threshold=0.0,
+                          max_queue=2)
+    codes = []
+    try:
+        srv.warmup()
+        with http_front_end(srv, max_concurrent=4,
+                            submit_timeout_s=0.05) as url:
+            def hit():
+                codes.append(http_post(url + "/detect", body))
+
+            threads = [threading.Thread(target=hit) for _ in range(16)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+    finally:
+        t0 = time.perf_counter()
+        srv.close()
+        close_s = time.perf_counter() - t0
+    alive = [t.name for t in (srv._batcher, *srv._dispatchers,
+                              *srv._collectors) if t.is_alive()]
+    n503 = sum(c == 503 and o == {"error": "overloaded"} for c, o in codes)
+    n200 = sum(c == 200 for c, _ in codes)
+    log(f"  overload: 16 requests -> {n200} x 200, {n503} x 503 overloaded, "
+        f"{len(codes) - n200 - n503} other; close() {close_s:.2f} s, threads "
+        f"left {alive}")
+    assert len(codes) == 16 and n503 >= 1 and n200 + n503 == 16, codes
+    assert not alive, alive
+    return dict(ok=n200, overloaded=n503, close_s=close_s)
+
+
+def run_serving_surface(msda, card) -> dict:
+    """Phase 9: the serving surface on the card. The flagship over HTTP in
+    f32 (TF32 off) and bf16, u8 and yuv420 wires, PNG bodies of 1024x2048
+    frames (JPEG ones where libjpeg was found), each answer held to the
+    server's own; the bench's traffic through `submit`; the overload
+    path."""
+    from datr_torch import native
+    from datr_torch.data import png
+    from datr_torch.tools import serve_bench
+
+    frames = serve_bench.synthetic_frames(8, FRAME_HW, seed=0)
+    t0 = time.perf_counter()
+    bodies = [png.encode_png(f) for f in frames]
+    enc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for b, f in zip(bodies, frames):  # lossless: the frames come back
+        assert np.array_equal(png.decode_png_rgb(b), f)
+    dec_s = (time.perf_counter() - t0) / len(frames)
+    log(f"  {len(frames)} PNG bodies, {sum(map(len, bodies)) / 8e6:.2f} MB "
+        f"each on average, encoded in {enc_s:.2f} s; decode {dec_s * 1e3:.1f}"
+        " ms per body (host, one thread)")
+    jpeg = {"bodies": [], "driven": False}
+    try:
+        jpeg["bodies"] = [native.encode_jpeg_rgb(f, 90) for f in frames]
+        jpeg["driven"] = True
+    except RuntimeError as e:
+        jpeg.update(driven=False, why=str(e)[:300])
+        log(json.dumps({"jpeg": "not driven", "why": jpeg["why"]}))
+    out = {"png_decode_ms": dec_s * 1e3,
+           "png_mb": sum(map(len, bodies)) / 8e6}
+    for name, overrides in (("f32", {}),
+                            ("bf16", dict(BF16, use_remat=False))):
+        out[name] = serving_surface_dtype(msda, card, name, overrides, frames,
+                                          bodies, jpeg)
+    out["jpeg"] = {k: v for k, v in jpeg.items() if k != "bodies"}
+    bench = {}
+    for amp in (False, True):
+        for wire in ("u8", "yuv420"):
+            argv = ["--clients", "4", "--images", "64", "--in_flight", "2",
+                    "--wire", wire] + (["--amp"] if amp else [])
+            r = serve_bench.run(serve_bench.get_args_parser().parse_args(argv))
+            assert r["msda_fwd_launches"] == MSDA_PER_FORWARD * r[
+                "batches"], r
+            log(f"  serve_bench {' '.join(argv)}: {r['img_s']:.2f} img/s, "
+                f"p50 / p95 {r['p50_latency_s']:.3f} / "
+                f"{r['p95_latency_s']:.3f} s, occupancy "
+                f"{r['mean_batch_occupancy']:.2f} on {card}")
+            bench[f"{r['dtype']}_{wire}"] = r
+            gc.collect()
+            torch.cuda.empty_cache()
+    out["bench"] = bench
+    out["overload"] = overload(msda)
+    out["launches"] = (sum(out[d][w]["launches"] + out[d][w].get(
+        "jpeg", {}).get("launches", 0) for d in ("f32", "bf16")
+        for w in ("u8", "yuv420"))
+        + sum(r["msda_fwd_launches"] for r in bench.values()))
+    return out
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -2127,6 +2532,18 @@ def main() -> int:
     kg = gb["cases"]
     fma_errs = check_gather_fma(gather, bench)
     phase_done("4")
+
+    # phase 9 runs before the training phases: after their large profiles
+    # the profiler's short sessions (the wire decode's launch count) lose
+    # device events
+    log("phase 9: the serving surface: the flagship over HTTP (PNG / JPEG "
+        "bodies, f32 and bf16, u8 and yuv420 wires), serve_bench's traffic "
+        "through submit, the overload path")
+    sv = run_serving_surface(msda, card)
+    log("serving_surface " + json.dumps(dict(sv, card=card)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("9")
 
     # phases 6, 7 and 8 run before phase 5, whose profile must be the last
     # work of the process; each phase's state is gone before the next one
@@ -2217,12 +2634,13 @@ def main() -> int:
         "replaces": "datr_tpu/ops/msda_pallas.py:45",
         "launches": (s["launches"] + tr["launches"]["msda_fwd"]
                      + st["launches"]["msda_fwd"] + st["eval"]["launches"]
-                     + cl["launches"]["msda_fwd"]),
+                     + cl["launches"]["msda_fwd"] + sv["launches"]),
         "launches_by_path": {"serving": s["launches"],
                              "training": tr["launches"]["msda_fwd"],
                              "self_training": st["launches"]["msda_fwd"],
                              "eval": st["eval"]["launches"],
-                             "cli": cl["launches"]["msda_fwd"]},
+                             "cli": cl["launches"]["msda_fwd"],
+                             "serving_surface": sv["launches"]},
         "launches_per_forward": s["launches"] // s["batches"],
         "launches_per_train_step": tr["launches_per_step"]["msda_fwd"],
         "launches_per_self_training_step": st["launches_per_step"][

@@ -9,6 +9,7 @@ masks and the panoptic layout are not ported (ROADMAP §A 7).
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import random
@@ -16,23 +17,43 @@ from typing import Dict, List
 
 import numpy as np
 
+from .. import native
+from . import png
 from .strong_aug import strong_augment
 from .transforms import _MASKS
 
 
-def open_rgb(path: str) -> np.ndarray:
-    """Decode an image file to uint8 [H, W, 3] RGB. The decoder is PIL's,
-    imported here and nowhere else in the package: the --synthetic path
-    and everything after decoding run without PIL."""
+def decode_rgb(data: bytes) -> np.ndarray:
+    """Encoded image bytes -> uint8 [H, W, 3] RGB, as PIL's
+    `.convert("RGB")` gives it: JPEG through libjpeg (`native.
+    decode_jpeg_rgb`), PNG through the port's decoder (`png.
+    decode_png_rgb`), any other format through PIL, imported here and
+    nowhere else in the package (the card's machine has none). A JPEG
+    goes to PIL too where this machine has no libjpeg to build against."""
+    why = ""
+    try:
+        img = native.decode_jpeg_rgb(data)
+    except RuntimeError as e:
+        img, why = None, f" ({e})"
+    if img is None:
+        img = png.decode_png_rgb(data)
+    if img is not None:
+        return img
     try:
         from PIL import Image
     except ImportError as e:
         raise ImportError(
-            "decoding image files needs PIL, which this machine lacks; a "
-            "decoder without PIL is not ported yet (ROADMAP §A 10). Use "
-            "--synthetic, or run where PIL is installed") from e
-    with Image.open(path) as im:
+            "decoding an image that is neither a JPEG libjpeg reads nor an "
+            "8-bit PNG needs PIL, which this machine lacks (other formats: "
+            f"ROADMAP §A 10){why}") from e
+    with Image.open(io.BytesIO(data)) as im:
         return np.asarray(im.convert("RGB"), np.uint8)
+
+
+def open_rgb(path: str) -> np.ndarray:
+    """Decode an image file to uint8 [H, W, 3] RGB (`decode_rgb`)."""
+    with open(path, "rb") as f:
+        return decode_rgb(f.read())
 
 
 class CocoIndex:

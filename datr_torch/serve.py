@@ -1,30 +1,40 @@
-"""Dynamic-batching inference server (port of datr_tpu/serve.py:66-590).
+"""Dynamic-batching inference server, its HTTP front end and the `serve`
+CLI (port of datr_tpu/serve.py).
 
   request -> host resize kept in uint8 (datr_torch.native) -> fixed uint8
-  canvas -> micro-batch padded to the static batch size -> upload ->
-  wire_decode (normalize + pad mask on the device) -> DINO eval forward ->
+  canvas, or its planar I420 packing (wire_format "yuv420", 1.5 bytes/px)
+  -> micro-batch padded to the static batch size -> upload -> wire_decode
+  (colour, normalize and pad mask on the device) -> DINO eval forward ->
   postprocess -> per-request detections in original-image pixels.
 
 Threads as in datr_tpu: a batcher assembles batches, dispatchers upload and
 enqueue the forward (CUDA work is asynchronous, so a dispatcher returns while
 the card still runs), collectors copy results to the host (the copy waits for
 the card) and resolve futures. A semaphore bounds the live batches on the
-device. Single device, u8 wire format, detection only.
+device (`max_in_flight`). One device, detection only.
+
+Components:
+  InferenceServer - request queue + micro-batcher + device step + futures
+  serve_http      - stdlib ThreadingHTTPServer JSON front end
+  CLI             - python -m datr_torch.serve -c CONFIG --ckpt CKPT --port P
 """
 
 from __future__ import annotations
 
+import argparse
+import json
 import queue
 import threading
 import time
 from collections import deque
 from concurrent.futures import Future
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import native, resolve_device
+from .data.coco import decode_rgb
 from .data.transforms import (
     IMAGENET_MEAN,
     IMAGENET_STD,
@@ -32,24 +42,48 @@ from .data.transforms import (
 )
 from .models.postprocess import postprocess
 
-MAX_IN_FLIGHT = 2  # batches live on the device at once
-MAX_QUEUE = 256  # requests waiting for a batch; submit blocks beyond it
-DISPATCHER_THREADS = 2
-COLLECTOR_THREADS = 2
+WIRE_FORMATS = ("u8", "yuv420")
 
 
-def wire_decode(images: torch.Tensor, real_hw: torch.Tensor):
-    """uint8 [B, H, W, 3] canvas + [B, 2] real (h, w) -> (normalized f32
-    [B, H, W, 3] with pads zeroed, pad_mask [B, H, W] True = pad)."""
-    B, H, W, _ = images.shape
+def wire_decode(images: torch.Tensor, real_hw: torch.Tensor,
+                canvas_hw: Tuple[int, int], wire_format: str):
+    """Wire payload + [B, 2] real (h, w) -> (normalized f32 [B, H, W, 3]
+    with pads zeroed, pad_mask [B, H, W] True = pad). Formats:
+      'u8'     - uint8 [B, H, W, 3] RGB canvas (3 bytes/px);
+      'yuv420' - uint8 [B, H*W*3//2] planar I420, full-range BT.601
+                 (native.rgb_to_yuv420); chroma upsampled 2x-nearest, the
+                 inverse JFIF matrix applied and clamped to [0, 255]
+                 (datr_tpu/serve.py:66-107).
+    Plain PyTorch ops: in datr_tpu this decode is XLA fused into the first
+    convolution, not a Pallas kernel."""
+    B = images.shape[0]
+    H, W = canvas_hw
     dev = images.device
     rows = torch.arange(H, device=dev)[None, :, None]
     cols = torch.arange(W, device=dev)[None, None, :]
     pad_mask = ((rows >= real_hw[:, 0, None, None])
                 | (cols >= real_hw[:, 1, None, None]))
+    if wire_format == "yuv420":
+        n_y, n_c = H * W, (H // 2) * (W // 2)
+        y = images[:, :n_y].reshape(B, H, W).to(torch.float32)
+
+        def chroma(plane):
+            c = plane.reshape(B, H // 2, 1, W // 2, 1).to(torch.float32)
+            return (c - 128.0).expand(B, H // 2, 2, W // 2, 2).reshape(
+                B, H, W)
+
+        u = chroma(images[:, n_y:n_y + n_c])
+        v = chroma(images[:, n_y + n_c:])
+        rgb = torch.stack([y + 1.402 * v,
+                           y - 0.344136 * u - 0.714136 * v,
+                           y + 1.772 * u], -1).clamp(0.0, 255.0)
+    elif wire_format == "u8":
+        rgb = images.to(torch.float32)
+    else:
+        raise ValueError(f"unknown wire_format {wire_format!r}")
     mean = torch.as_tensor(IMAGENET_MEAN, device=dev)
     std = torch.as_tensor(IMAGENET_STD, device=dev)
-    out = (images.to(torch.float32) / 255.0 - mean) / std
+    out = (rgb / 255.0 - mean) / std
     return out.masked_fill(pad_mask[..., None], 0.0), pad_mask
 
 
@@ -57,7 +91,8 @@ class _Request:
     __slots__ = ("image", "orig_hw", "real_hw", "future", "t_enqueue")
 
     def __init__(self, image, orig_hw, real_hw, future):
-        self.image = image  # uint8 [H, W, 3] canvas, zero-padded
+        self.image = image  # uint8 wire payload: [H, W, 3] RGB canvas
+        # (zero-padded) or flat [H*W*3//2] I420, per the server's wire_format
         self.orig_hw = orig_hw
         self.real_hw = real_hw  # unpadded (h, w) on the canvas
         self.future = future
@@ -75,7 +110,14 @@ class InferenceServer:
     casts). On a CUDA device the server turns TF32 off for cuDNN
     convolutions and for matmuls (PyTorch's process-wide flags), so an f32
     model runs what the kernel-vs-plain check holds; a bf16 model's
-    products are bf16 either way."""
+    products are bf16 either way.
+
+    Options as datr_tpu's (datr_tpu/serve.py:130-146): `max_in_flight`
+    batches live on the device at once, `max_queue` requests wait for a
+    batch (submit blocks beyond it), `dispatcher_threads` upload and
+    enqueue, `collector_threads` copy results back, and `wire_format`
+    ('u8' or 'yuv420', which needs an even canvas) is the upload's
+    layout. Mesh serving and masks are not ported (ROADMAP §A 8, §A 7)."""
 
     def __init__(
         self,
@@ -87,8 +129,22 @@ class InferenceServer:
         resize_short: int = 800,
         resize_max: int = 1333,
         batch_timeout_s: float = 0.02,
+        max_in_flight: int = 2,
+        max_queue: int = 256,
+        collector_threads: int = 2,
+        dispatcher_threads: int = 2,
+        wire_format: str = "u8",
         device=None,
     ):
+        if wire_format not in WIRE_FORMATS:
+            raise ValueError(f"unknown wire_format {wire_format!r}")
+        if wire_format == "yuv420" and (canvas_hw[0] % 2 or canvas_hw[1] % 2):
+            raise ValueError(
+                f"yuv420 wire format needs an even canvas, got {canvas_hw}")
+        if getattr(model, "with_masks", False):
+            raise NotImplementedError(
+                "mask serving is not ported (ROADMAP §A 7)")
+        self.wire_format = wire_format
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False
@@ -102,11 +158,12 @@ class InferenceServer:
         self.resize_max = int(resize_max)
         self.batch_timeout_s = float(batch_timeout_s)
 
-        self._queue: "queue.Queue[Optional[_Request]]" = queue.Queue(MAX_QUEUE)
+        self._queue: "queue.Queue[Optional[_Request]]" = queue.Queue(
+            max_queue)
         # a batch holds a slot from before its upload until its results are
-        # on the host and its device tensors dropped: at most MAX_IN_FLIGHT
+        # on the host and its device tensors dropped: at most max_in_flight
         # batches live on the device
-        self._dev_slots = threading.Semaphore(MAX_IN_FLIGHT)
+        self._dev_slots = threading.Semaphore(max(1, int(max_in_flight)))
         self._in_flight: "queue.Queue" = queue.Queue()
         self._dispatch_q: "queue.Queue" = queue.Queue()
         self._stop = threading.Event()
@@ -120,12 +177,12 @@ class InferenceServer:
         self._dispatchers = [
             threading.Thread(target=self._dispatch_loop,
                              name=f"serve-dispatcher-{i}", daemon=True)
-            for i in range(DISPATCHER_THREADS)
+            for i in range(max(1, int(dispatcher_threads)))
         ]
         self._collectors = [
             threading.Thread(target=self._collect_loop,
                              name=f"serve-collector-{i}", daemon=True)
-            for i in range(COLLECTOR_THREADS)
+            for i in range(max(1, int(collector_threads)))
         ]
         self._batcher.start()
         for t in (*self._dispatchers, *self._collectors):
@@ -133,14 +190,15 @@ class InferenceServer:
 
     # ---------------- the device step ----------------
 
-    def _step(self, images_u8: np.ndarray, sizes: np.ndarray) -> torch.Tensor:
-        """Upload one batch and enqueue decode + forward + postprocess.
-        Returns the packed [B, num_select, 6] (score, label, xyxy) results on
-        the device; reading them waits for the card."""
+    def _step(self, wire: np.ndarray, sizes: np.ndarray) -> torch.Tensor:
+        """Upload one batch of wire payloads and enqueue decode + forward +
+        postprocess. Returns the packed [B, num_select, 6] (score, label,
+        xyxy) results on the device; reading them waits for the card."""
         with torch.inference_mode():
-            images = torch.from_numpy(images_u8).to(self.device)
+            images = torch.from_numpy(wire).to(self.device)
             real_hw = torch.from_numpy(sizes).to(self.device)
-            x, pad_mask = wire_decode(images, real_hw)
+            x, pad_mask = wire_decode(images, real_hw, self.canvas_hw,
+                                      self.wire_format)
             out = self.model(x, pad_mask)
             # target size (1, 1): boxes relative to the real extent, scaled
             # to original pixels per request on the host
@@ -158,7 +216,7 @@ class InferenceServer:
         algorithm choice, allocator growth)."""
         H, W = self.canvas_hw
         packed = self._step(
-            np.zeros((self.batch_size, H, W, 3), np.uint8),
+            np.zeros((self.batch_size, *self._wire_shape()), np.uint8),
             np.tile(np.int32([H, W]), (self.batch_size, 1)))
         packed.cpu()
 
@@ -194,6 +252,14 @@ class InferenceServer:
                                           int(len(lats) * 0.95))]
         s["queue_depth"] = self._queue.qsize()
         return s
+
+    def reset_stats(self):
+        """Zero the counters and the latency ring (after a warm-up, so the
+        tails are the steady state's)."""
+        with self._stats_lock:
+            for k in self._stats:
+                self._stats[k] = 0 if k != "latency_sum_s" else 0.0
+            self._latencies.clear()
 
     def close(self):
         self._stop.set()
@@ -245,11 +311,21 @@ class InferenceServer:
         if oh > H or ow > W:  # the resized extent must fit the canvas
             s = min(H / oh, W / ow)
             oh, ow = int(oh * s), int(ow * s)
-        return native.resize_pad_u8(img_u8, (oh, ow), (H, W)), (oh, ow)
+        canvas = native.resize_pad_u8(img_u8, (oh, ow), (H, W))
+        if self.wire_format == "yuv420":
+            # packed here, in the submitting thread, not in the batcher
+            return native.rgb_to_yuv420(canvas, (oh, ow)), (oh, ow)
+        return canvas, (oh, ow)
+
+    def _wire_shape(self):
+        H, W = self.canvas_hw
+        if self.wire_format == "yuv420":
+            return (H * W * 3 // 2,)
+        return (H, W, 3)
 
     def _batch_loop(self):
         B = self.batch_size
-        H, W = self.canvas_hw
+        wire_shape = self._wire_shape()
         while not self._stop.is_set():
             try:
                 first = self._queue.get(timeout=0.1)
@@ -271,7 +347,7 @@ class InferenceServer:
                     self._stop.set()
                     break
                 items.append(nxt)
-            images = np.zeros((B, H, W, 3), np.uint8)
+            images = np.zeros((B, *wire_shape), np.uint8)
             sizes = np.zeros((B, 2), np.int32)  # empty slots: fully padded
             for i, it in enumerate(items):
                 images[i] = it.image
@@ -360,3 +436,175 @@ class InferenceServer:
                 })
             except Exception as e:
                 it.future.set_exception(e)
+
+
+# ---------------- HTTP front end ----------------
+
+
+def serve_http(server: InferenceServer, host: str = "127.0.0.1",
+               port: int = 8080, start: bool = True,
+               result_timeout_s: float = 30.0,
+               submit_timeout_s: float = 5.0,
+               max_body_bytes: int = 32 * 1024 * 1024,
+               max_concurrent: int = 64):
+    """JSON-over-HTTP front end (stdlib only; datr_tpu/serve.py:594-716).
+
+    POST /detect   body = encoded image -> {"boxes": [[x1, y1, x2, y2], ...],
+                   "scores": [...], "labels": [...]}; the body is decoded
+                   by `data.coco.decode_rgb` (JPEG through libjpeg, PNG
+                   through the port's decoder, other formats through PIL
+                   where the machine has it)
+    GET  /healthz  -> {"ok": true}
+    GET  /stats    -> server.stats()
+
+    At most `max_concurrent` /detect requests are in flight; beyond that a
+    request gets an immediate 503 {"error": "overloaded"} (so does one the
+    full queue refuses for `submit_timeout_s`). A request waits at most
+    `result_timeout_s` for its result, then cancels its Future (the
+    collector skips cancelled futures) and gets 503 {"error": "deadline"}.
+    Bodies above `max_body_bytes` get 413 unread. Any other failure is a
+    500 with the error, sent only while no header has gone out.
+
+    Returns the http.server instance; `start=False` skips serve_forever
+    (the caller runs it in a thread; port 0 picks a free port, read it from
+    `server_address`)."""
+    from concurrent.futures import TimeoutError as FutTimeout
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    slots = threading.Semaphore(max(1, int(max_concurrent)))
+
+    class Handler(BaseHTTPRequestHandler):
+        def _send(self, code: int, payload: dict):
+            body = json.dumps(payload).encode()
+            self._headers_sent = True
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path == "/healthz":
+                self._send(200, {"ok": True})
+            elif self.path == "/stats":
+                self._send(200, server.stats())
+            else:
+                self._send(404, {"error": "not found"})
+
+        def do_POST(self):
+            self._headers_sent = False
+            if self.path != "/detect":
+                self._send(404, {"error": "not found"})
+                return
+            n = int(self.headers.get("Content-Length", "0"))
+            if n > max_body_bytes:
+                self._send(413, {"error": "body too large"})
+                return
+            if not slots.acquire(blocking=False):
+                # a stalled device must give quick 503s, not a pile of
+                # threads parked on fut.result
+                self._send(503, {"error": "overloaded"})
+                return
+            try:
+                img = decode_rgb(self.rfile.read(n))
+                try:
+                    fut = server.submit(img, timeout=submit_timeout_s)
+                except queue.Full:
+                    self._send(503, {"error": "overloaded"})
+                    return
+                try:
+                    res = fut.result(timeout=result_timeout_s)
+                except FutTimeout:
+                    fut.cancel()  # the collector skips cancelled futures
+                    self._send(503, {"error": "deadline"})
+                    return
+                self._send(200, {"boxes": res["boxes"].tolist(),
+                                 "scores": res["scores"].tolist(),
+                                 "labels": res["labels"].tolist()})
+            except Exception as e:
+                # a client socket broken mid-200 raises again on a 500:
+                # answer only while nothing has been sent
+                if not self._headers_sent:
+                    try:
+                        self._send(500, {"error": str(e)})
+                    except OSError:
+                        pass
+            finally:
+                slots.release()
+
+        def log_message(self, *a):  # stdout keeps to the JSON lines
+            pass
+
+    httpd = ThreadingHTTPServer((host, port), Handler)
+    if start:
+        httpd.serve_forever()
+    return httpd
+
+
+# ---------------- CLI ----------------
+
+
+def get_args_parser():
+    """datr_tpu's flags (datr_tpu/serve.py:719-748) and `--device`."""
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config_file", "-c", required=True)
+    ap.add_argument("--options", nargs="+", default=[])
+    ap.add_argument("--ckpt", required=True,
+                    help="a checkpoint of the port's format "
+                         "(datr_torch/train/checkpoint.py)")
+    ap.add_argument("--ema", action="store_true",
+                    help="serve the model_ema track")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8080)
+    ap.add_argument("--batch_size", type=int, default=2)
+    ap.add_argument("--num_select", type=int, default=300)
+    ap.add_argument("--threshold", type=float, default=0.2)
+    ap.add_argument("--batch_timeout_ms", type=float, default=20.0)
+    ap.add_argument("--in_flight", type=int, default=2,
+                    help="max live batches on the device (backpressure)")
+    ap.add_argument("--collectors", type=int, default=2,
+                    help="concurrent device->host result-copy threads")
+    ap.add_argument("--dispatchers", type=int, default=2,
+                    help="concurrent host->device upload + enqueue threads")
+    ap.add_argument("--wire", default="u8", choices=list(WIRE_FORMATS),
+                    help="host->device wire format: yuv420 halves the "
+                         "upload bytes again (1.5/px)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card; 'cpu' runs "
+                         "the kernels' plain versions)")
+    return ap
+
+
+def main(argv: Optional[List[str]] = None):
+    args = get_args_parser().parse_args(argv)
+
+    from .config import apply_overrides, load_config
+    from .inference import load_model
+
+    cfg = apply_overrides(load_config(args.config_file), args.options)
+    model = load_model(cfg, args.ckpt, ema=args.ema, device=args.device)
+    canvas = (cfg.get("canvas_h", 800), cfg.get("canvas_w", 1344))
+
+    srv = InferenceServer(
+        model, canvas_hw=canvas, batch_size=args.batch_size,
+        num_select=args.num_select, score_threshold=args.threshold,
+        batch_timeout_s=args.batch_timeout_ms / 1e3,
+        max_in_flight=args.in_flight, collector_threads=args.collectors,
+        dispatcher_threads=args.dispatchers, wire_format=args.wire,
+        device=args.device,
+    )
+    print(json.dumps({"serve": "warmup (kernel build + first batch)"}),
+          flush=True)
+    srv.warmup()
+    print(json.dumps({
+        "serve": "ready", "host": args.host, "port": args.port,
+        "batch_size": args.batch_size, "canvas": list(canvas),
+    }), flush=True)
+    try:
+        serve_http(srv, args.host, args.port)
+    finally:
+        srv.close()
+
+
+if __name__ == "__main__":
+    main()

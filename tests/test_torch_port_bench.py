@@ -8,6 +8,7 @@ from pathlib import Path
 from unittest import mock
 
 import torch
+import torch_port_threads  # noqa: F401  (torch threads under xdist)
 
 from datr_torch.models.cdn import cdn_layout
 

@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_port_threads  # noqa: F401  (torch threads under xdist)
 from flax import linen as fnn
 from flax.traverse_util import flatten_dict, unflatten_dict
 

@@ -14,6 +14,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+import torch_port_threads  # noqa: F401  (torch threads under xdist)
 
 from datr_torch.models import dino as tdino
 from datr_torch.models import norms as tnorms

@@ -61,6 +61,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_port_threads  # noqa: F401  (torch threads under xdist)
 
 from datr_torch.convert import load_flax_params, state_dict_from_flax
 from datr_torch.models import cdn as tcdn

@@ -16,6 +16,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch_port_threads  # torch threads under xdist
 
 from datr_torch.main import get_args_parser, main
 from datr_torch.train.optim import Optimizer
@@ -69,7 +70,8 @@ def _cfg(tmp_path):
 def _run(cfg, out_dir, *extra, data="--synthetic"):
     args = get_args_parser().parse_args([
         "-c", cfg, "--output_dir", str(out_dir), "--debug", "--device", "cpu",
-        "--num_workers", "2", *data.split(), *extra])
+        "--num_workers", str(torch_port_threads.loader_threads(2)),
+        *data.split(), *extra])
     return main(args)
 
 
@@ -251,12 +253,17 @@ def test_single_domain_training(runs):
 
 
 def test_loader_error_reaches_the_caller(tmp_path, monkeypatch):
-    """Training on PNG files with PIL blocked: open_rgb's ImportError,
-    raised in a loader thread, ends main (it does not leave the epoch
-    waiting for a batch that never comes)."""
+    """Training on a PNG folder with one corrupt file, PIL blocked: the
+    port's PNG decoder refuses the file (a chunk fails its CRC), and that
+    ValueError, raised in a loader thread, ends main (it does not leave the
+    epoch waiting for a batch that never comes)."""
     _write_single_domain(tmp_path)
+    bad = tmp_path / "single" / "train" / "images" / "1.png"
+    raw = bytearray(bad.read_bytes())
+    raw[-20] ^= 0xFF  # inside the last IDAT chunk: its CRC no longer holds
+    bad.write_bytes(bytes(raw))
     monkeypatch.setitem(sys.modules, "PIL", None)
-    with pytest.raises(ImportError, match="needs PIL"):
+    with pytest.raises(ValueError, match="CRC"):
         _run(_cfg(tmp_path), tmp_path / "out",
              data=f"--data_root {tmp_path} --dataset_file single")
 

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_port_threads  # noqa: F401  (torch threads under xdist)
 
 from datr_torch.config import apply_overrides, load_config
 from datr_torch.convert import load_flax_params

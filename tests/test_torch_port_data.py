@@ -13,6 +13,7 @@ import random
 
 import numpy as np
 import pytest
+import torch_port_threads  # noqa: F401  (torch threads under xdist)
 from PIL import Image, ImageEnhance, ImageFilter
 
 from datr_torch import native as tnative
@@ -354,8 +355,15 @@ def test_eval_loader_equals_datr_tpu(data_root, num_threads):
     assert got.dataset.eval_annotations is not None
 
 
-def test_open_rgb_without_pil_raises(data_root, monkeypatch):
+def test_open_rgb_without_pil_raises(data_root, tmp_path, monkeypatch):
+    """Without PIL the port still reads the PNG folders (its own decoder,
+    the images equal to datr_tpu's through PIL); a file that is neither
+    JPEG nor PNG (BMP here) needs PIL and raises, naming ROADMAP §A 10."""
     ds = tcoco.build_dataset("val", "c2f", data_root)
+    want = np.asarray(jcoco.build_dataset("val", "c2f", data_root).load(0)[0])
+    bmp = tmp_path / "frame.bmp"
+    pil(rgb(9, 20, 30)).save(bmp)
     monkeypatch.setitem(__import__("sys").modules, "PIL", None)
-    with pytest.raises(ImportError, match="needs PIL"):
-        ds.load(0)
+    np.testing.assert_array_equal(ds.load(0)[0], want)
+    with pytest.raises(ImportError, match="needs PIL.*§A 10"):
+        tcoco.open_rgb(str(bmp))

@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_port_threads  # noqa: F401  (torch threads under xdist)
 from jax.experimental.pallas import tpu as pltpu
 
 from datr_torch.ops import gather

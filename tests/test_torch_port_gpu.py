@@ -7,6 +7,7 @@ PyTorch is installed:
 
 import pytest
 import torch
+import torch_port_threads  # noqa: F401  (torch threads under xdist)
 
 from datr_torch.models.dino import DINO
 from datr_torch.ops import _build, gather, msda
@@ -585,3 +586,65 @@ def test_tiny_self_training_step_cuda_matches_cpu(cuda):
     for n in g_c:
         err = (g_c[n] - g_g[n]).norm().item()
         assert err <= 1e-3 * max(g_c[n].norm().item(), 1e-3 * total), (n, err)
+
+
+# ---------------- the serving surface ----------------
+
+
+def test_wire_decode_yuv420_on_cuda_matches_cpu(cuda):
+    """The yuv420 device decode on the card against the same plain ops on
+    the CPU, f32 atol 1e-5; the pad mask exactly; the u8 wire too."""
+    from datr_torch.serve import wire_decode
+
+    g = torch.Generator().manual_seed(3)
+    canvas = (96, 128)
+    sizes = torch.tensor([[70, 101], [96, 77]], dtype=torch.int32)
+    for fmt, shape in (("yuv420", (2, 96 * 128 * 3 // 2)),
+                       ("u8", (2, 96, 128, 3))):
+        wire = torch.randint(0, 256, shape, generator=g, dtype=torch.uint8)
+        want_x, want_m = wire_decode(wire, sizes, canvas, fmt)
+        got_x, got_m = wire_decode(wire.to(cuda), sizes.to(cuda), canvas, fmt)
+        assert torch.equal(got_m.cpu(), want_m)
+        torch.testing.assert_close(got_x.cpu(), want_x, rtol=0, atol=1e-5)
+
+
+def test_http_round_trip_on_card(cuda):
+    """A tiny DINO served on the card: one PNG POST (the port's encoder
+    and decoder, no PIL) equal to detect on the decoded image, through
+    msda_fwd (3 launches per batch)."""
+    import json
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from datr_torch.data import png
+    from datr_torch.serve import InferenceServer, serve_http
+
+    model = DINO(num_classes=4, num_queries=12, hidden_dim=32, nheads=2,
+                 enc_layers=1, dec_layers=2, dim_feedforward=64)
+    model.init_params(torch.Generator().manual_seed(0))
+    img = np.random.default_rng(4).integers(0, 256, (60, 90, 3), np.uint8)
+    with InferenceServer(model, canvas_hw=(96, 128), batch_size=2,
+                         num_select=8, score_threshold=0.0, resize_short=64,
+                         resize_max=128, wire_format="yuv420",
+                         device="cuda") as srv:
+        srv.warmup()
+        httpd = serve_http(srv, "127.0.0.1", 0, start=False)
+        t = threading.Thread(target=httpd.serve_forever, daemon=True)
+        t.start()
+        try:
+            before = msda.msda_fwd.launches
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{httpd.server_address[1]}/detect",
+                data=png.encode_png(img), method="POST")
+            with urllib.request.urlopen(req, timeout=120) as r:
+                out = json.load(r)
+            assert msda.msda_fwd.launches == before + 3
+            want = srv.detect(img)
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+    assert out["labels"] == want["labels"].tolist()
+    np.testing.assert_allclose(out["scores"], want["scores"], atol=1e-6)
+    np.testing.assert_allclose(out["boxes"], want["boxes"], atol=1e-3)

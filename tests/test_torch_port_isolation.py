@@ -1,7 +1,9 @@
 """The port stands alone: importing any module of datr_torch, chip_smoke.py
 or msda_kernel_bench.py (without running its main) loads none of jax,
 jaxlib, flax, optax or datr_tpu, nor PIL (the card's machine has none; the
-port decodes files through it only inside `coco.open_rgb`). One subprocess (this test process has
+port decodes JPEG and PNG without it, and imports it only inside
+`coco.decode_rgb` for other formats and inside `inference.main` to draw).
+One subprocess (this test process has
 imported jax already) imports the modules one after another and reports,
 after each import, which of those packages are loaded; each module is a
 case of its own."""
@@ -12,6 +14,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch_port_threads  # noqa: F401  (torch threads under xdist)
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "datr_tpu", "PIL")
@@ -44,6 +47,8 @@ def loaded():
 
 def test_every_port_module_is_a_case():
     assert "datr_torch.ops.gather" in MODULES and "datr_torch" in MODULES
+    assert {"datr_torch.data.png", "datr_torch.inference",
+            "datr_torch.tools.serve_bench", "datr_torch.serve"} <= set(MODULES)
     assert len(MODULES) == len(set(MODULES)) > 30
 
 

@@ -7,6 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_port_threads  # noqa: F401  (torch threads under xdist)
 import torch.nn.functional as F
 from flax.traverse_util import flatten_dict, unflatten_dict
 

@@ -9,6 +9,7 @@ those kernels are held against on the card."""
 import numpy as np
 import pytest
 import torch
+import torch_port_threads  # noqa: F401  (torch threads under xdist)
 from jax.experimental.pallas import tpu as pltpu
 
 from datr_torch.models.layers import directional_offset_bias

@@ -14,6 +14,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch_port_threads  # noqa: F401  (torch threads under xdist)
 from PIL import Image
 
 from datr_torch.convert import load_flax_train_state, state_dict_from_flax

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_port_threads  # noqa: F401  (torch threads under xdist)
 from flax.traverse_util import flatten_dict, unflatten_dict
 
 from datr_torch import native as tnative
@@ -139,7 +140,7 @@ def test_wire_decode_matches_jax():
     want_x, want_m = jax.device_get(jserve.wire_decode(
         jnp.asarray(canvas), jnp.asarray(sizes), CANVAS, "u8"))
     got_x, got_m = tserve.wire_decode(torch.from_numpy(canvas),
-                                      torch.from_numpy(sizes))
+                                      torch.from_numpy(sizes), CANVAS, "u8")
     np.testing.assert_array_equal(got_m.numpy(), want_m)
     np.testing.assert_allclose(got_x.numpy(), want_x, rtol=0, atol=1e-6)
 

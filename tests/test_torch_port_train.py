@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_port_threads  # noqa: F401  (torch threads under xdist)
 from flax.traverse_util import flatten_dict, unflatten_dict
 
 from datr_torch.convert import load_flax_params, state_dict_from_flax
