@@ -107,7 +107,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
      in-flight 2; f32 and bf16, u8 and yuv420): img/s, p50 / p95 latency,
      occupancy; then a burst of 16 POSTs against max_queue 2 and 4
      concurrent requests: at least one 503 overloaded, close() returns;
-  10. the result: the wall time of each phase, a {"kernels": [...]} line,
+  10. the other backbones (runs after 9, before 6): DINO_4scale_swin.py
+     (Swin-L 384-22k, window 12) and DINO_4scale_convnext.py (ConvNeXt-XL
+     22k), 9 classes, seeded weights, behind InferenceServer at 800x1344,
+     batch 2, in f32 with TF32 off and in bf16 (use_remat off): requests
+     with 12 msda_fwd launches per batch, the step by CUDA events, peak
+     memory, profile, the backbone's parameter count, the forward through
+     the kernels against the plain forward (bf16: phase 8's floor and
+     control); one train_step_plain of each at the config's own canvas and
+     batch (800x1344, 2 images, f32, use_remat on) through
+     engine.train_one_epoch_plain fed by make_single_loader (warm-up + 3
+     timed steps, launches, peak memory, one step against the plain step);
+     then C2F self-training at 1216x2048 with an external teacher: the R50
+     student, the teacher the same config with the Swin-L backbone, seeded,
+     through save_checkpoint / load_pretrain_params, labelling through
+     engine.train_one_epoch_self_training(teacher=...) (a per-run
+     threshold, warm-up + 2 timed steps, 60 / 24 launches per step, the
+     teacher and EMA teacher unchanged, the parts by CUDA events, one step
+     against the plain step with the pseudo-labels made once);
+  11. the result: the wall time of each phase, a {"kernels": [...]} line,
      the card line, and as the last line {"ok": true, "device": {...}}.
 Imports nothing of JAX or datr_tpu. Needs one CUDA card; fails without one.
 """
@@ -821,7 +839,11 @@ def check_step_against_plain(state, run, msda, loss_tol=1e-3,
     plain steps against the plain one, with the same choices: the floor,
     the plain MSDA with its points summed in another order; the control,
     the model computing in f32. The median limit must lie below the
-    control's median."""
+    control's median, and each loss and each tensor's gradient is held to
+    `loss_tol` / `grad_tol` or, where larger, FLOOR_MARGIN times the
+    floor's error of that loss or tensor: the floor, which runs no kernel,
+    alone exceeds 0.15 on a decoder's sampling offsets in some bf16
+    training states."""
     from datr_torch.models import cdn as cdn_mod
     from datr_torch.models import dino as dino_mod
     from datr_torch.models import layers as layers_mod
@@ -963,14 +985,12 @@ def check_step_against_plain(state, run, msda, loss_tol=1e-3,
                     worst_grad=max(grad_rel.items(), key=lambda kv: kv[1]))
 
     loss_rel, grad_rel = against_plain(losses_k, grads_k)
-    worst = sorted(grad_rel.items(), key=lambda kv: -kv[1])[:5]
     res = dict(total_kernel=total_k.item(), total_plain=total_p.item(),
                max_loss_rel=max(loss_rel.values()),
                worst_losses=sorted(loss_rel.items(),
                                    key=lambda kv: -kv[1])[:3],
                max_grad_rel=max(grad_rel.values()),
                median_grad_rel=float(np.median(list(grad_rel.values()))),
-               worst_grads=worst,
                n_grads=len(grad_rel), plain_step_s=plain_s,
                topk_calls=len(seen_topk), match_calls=len(seen_assign),
                prototype_class_flips=list(cls_flips),
@@ -978,18 +998,40 @@ def check_step_against_plain(state, run, msda, loss_tol=1e-3,
                relu_sign_flips=int(torch.stack(relu_flips).sum()),
                msda_calls=len(seen_cells) // 2,
                cell_flips=int(torch.stack(cell_flips).sum()))
+    limit, floor_grad = dict.fromkeys(grad_rel, grad_tol), {}
+    loss_limit = dict.fromkeys(loss_rel, loss_tol)
     if floor_and_control:
         _, losses_r, grads_r = plain_run(plain_points_rotated(msda),
                                          points_rotated=True)
-        res["floor"] = summary(*against_plain(losses_r, grads_r))
+        floor_loss, floor_grad = against_plain(losses_r, grads_r)
+        res["floor"] = summary(floor_loss, floor_grad)
+        limit = {n: max(grad_tol, FLOOR_MARGIN * floor_grad[n])
+                 for n in grad_rel}
+        loss_limit = {k: max(loss_tol, FLOOR_MARGIN * floor_loss[k])
+                      for k in loss_rel}
+        # how far the kernel run's error exceeds the floor's on the 20
+        # tensors where the floor is largest
+        res["kernel_over_floor"] = max(
+            grad_rel[n] / max(floor_grad[n], 1e-12) for n in sorted(
+                floor_grad, key=lambda n: -floor_grad[n])[:20])
         with computed_in_f32(model):
             _, losses_f, grads_f = plain_run(msda.ms_deform_attn_plain)
         res["control"] = summary(*against_plain(losses_f, grads_f))
     state.optimizer.zero_grad()
+    # the five largest errors: (tensor, error, the floor's, the limit)
+    res["worst_grads"] = [(n, e, floor_grad.get(n), limit[n]) for n, e in
+                          sorted(grad_rel.items(), key=lambda kv: -kv[1])[:5]]
+    res["limits_above_grad_tol"] = sum(v > grad_tol for v in limit.values())
+    res["max_grad_over_limit"] = max(grad_rel[n] / limit[n]
+                                     for n in grad_rel)
+    res["max_loss_over_limit"] = max(loss_rel[k] / loss_limit[k]
+                                     for k in loss_rel)
     log(f"  step through kernels vs plain (tolerance {loss_tol} relative "
-        f"for the losses, {grad_tol} for the gradients): {res}")
-    assert res["max_loss_rel"] <= loss_tol, res
-    assert res["max_grad_rel"] <= grad_tol, res
+        f"for the losses, {grad_tol} for the gradients"
+        + (f" or {FLOOR_MARGIN} x the floor's" if floor_and_control else "")
+        + f"): {res}")
+    assert res["max_loss_over_limit"] <= 1.0, res
+    assert res["max_grad_over_limit"] <= 1.0, res
     if median_grad_tol is not None:
         assert res["median_grad_rel"] <= median_grad_tol, res
     if floor_and_control:
@@ -1130,15 +1172,17 @@ C2F_ST = ("configs/DA/Cityscapes2FoggyCityscapes/"
           "DINO_4scale_C2F_self_training.py")
 
 
-def pseudo_threshold(state, batches, k=30) -> float:
+def pseudo_threshold(state, batches, k=30, teacher=None) -> float:
     """A score threshold under which each target image of `batches` keeps
     at least its k best (query, class) candidates before NMS: the seeded
-    teacher scores about 0.01 everywhere (the class bias prior), so the
-    configured 0.3 would keep nothing and the target loss would be 0."""
+    teacher (the EMA teacher, or `teacher`) scores about 0.01 everywhere
+    (the class bias prior), so the configured 0.3 would keep nothing and
+    the target loss would be 0."""
     kth = []
+    teacher = state.ema_teacher if teacher is None else teacher
     with torch.no_grad():
         for b in batches:
-            out = state.ema_teacher(b["images"][2:], b["pad_mask"][2:])
+            out = teacher(b["images"][2:], b["pad_mask"][2:])
             s = out["pred_logits"].sigmoid().flatten(1)
             kth.append(s.sort(-1, descending=True).values[:, k - 1])
     return float(torch.cat(kth).min())
@@ -1731,10 +1775,16 @@ S5 = sum(h * w for h, w in SHAPES5)  # 89,523 tokens
 #   tensor, above the floors (2e-2 per tensor would lie below them); the
 #   median gradient at 6e-3, between floor and control, which must exceed
 #   it. The class and cardinality errors (argmax counts over bf16 logits
-#   with ties) are left out.
+#   with ties) are left out. Over more training states
+#   (step_check_states.py) the floor alone exceeds 0.15 in some, on the
+#   same tensor as the kernel run and by as much, so each loss and tensor
+#   is held to 5e-3 / 0.15 or FLOOR_MARGIN times the floor's reading of
+#   it, whichever is larger: on the floor's 20 largest tensors the kernel
+#   run's error stays within 1.3x of the floor's.
 BF16_FWD_TOL = {"memory": 2.0 ** -3, "memory_mean_abs": 6.5e-3,
                 "pred_logits": 0.04, "pred_boxes": 1e-2, "topk_scores": 5e-2}
 BF16_FWD_SEPARATES = ("memory_mean_abs", "pred_logits")
+FLOOR_MARGIN = 1.5
 BF16_STEP_TOL = dict(loss_tol=5e-3, grad_tol=0.15, median_grad_tol=6e-3,
                      losses_only=True, floor_and_control=True)
 BF16 = dict(amp_dtype="bfloat16")
@@ -2483,6 +2533,304 @@ def run_serving_surface(msda, card) -> dict:
 # ---------------------------------------------------------------- main
 
 
+# ---------------------------------------------------------------- phase 10
+
+BACKBONE_CONFIGS = (("swin_L", "configs/DINO/DINO_4scale_swin.py"),
+                    ("convnext_XL", "configs/DINO/DINO_4scale_convnext.py"))
+TEACHER_BACKBONE = "swin_L_384_22k"
+# the bf16 forward of these models against its plain bf16 version, read as
+# phase 8 reads the R50's. On an NVIDIA H100 80GB HBM3 at 700 W (kernel /
+# floor / control): memory 0.0625 / 0.0625 / 0.082 (Swin-L), 0.0625 /
+# 0.078 / 0.065 (ConvNeXt-XL) at most, and 4.75e-3 / 4.65e-3 / 7.95e-3,
+# 5.22e-3 / 5.12e-3 / 7.09e-3 on average; logits 0.0625 (two ulps at |x|
+# in [4, 8)) / 0.03125 / 0.053, 0.0625 / 0.03125 / 0.048. (Seeded on the
+# card instead, the same models read 5.08e-3 / 4.94e-3 / 7.76e-3 and
+# 4.90e-3 / 4.79e-3 / 6.46e-3 on average.) The largest logit difference
+# does not separate bf16 from f32 (the kernel runs exceed their
+# controls): held at 2^-3, as the largest memory difference is. The mean
+# memory lies between floor and control in every reading: held at
+# 5.75e-3 (phase 8's 6.5e-3 lay above a ConvNeXt-XL control), and the
+# control must exceed it.
+BF16_BACKBONE_FWD_TOL = dict(BF16_FWD_TOL, pred_logits=2.0 ** -3,
+                             memory_mean_abs=5.75e-3)
+BF16_BACKBONE_SEPARATES = ("memory_mean_abs",)
+
+
+def backbone_parameters(model) -> int:
+    return sum(p.numel() for p in model.backbone.parameters())
+
+
+def run_backbone_serving(msda, card, config) -> dict:
+    """The server of `config` (9 classes, seeded weights) at 800x1344,
+    batch 2, in f32 with TF32 off and in bf16 (use_remat off, as phase 8):
+    requests with 12 msda_fwd launches per batch, the step by CUDA events,
+    its peak memory and profile (device busy / idle, top operations), the
+    forward through the kernels against the plain forward (f32: the serving
+    tolerances; bf16: phase 8's floor and control check, at
+    BF16_BACKBONE_FWD_TOL)."""
+    from datr_torch.models import dino as dino_mod
+
+    imgs = request_images()
+    out = {}
+    for mode, overrides in (("f32", {}),
+                            ("bf16", dict(BF16, use_remat=False))):
+        base_gb = torch.cuda.memory_allocated() / 1e9
+        srv = flagship_server(config, **overrides)
+        try:
+            srv.warmup()
+            torch.cuda.synchronize()
+            res = serve_requests(srv, msda, imgs)
+            batch, sizes = serving_batch(srv, imgs)
+            torch.cuda.reset_peak_memory_stats()
+            res["step_ms"] = cuda_ms(lambda: srv._step(batch, sizes), 5,
+                                     warmup=1)
+            res["step_img_s"] = 2e3 / res["step_ms"]
+            res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            res["allocated_before_gb"] = base_gb
+            res["backbone_parameters"] = backbone_parameters(srv.model)
+            log(f"  {config} {mode}: backbone {res['backbone_parameters']} "
+                f"parameters; {res['requests']} requests in "
+                f"{res['batches']} batches, msda_fwd launches "
+                f"{res['launches']}; step {res['step_ms']:.2f} ms = "
+                f"{res['step_img_s']:.2f} img/s, peak memory "
+                f"{res['peak_memory_gb']:.2f} GB ({base_gb:.2f} GB before) "
+                f"on {card}")
+            res["profile"] = profile_step(
+                lambda: srv._step(batch, sizes).cpu(), top=10)
+            kw = {} if mode == "f32" else dict(
+                tol=BF16_BACKBONE_FWD_TOL,
+                control_above=BF16_BACKBONE_SEPARATES)
+            res["forward_diffs"] = check_forward_against_plain(
+                srv.model, batch, sizes, msda, dino_mod, **kw)
+        finally:
+            srv.close()
+        out[mode] = res
+        del srv
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_backbone_training(msda, card, config) -> dict:
+    """train_one_epoch_plain on `config` at its own canvas and batch
+    (800x1344, 2 images, f32 with TF32 off, the config's use_remat), fed by
+    make_single_loader with the config's SingleDomainTrainTransform over
+    synthetic Cityscapes-sized frames: a warm-up step, then 3 timed steps
+    (launches, s/step, peak memory), and one step through the kernels
+    against the plain versions with the choices held."""
+    from datr_torch.data.loader import make_single_loader, to_device
+    from datr_torch.data.synthetic import SyntheticDetectionDataset
+    from datr_torch.data.transforms import SingleDomainTrainTransform
+    from datr_torch.engine import train_one_epoch_plain
+    from datr_torch.models.layers import MSDeformAttn
+    from datr_torch.train.steps import plain_loss_and_grads
+
+    n_batches = 4
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    state, ccfg, wd, cfg = c2f_train_state(n_batches, config)
+    model = state.model
+    if hasattr(model.backbone, "patch_embed"):
+        # seeded as flax seeds it, Swin's biases are all 0: a token of a
+        # zero-padded area is then 0 through every block, each LayerNorm
+        # of it multiplies its gradient by 1 / sqrt(eps), and Swin-L's 48
+        # overflow f32 (datr_tpu's init does the same). A pretrained patch
+        # embedding has a bias; this seeded one stands in for it.
+        with torch.no_grad():
+            model.backbone.patch_embed.bias.normal_(
+                0.0, 0.02, generator=torch.Generator(
+                    model.level_embed.device).manual_seed(11))
+    canvas = (cfg.canvas_h, cfg.canvas_w)
+    ds = SyntheticDetectionDataset(cfg.batch_size * n_batches, (1024, 2048),
+                                   8, max_objects=16, seed=6)
+    tf = SingleDomainTrainTransform(
+        cfg.data_aug_scales, cfg.data_aug_max_size,
+        cfg.data_aug_scales2_resize, cfg.data_aug_scales2_crop)
+    batches = list(make_single_loader(ds, cfg.batch_size, canvas, tf, 100,
+                                      num_threads=4))
+    n_msda = sum(isinstance(m, MSDeformAttn) for m in model.modules())
+    want_fwd = n_msda * (2 if model.use_remat else 1)  # one pass
+    want_bwd = n_msda
+    warm = train_one_epoch_plain(state, batches[:1], ccfg, wd)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = batches[1:]
+    r = timed_epoch(msda, lambda: train_one_epoch_plain(state, steps, ccfg,
+                                                        wd), len(steps))
+    metrics = r.pop("metrics")
+    r["img_s"] = cfg.batch_size / r["step_s"]
+    log(f"  {config} train_step_plain, canvas {canvas}, batch "
+        f"{cfg.batch_size}, use_remat {model.use_remat}: {len(steps)} steps "
+        f"{r['step_s']:.3f} s/step by CUDA events ({r['host_step_s']:.3f} "
+        f"s/step host), {r['img_s']:.3f} img/s, peak memory "
+        f"{r['peak_memory_gb']:.2f} GB ({base_gb:.2f} GB before) on {card}; "
+        f"launches {r['launches']} (per step expected {want_fwd} / "
+        f"{want_bwd}); loss {metrics['loss']:.4f} (warm-up "
+        f"{warm['loss']:.4f})")
+    assert r["launches"] == dict(msda_fwd=want_fwd * len(steps),
+                                 msda_bwd=want_bwd * len(steps)), r
+    assert all(np.isfinite(v) for v in metrics.values()), metrics
+    assert not any("_DA" in k or "target" in k for k in metrics), metrics
+    assert state.step == n_batches and state.amount.sum().item() == 0
+    b0 = to_device(batches[0], state.amount.device)
+    check = check_step_against_plain(
+        state, lambda d: plain_loss_and_grads(state, b0, ccfg, wd, d)[:2],
+        msda)
+    return dict(r, launches_per_step=dict(msda_fwd=want_fwd,
+                                          msda_bwd=want_bwd),
+                steps=len(steps), allocated_before_gb=base_gb,
+                backbone_parameters=backbone_parameters(model),
+                loss=metrics["loss"], against_plain=check)
+
+
+def run_distillation(msda, card) -> dict:
+    """C2F self-training at 1216x2048 (2 + 2 images, f32) with an external
+    teacher: the R50 student of the C2F self-training config, the teacher
+    that config with the Swin-L backbone, seeded, written by
+    save_checkpoint and read back by load_pretrain_params into a model of
+    another seed (bitwise); a per-run threshold from the teacher's scores;
+    a warm-up step and 2 timed steps through
+    engine.train_one_epoch_self_training(teacher=...): launches, s/step,
+    peak memory, num_pseudo; the teacher and the EMA teacher unchanged; the
+    device time of the teacher forward, the pseudo-labels and the student;
+    one step through the kernels against the plain versions with the
+    pseudo-labels made once."""
+    import tempfile
+
+    from datr_torch import engine
+    from datr_torch.config import load_config
+    from datr_torch.models import dino as dino_mod
+    from datr_torch.models.layers import MSDeformAttn
+    from datr_torch.train.checkpoint import (
+        load_pretrain_params,
+        save_checkpoint,
+    )
+    from datr_torch.train.pseudo import pseudo_labels_from_outputs
+    from datr_torch.train.steps import self_training_loss_and_grads
+
+    n_batches = 3
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    state, ccfg, wd, cfg = c2f_train_state(n_batches, C2F_ST, seed=1)
+    t_cfg = load_config(C2F_ST)
+    t_cfg["backbone"] = TEACHER_BACKBONE
+    seeded = dino_mod.build_dino_from_config(t_cfg, seed=3)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        save_checkpoint(f"{d}/teacher", seeded, 0)
+        save_s = time.perf_counter() - t0
+        teacher = dino_mod.build_dino_from_config(t_cfg, seed=4)
+        t0 = time.perf_counter()
+        teacher.load_state_dict(load_pretrain_params(f"{d}/teacher",
+                                                     teacher))
+        load_s = time.perf_counter() - t0
+    want = seeded.state_dict()
+    bad = [k for k, v in teacher.state_dict().items()
+           if not torch.equal(v, want[k])]
+    assert not bad, f"teacher not bitwise after its checkpoint: {bad[:5]}"
+    del seeded, want
+    teacher.requires_grad_(False)
+    assert not teacher.training
+    model = state.model
+    log(f"  student {cfg.backbone} ({backbone_parameters(model)} backbone "
+        f"parameters), teacher {TEACHER_BACKBONE} "
+        f"({backbone_parameters(teacher)}; checkpoint saved in {save_s:.2f} "
+        f"s, read back in {load_s:.2f} s, bitwise)")
+    batches = paired_batches(n_batches, "cuda", seed=7, strong=True)
+    thr = pseudo_threshold(state, batches, teacher=teacher)
+    thresholds = np.full((model.num_classes,), thr, np.float32)
+    n_s = sum(isinstance(m, MSDeformAttn) for m in model.modules())
+    n_t = sum(isinstance(m, MSDeformAttn) for m in teacher.modules())
+    want_fwd = n_t + 2 * n_s * (2 if model.use_remat else 1)
+    want_bwd = 2 * n_s
+    held = {n: {k: v.clone() for k, v in m.state_dict().items()}
+            for n, m in (("teacher", teacher),
+                         ("ema_teacher", state.ema_teacher))}
+
+    def epoch(bs):
+        return engine.train_one_epoch_self_training(
+            state, bs, ccfg, wd, thresholds, TRAIN_CANVAS, teacher=teacher)
+
+    warm = epoch(batches[:1])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = batches[1:]
+    num_pseudo = []
+    real_step = engine.train_step_self_training
+
+    def recorded(*a, **kw):  # the metrics stay on the device
+        m = real_step(*a, **kw)
+        num_pseudo.append(m["num_pseudo"])
+        return m
+
+    with mock.patch.object(engine, "train_step_self_training", recorded):
+        r = timed_epoch(msda, lambda: epoch(steps), len(steps))
+    metrics = r.pop("metrics")
+    num_pseudo = [int(n) for n in num_pseudo]
+    log(f"  distillation, {len(steps)} steps: {r['step_s']:.3f} s/step by "
+        f"CUDA events ({r['host_step_s']:.3f} s/step host), "
+        f"{r['img_s']:.3f} img/s (2 + 2 images; the teacher's 2 more), peak "
+        f"memory {r['peak_memory_gb']:.2f} GB ({base_gb:.2f} GB before) on "
+        f"{card}; threshold {thr:.6f}, num_pseudo {num_pseudo} (warm-up "
+        f"{warm['num_pseudo']:.0f}); launches {r['launches']} (per step "
+        f"expected {want_fwd} / {want_bwd}: teacher {n_t}, student {n_s} x "
+        f"2 passes)")
+    assert r["launches"] == dict(msda_fwd=want_fwd * len(steps),
+                                 msda_bwd=want_bwd * len(steps)), r
+    assert len(num_pseudo) == len(steps) and min(num_pseudo) > 0, num_pseudo
+    assert all(np.isfinite(v) for v in metrics.values()), metrics
+    assert metrics["loss_ce_target"] > 0 and metrics["loss_bbox_target"] > 0
+    for name, m in (("teacher", teacher), ("ema_teacher", state.ema_teacher)):
+        bad = [k for k, v in m.state_dict().items()
+               if not torch.equal(v, held[name][k])]
+        assert not bad, f"{name} changed by the steps: {bad[:5]}"
+    del held
+
+    b = batches[1]
+    thr_t = torch.as_tensor(thresholds, device=state.amount.device)
+    with torch.no_grad():
+        out, teacher_ms = cuda_timed(lambda: teacher(b["images"][2:],
+                                                     b["pad_mask"][2:]))
+    pseudo, pseudo_ms = cuda_timed(lambda: pseudo_labels_from_outputs(
+        out["pred_logits"], out["pred_boxes"], TRAIN_CANVAS, thr_t))
+    _, student_ms = cuda_timed(lambda: self_training_loss_and_grads(
+        state, b, ccfg, wd, pseudo))
+    state.optimizer.zero_grad()
+    parts = dict(teacher_forward_ms=teacher_ms, pseudo_labels_ms=pseudo_ms,
+                 student_forward_losses_backward_ms=student_ms)
+    log(f"  one step's parts by CUDA events: {parts}")
+
+    def run(draws):
+        total, src, tgt, _ = self_training_loss_and_grads(
+            state, b, ccfg, wd, pseudo, draws)
+        return total, {**src, **{f"{k}_target": v for k, v in tgt.items()}}
+
+    check = check_step_against_plain(state, run, msda)
+    return dict(r, launches_per_step=dict(msda_fwd=want_fwd,
+                                          msda_bwd=want_bwd),
+                steps=len(steps), allocated_before_gb=base_gb,
+                threshold=thr, num_pseudo=num_pseudo, loss=metrics["loss"],
+                parts=parts, against_plain=check,
+                teacher_checkpoint=dict(save_s=save_s, load_s=load_s))
+
+
+def run_backbones(msda, card) -> dict:
+    """Phase 10: the Swin-L and ConvNeXt-XL configurations served (f32,
+    bf16) and trained one step each, then the Swin-L-teacher distillation
+    step; each part's state freed before the next."""
+    out = {}
+    for name, config in BACKBONE_CONFIGS:
+        for part, fn in (("serving", run_backbone_serving),
+                         ("training", run_backbone_training)):
+            log(f"  --- {name}: {part}")
+            out[f"{name}_{part}"] = fn(msda, card, config)
+            gc.collect()
+            torch.cuda.empty_cache()
+    log("  --- distillation: the Swin-L teacher labels for the R50 student")
+    out["distillation"] = run_distillation(msda, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
@@ -2544,6 +2892,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_done("9")
+
+    log("phase 10: the other backbones: DINO_4scale_swin (Swin-L) and "
+        "DINO_4scale_convnext (ConvNeXt-XL) served in f32 and bf16 and "
+        "trained one step each, and C2F self-training with a Swin-L "
+        "distillation teacher")
+    bb = run_backbones(msda, card)
+    log("backbones " + json.dumps(dict(bb, card=card)))
+    phase_done("10")
 
     # phases 6, 7 and 8 run before phase 5, whose profile must be the last
     # work of the process; each phase's state is gone before the next one
@@ -2626,6 +2982,19 @@ def main() -> int:
         "self_training": bf["self_training"]["launches"],
         "eval": bf["self_training"]["eval"]["launches"],
         "cli": bf["cli"]["launches"]}
+    # phase 10: per path, f32 and bf16 serving of both configurations, one
+    # plain training step of each, the distillation steps
+    bb_fwd = {
+        "backbones_serving": sum(bb[f"{n}_serving"][m]["launches"]
+                                 for n, _ in BACKBONE_CONFIGS
+                                 for m in ("f32", "bf16")),
+        "backbones_training": sum(bb[f"{n}_training"]["launches"]["msda_fwd"]
+                                  for n, _ in BACKBONE_CONFIGS),
+        "distillation": bb["distillation"]["launches"]["msda_fwd"]}
+    bb_bwd = {
+        "backbones_training": sum(bb[f"{n}_training"]["launches"]["msda_bwd"]
+                                  for n, _ in BACKBONE_CONFIGS),
+        "distillation": bb["distillation"]["launches"]["msda_bwd"]}
     k2, k3 = kg["copy"], kg["fma"]
     kernels = [{
         "name": "msda_fwd",
@@ -2634,13 +3003,16 @@ def main() -> int:
         "replaces": "datr_tpu/ops/msda_pallas.py:45",
         "launches": (s["launches"] + tr["launches"]["msda_fwd"]
                      + st["launches"]["msda_fwd"] + st["eval"]["launches"]
-                     + cl["launches"]["msda_fwd"] + sv["launches"]),
+                     + cl["launches"]["msda_fwd"] + sv["launches"]
+                     + sum(bb_fwd.values())),
         "launches_by_path": {"serving": s["launches"],
                              "training": tr["launches"]["msda_fwd"],
                              "self_training": st["launches"]["msda_fwd"],
                              "eval": st["eval"]["launches"],
                              "cli": cl["launches"]["msda_fwd"],
-                             "serving_surface": sv["launches"]},
+                             "serving_surface": sv["launches"], **bb_fwd},
+        "launches_per_distillation_step": bb["distillation"][
+            "launches_per_step"]["msda_fwd"],
         "launches_per_forward": s["launches"] // s["batches"],
         "launches_per_train_step": tr["launches_per_step"]["msda_fwd"],
         "launches_per_self_training_step": st["launches_per_step"][
@@ -2689,10 +3061,10 @@ def main() -> int:
         "source": "datr_torch/csrc/msda_bwd.cu",
         "replaces": "datr_tpu/ops/msda_pallas.py:154",
         "launches": (tr["launches"]["msda_bwd"] + st["launches"]["msda_bwd"]
-                     + cl["launches"]["msda_bwd"]),
+                     + cl["launches"]["msda_bwd"] + sum(bb_bwd.values())),
         "launches_by_path": {"training": tr["launches"]["msda_bwd"],
                              "self_training": st["launches"]["msda_bwd"],
-                             "cli": cl["launches"]["msda_bwd"]},
+                             "cli": cl["launches"]["msda_bwd"], **bb_bwd},
         "launches_per_train_step": tr["launches_per_step"]["msda_bwd"],
         "launches_per_self_training_step": st["launches_per_step"][
             "msda_bwd"],

@@ -109,17 +109,18 @@ def train_one_epoch_self_training(
         state: TrainState, loader: Iterable, ccfg: CriterionCfg,
         weight_dict: Dict[str, float], class_thresholds,
         canvas_hw: Tuple[int, int], ema_decay: float = 0.0, logger=None,
-        epoch: int = 0) -> Dict[str, float]:
+        epoch: int = 0, teacher=None) -> Dict[str, float]:
     """Self-training epoch (datr_tpu/engine.py:118-139) over batches with
-    `images_strong`; the EMA teacher labels the weak target half with
-    per-class score thresholds `class_thresholds` [K]. Returns the mean of
-    every metric, `num_pseudo` included."""
+    `images_strong`; the EMA teacher, or the external `teacher` when given
+    (distillation), labels the weak target half with per-class score
+    thresholds `class_thresholds` [K]. Returns the mean of every metric,
+    `num_pseudo` included."""
     thr = torch.as_tensor(class_thresholds, dtype=torch.float32,
                           device=_device(state))
     return _run_epoch(lambda b: train_step_self_training(
         state, b, ccfg, weight_dict, thr, tuple(canvas_hw),
-        ema_decay=ema_decay), loader, _device(state), logger,
-        f"SelfTrain Epoch: [{epoch}]")
+        ema_decay=ema_decay, teacher=teacher), loader, _device(state),
+        logger, f"SelfTrain Epoch: [{epoch}]")
 
 
 def update_emas_per_epoch(state: TrainState, epoch: int, cfg) -> TrainState:

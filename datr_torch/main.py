@@ -11,11 +11,16 @@ Usage:
   python -m datr_torch.main -c configs/DA/Cityscapes2FoggyCityscapes/\\
 DINO_4scale_C2F.py --data_root /data --output_dir runs/c2f \\
       [--options lr=2e-4 ...] [--eval [--ema]] [--test] [--resume path] \\
-      [--synthetic] [--device cpu] [--amp]
+      [--synthetic] [--device cpu] [--amp] \\
+      [--distill_teacher_ckpt ckpt [--distill_teacher_config cfg]]
 
 `--amp` (or `--options amp_dtype=bfloat16`) runs the model in bfloat16 with
 f32 parameters, optimizer moments and EMA tracks, as datr_tpu's does;
 `--options fast_norm=True` adds its fast bf16 norms.
+`--distill_teacher_ckpt` (a port checkpoint) makes the self-training
+epochs' pseudo-labels with that model, built from
+`--distill_teacher_config` (any backbone, the student's classes), in place
+of the EMA teacher.
 """
 
 from __future__ import annotations
@@ -99,13 +104,15 @@ def get_args_parser():
                    help="dump COCO-format detections to results0.json")
     p.add_argument("--amp", action="store_true",
                    help="shorthand for amp_dtype='bfloat16'")
-    # not ported yet: each raises in main (see _refuse_unported)
+    # cross-architecture distillation: an external teacher in place of
+    # the EMA teacher in self-training epochs
     p.add_argument("--distill_teacher_ckpt", default="",
-                   help="external pseudo-label teacher (not ported: "
-                        "ROADMAP §A 3)")
+                   help="checkpoint (whole state or a best family) whose "
+                        "weights make the pseudo-labels in self-training "
+                        "epochs")
     p.add_argument("--distill_teacher_config", default="",
-                   help="the external teacher's config (not ported: "
-                        "ROADMAP §A 3)")
+                   help="the teacher's config (default: the training "
+                        "config); set when its architecture differs")
     return p
 
 
@@ -116,9 +123,6 @@ def _refuse_unported(args, cfg):
         (cfg.get("amp_dtype", "float32") not in ("float32", "bfloat16"),
          f"amp_dtype={cfg.get('amp_dtype')!r} (float32 and bfloat16 are "
          "ported; float64: ROADMAP §A 4)"),
-        (args.distill_teacher_ckpt or args.distill_teacher_config,
-         "--distill_teacher_ckpt / --distill_teacher_config (the external "
-         "teacher: ROADMAP §A 3)"),
         (cfg.get("masks", False), "masks (ROADMAP §A 7)"),
         (cfg.get("use_tensorboard", False),
          "use_tensorboard (utils/tb.py: ROADMAP §A 9)"),
@@ -162,6 +166,21 @@ def main(args):
     ccfg, weight_dict = criterion_from_config(cfg, model)
     canvas_hw = (cfg.get("canvas_h", 800), cfg.get("canvas_w", 1344))
     max_boxes = cfg.get("max_boxes", 100)
+
+    # --- the optional external distillation teacher (datr_tpu/main.py:
+    # 149-185): its config is loaded verbatim, since --options target the
+    # student's; its weights through the port's checkpoint format ---
+    teacher = None
+    if args.distill_teacher_ckpt:
+        t_cfg = (load_config(args.distill_teacher_config)
+                 if args.distill_teacher_config else cfg)
+        teacher = build_dino_from_config(t_cfg, args.device, seed=args.seed)
+        teacher.load_state_dict(load_pretrain_params(
+            args.distill_teacher_ckpt, teacher))
+        teacher.requires_grad_(False)
+        logger.info(
+            f"distillation teacher: {args.distill_teacher_ckpt} "
+            f"({args.distill_teacher_config or 'training config'})")
 
     # --- datasets ---
     if args.synthetic:
@@ -297,7 +316,7 @@ def main(args):
         else:
             train_stats = train_one_epoch_self_training(
                 state, loader, ccfg, weight_dict, thresholds, canvas_hw,
-                **kw)
+                teacher=teacher, **kw)
         update_emas_per_epoch(state, epoch, cfg)
 
         save_checkpoint(os.path.join(args.output_dir, "checkpoint"), state,

@@ -1,7 +1,8 @@
 """DINO detection transformer with domain adaptation (port of
 datr_tpu/models/dino.py).
 
-Eval (dino.py:478-509): backbone -> input projections -> deformable encoder
+Eval (dino.py:478-509): backbone (ResNet, Swin or ConvNeXt:
+`make_backbone`) -> input projections -> deformable encoder
 layers -> two-stage top-k -> deformable decoder layers with iterative box
 refinement -> shared heads.
 
@@ -44,11 +45,18 @@ from .cdn import (
     cdn_self_attn_mask,
     draw_cdn_noise,
 )
+from .convnext import (
+    CONVNEXT_CONFIGS,
+    LAYER_SCALE_INIT,
+    ConvNeXt,
+    ConvNeXtBlock,
+)
 from .da import ImageDiscriminator, class_prototypes, grad_reverse
 from .layers import MLP, Conv2d, Linear, MSDeformAttn
 from .norms import FastGroupNorm, FastLayerNorm, group_norm, layer_norm
 from .position_encoding import position_embedding_sine_hw
 from .resnet import FrozenBatchNorm, ResNet
+from .swin import SWIN_CONFIGS, SwinTransformer, WindowAttention
 from .transformer import (
     DeformableDecoderLayer,
     DeformableEncoderLayer,
@@ -58,8 +66,27 @@ from .transformer import (
 )
 
 RESNET_STAGES = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3)}
-RESNET_CHANNELS = (256, 512, 1024, 2048)  # stage 0..3 output widths
 AMP_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def make_backbone(name: str, dtype: torch.dtype = torch.float32,
+                  return_stages=(1, 2, 3)) -> nn.Module:
+    """The backbone `name` (datr_tpu/models/dino.py:47-69): resnet50/101,
+    a `swin.SWIN_CONFIGS` or a `convnext.CONVNEXT_CONFIGS` entry.
+    `return_stages`: 0 = the stride-4 stage ... 3 = stride 32. The module
+    takes images [B, H, W, 3], returns the NCHW features of those stages,
+    and names each stage's width in `widths`."""
+    return_stages = tuple(return_stages)
+    if name in RESNET_STAGES:
+        return ResNet(RESNET_STAGES[name], return_stages, dtype)
+    if name in SWIN_CONFIGS:
+        return SwinTransformer(**SWIN_CONFIGS[name],
+                               return_stages=return_stages, dtype=dtype)
+    if name in CONVNEXT_CONFIGS:
+        return ConvNeXt(**CONVNEXT_CONFIGS[name],
+                        return_stages=return_stages, dtype=dtype)
+    known = [*RESNET_STAGES, *SWIN_CONFIGS, *CONVNEXT_CONFIGS]
+    raise ValueError(f"unknown backbone {name!r}; supported: {known}")
 
 
 def _stable_topk_indices(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -112,11 +139,9 @@ class DINO(nn.Module):
         self.enc_layers, self.dec_layers = enc_layers, dec_layers
         self.pe_temperature_h = pe_temperature_h
         self.pe_temperature_w = pe_temperature_w
-        if backbone_name not in RESNET_STAGES:
-            raise ValueError(f"unsupported backbone {backbone_name!r}")
-        self.backbone = ResNet(RESNET_STAGES[backbone_name],
-                               return_interm_indices, dtype)
-        in_chs = [RESNET_CHANNELS[s] for s in return_interm_indices]
+        self.backbone = make_backbone(backbone_name, dtype,
+                                      return_interm_indices)
+        in_chs = [self.backbone.widths[s] for s in return_interm_indices]
         for i in range(num_feature_levels):
             if i < len(in_chs):
                 conv = Conv2d(in_chs[i], C, 1, dtype=dtype)
@@ -183,6 +208,14 @@ class DINO(nn.Module):
         for m in self.modules():  # overrides of the generic pass above
             if isinstance(m, MSDeformAttn):
                 m.reset_sampling()
+            elif isinstance(m, WindowAttention):
+                # flax truncated_normal(0.02): within 2 std, std corrected
+                std = 0.02 / 0.87962566103423978
+                nn.init.trunc_normal_(m.relative_position_bias_table,
+                                      std=std, a=-2 * std, b=2 * std,
+                                      generator=generator)
+            elif isinstance(m, ConvNeXtBlock):
+                m.gamma.fill_(LAYER_SCALE_INIT)
             elif isinstance(m, MLP) and m.last_zero_init:
                 last = getattr(m, f"layer{m.num_layers - 1}")
                 last.weight.zero_()

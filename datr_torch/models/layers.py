@@ -93,6 +93,39 @@ def softmax(x: torch.Tensor) -> torch.Tensor:
     return _RoundedSoftmax.apply(x)
 
 
+def same_pad(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
+    """NCHW `x` padded as flax's "SAME" pads a k x k, stride-s convolution:
+    the output is ceil(size / s), the low side gets total // 2."""
+    pads = []
+    for size in (x.shape[3], x.shape[2]):  # F.pad's order: last dim first
+        total = max((-(-size // s) - 1) * s + k - size, 0)
+        pads += [total // 2, total - total // 2]
+    return F.pad(x, pads) if any(pads) else x
+
+
+def in_dtype(c: float, dtype: torch.dtype) -> float:
+    """The Python constant `c` rounded to `dtype`: jax converts a Python
+    scalar to the array's dtype before the op, torch computes with the
+    scalar as given."""
+    return torch.tensor(c, dtype=dtype).item()
+
+
+_SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """flax's `nn.gelu`: jax.nn.gelu(approximate=True), the tanh form. In
+    f32 the fused F.gelu; in bf16 jax's ops in bf16, each rounded
+    (x * 0.5 (1 + tanh(sqrt(2/pi) (x + 0.044715 x (x x)))), its constants
+    rounded to bf16 first), where F.gelu would round once."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="tanh")
+    c = in_dtype(_SQRT_2_OVER_PI, x.dtype)
+    cube = x * (x * x)  # lax.integer_pow's multiplications
+    inner = c * (x + in_dtype(0.044715, x.dtype) * cube)
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
+
+
 class MLP(nn.Module):
     """ReLU MLP with layers `layer0` .. `layer{n-1}`."""
 

@@ -87,6 +87,7 @@ class ResNet(nn.Module):
         super().__init__()
         self.return_stages = tuple(return_stages)
         self.stage_sizes = tuple(stage_sizes)
+        self.widths = (256, 512, 1024, 2048)  # stage 0..3 output widths
         self.conv1 = _conv(3, 64, 7, stride=2, padding=3, dtype=dtype)
         self.bn1 = FrozenBatchNorm(64)
         cin = 64

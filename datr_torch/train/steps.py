@@ -85,14 +85,12 @@ def train_step_burnin(state: TrainState, batch: Dict[str, torch.Tensor],
             "grad_norm": grad_norm.detach()}
 
 
-def train_step_plain(state: TrainState, batch: Dict[str, torch.Tensor],
-                     ccfg: CriterionCfg, weight_dict: Dict[str, float],
-                     ema_decay: float = 0.0,
-                     dn_draws: Optional[CdnDraws] = None
-                     ) -> Dict[str, torch.Tensor]:
-    """One single-domain supervised step, no DA branch (datr_tpu/train/
-    steps.py:103-143); updates `state` in place and leaves the prototype
-    state alone. Returns `loss`, every loss term and `grad_norm`."""
+def plain_loss_and_grads(state: TrainState, batch: Dict[str, torch.Tensor],
+                         ccfg: CriterionCfg, weight_dict: Dict[str, float],
+                         dn_draws: Optional[CdnDraws] = None):
+    """The single-domain forward (the whole batch supervised, no DA
+    branch), losses and backward; the gradients are left in `.grad`.
+    Returns (total, losses, outputs)."""
     model = state.model
     model.train()
     state.optimizer.zero_grad()
@@ -104,6 +102,19 @@ def train_step_plain(state: TrainState, batch: Dict[str, torch.Tensor],
                        ccfg)
     total = weighted_total(losses, weight_dict)
     total.backward()
+    return total, losses, out
+
+
+def train_step_plain(state: TrainState, batch: Dict[str, torch.Tensor],
+                     ccfg: CriterionCfg, weight_dict: Dict[str, float],
+                     ema_decay: float = 0.0,
+                     dn_draws: Optional[CdnDraws] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """One single-domain supervised step, no DA branch (datr_tpu/train/
+    steps.py:103-143); updates `state` in place and leaves the prototype
+    state alone. Returns `loss`, every loss term and `grad_norm`."""
+    total, losses, out = plain_loss_and_grads(state, batch, ccfg,
+                                              weight_dict, dn_draws)
     grad_norm = _update(state, out, ema_decay)
     return {"loss": total.detach(),
             **{k: v.detach() for k, v in losses.items()},
@@ -114,12 +125,17 @@ def train_step_plain(state: TrainState, batch: Dict[str, torch.Tensor],
 def teacher_pseudo_labels(state: TrainState, batch: Dict[str, torch.Tensor],
                           class_thresholds: torch.Tensor,
                           canvas_hw: Tuple[int, int], num_select: int = 300,
-                          max_pseudo: int = 100):
-    """The EMA teacher's eval forward on the weak target half and its
-    pseudo-labels (boxes, labels, valid, img_has_pseudo). The teacher
-    draws no CDN noise and leaves the prototype state alone."""
+                          max_pseudo: int = 100,
+                          teacher: Optional[torch.nn.Module] = None):
+    """The teacher's eval forward on the weak target half and its
+    pseudo-labels (boxes, labels, valid, img_has_pseudo). The teacher is
+    the EMA teacher, or `teacher`, an external model of any architecture
+    with the student's classes (cross-architecture distillation,
+    datr_tpu/train/steps.py:164-183). It draws no CDN noise and leaves the
+    prototype state alone."""
     half = batch["images"].shape[0] // 2
-    out = state.ema_teacher(batch["images"][half:], batch["pad_mask"][half:])
+    model = state.ema_teacher if teacher is None else teacher
+    out = model(batch["images"][half:], batch["pad_mask"][half:])
     return pseudo_labels_from_outputs(out["pred_logits"], out["pred_boxes"],
                                       canvas_hw, class_thresholds,
                                       num_select=num_select,
@@ -156,14 +172,17 @@ def train_step_self_training(state: TrainState,
                              canvas_hw: Tuple[int, int],
                              num_select: int = 300, max_pseudo: int = 100,
                              ema_decay: float = 0.0,
-                             dn_draws: Optional[CdnDraws] = None
+                             dn_draws: Optional[CdnDraws] = None,
+                             teacher: Optional[torch.nn.Module] = None
                              ) -> Dict[str, torch.Tensor]:
     """One self-training step (datr_tpu/train/steps.py:146-231); updates
-    `state` in place. Returns `loss`, `num_pseudo`, `grad_norm`, the source
-    losses and the target losses as `{k}_target`, 0-d tensors on the
-    device."""
+    `state` in place. `teacher` (an external model in eval mode) makes the
+    pseudo-labels in place of the EMA teacher; it is never updated, and the
+    EMA tracks go on as without it. Returns `loss`, `num_pseudo`,
+    `grad_norm`, the source losses and the target losses as `{k}_target`,
+    0-d tensors on the device."""
     pseudo = teacher_pseudo_labels(state, batch, class_thresholds, canvas_hw,
-                                   num_select, max_pseudo)
+                                   num_select, max_pseudo, teacher)
     total, src, tgt, out = self_training_loss_and_grads(
         state, batch, ccfg, weight_dict, pseudo, dn_draws)
     grad_norm = _update(state, out, ema_decay)

@@ -270,7 +270,6 @@ def test_loader_error_reaches_the_caller(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("extra", [
     ["--options", "amp_dtype=float64"],
-    ["--distill_teacher_ckpt", "x"],
     ["--options", "masks=True"],
     ["--options", "amp_dtype=float16"],
     ["--options", "use_tensorboard=True"],
