@@ -125,7 +125,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
      threshold, warm-up + 2 timed steps, 60 / 24 launches per step, the
      teacher and EMA teacher unchanged, the parts by CUDA events, one step
      against the plain step with the pseudo-labels made once);
-  11. the result: the wall time of each phase, a {"kernels": [...]} line,
+  11. instance masks (runs after 10, before 6): a single-domain COCO tree
+     with instance masks written to a temporary directory (8 seeded
+     1024x2048 PNG frames, polygon, compressed-RLE and uncompressed-RLE
+     segmentations); the flagship with masks=True and mask_query_chunk 100
+     behind InferenceServer(mask_top_k=50) at 800x1344, batch 2, f32 with
+     TF32 off: the 8 frames as requests (12 msda_fwd launches per batch,
+     every answer's 50 masks at the frame's size), the step by CUDA events,
+     peak memory, profile, the forward through the kernels against the
+     plain forward (memory / logits / boxes as phase 3; pred_masks atol
+     1e-3; each of a batch's top-50 masks finished on the host, IoU >= 0.99
+     with the plain run's), 8 PNG POSTs through serve_http whose mask RLEs
+     equal detect's; one batch in bf16; engine.evaluate(segm=True) over 4
+     frames of the tree (batch 2, 100 detections per image: the 12 bbox and
+     12 segm stats, img/s, the host finish's time); train_one_epoch_plain
+     on the tree through make_single_loader with return_masks (800x1344,
+     batch 2, use_remat: the mask head's chunks recomputed in the
+     backward; warm-up + 3 timed steps, 24 / 12 launches per step, s/step,
+     peak memory, loss_mask / loss_dice finite), one step through the
+     kernels against the plain step (phase 5's check: losses 1e-3
+     relative, every gradient, the mask head's too, 1e-3 by norm);
+  12. the result: the wall time of each phase, a {"kernels": [...]} line,
      the card line, and as the last line {"ok": true, "device": {...}}.
 Imports nothing of JAX or datr_tpu. Needs one CUDA card; fails without one.
 """
@@ -2831,6 +2851,381 @@ def run_backbones(msda, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 11
+
+MASK_CHUNK = 100  # (image, query) pairs per pass of the mask head
+MASK_TOP_K = 50  # the server's default: masks answered per request
+MASK_ATOL, MASK_IOU_MIN = 1e-3, 0.99
+MASK_EVAL_IMAGES, MASK_EVAL_SELECT = 4, 100  # the host finish sets the time
+
+
+def _ellipse(h, w, box):
+    """A binary ellipse inscribed in the xyxy box, [h, w] uint8."""
+    x0, y0, x1, y1 = box
+    yy, xx = np.ogrid[:h, :w]
+    cx, cy = (x0 + x1) / 2, (y0 + y1) / 2
+    rx, ry = max((x1 - x0) / 2, 1.0), max((y1 - y0) / 2, 1.0)
+    return (((xx - cx) / rx) ** 2 + ((yy - cy) / ry) ** 2 <= 1).astype(
+        np.uint8)
+
+
+def write_mask_tree(root, n=8, hw=FRAME_HW, seed=5):
+    """<root>/masks/{train,val}/{images, annotations.json}, the
+    single-domain layout: n seeded synthetic frames as PNG (val: the first
+    MASK_EVAL_IMAGES, the same files), each object's segmentation an
+    ellipse in its box as a 24-gon, a compressed RLE or an uncompressed
+    RLE in turn. Returns the decoded frames and the PNG bodies."""
+    from datr_torch.data import png
+    from datr_torch.data.synthetic import SyntheticDetectionDataset
+    from datr_torch.utils.rle import encode_mask, string_from_counts
+
+    ds = SyntheticDetectionDataset(n, hw, 8, max_objects=8, seed=seed)
+    base = root / "masks"
+    (base / "train" / "images").mkdir(parents=True)
+    (base / "val").mkdir()
+    os.symlink(base / "train" / "images", base / "val" / "images")
+    frames, bodies, images, anns = [], [], [], []
+    ang = np.linspace(0, 2 * np.pi, 24, endpoint=False)
+    for i in range(n):
+        img, tgt = ds.load(i)
+        body = png.encode_png(img)
+        (base / "train" / "images" / f"{i}.png").write_bytes(body)
+        frames.append(img)
+        bodies.append(body)
+        h, w = img.shape[:2]
+        images.append({"id": i + 1, "file_name": f"{i}.png", "height": h,
+                       "width": w})
+        for box, lab in zip(tgt["boxes"].tolist(), tgt["labels"].tolist()):
+            x0, y0, x1, y1 = box
+            k = len(anns) % 3
+            if k == 0:
+                cx, cy = (x0 + x1) / 2, (y0 + y1) / 2
+                seg = [np.stack([cx + (x1 - x0) / 2 * np.cos(ang),
+                                 cy + (y1 - y0) / 2 * np.sin(ang)],
+                                1).reshape(-1).tolist()]
+                area = np.pi * (x1 - x0) * (y1 - y0) / 4
+            else:
+                m = _ellipse(h, w, box)
+                c = encode_mask(m)
+                seg = {"size": [h, w], "counts": (
+                    string_from_counts(c) if k == 1 else c.tolist())}
+                area = float(m.sum())
+            anns.append({"id": len(anns) + 1, "image_id": i + 1,
+                         "bbox": [x0, y0, x1 - x0, y1 - y0], "area": area,
+                         "category_id": int(lab), "iscrowd": 0,
+                         "segmentation": seg})
+    cats = [{"id": c, "name": str(c)} for c in range(1, 9)]
+    (base / "train" / "annotations.json").write_text(json.dumps(
+        {"images": images, "annotations": anns, "categories": cats}))
+    keep = {im["id"] for im in images[:MASK_EVAL_IMAGES]}
+    (base / "val" / "annotations.json").write_text(json.dumps({
+        "images": images[:MASK_EVAL_IMAGES],
+        "annotations": [a for a in anns if a["image_id"] in keep],
+        "categories": cats}))
+    return frames, bodies
+
+
+def check_masks_against_plain(model, batch, sizes, orig_hw, msda,
+                              dino_mod) -> dict:
+    """One batch's pred_masks through the kernels and through the plain
+    MSDA (TF32 off, the two-stage selection held): the largest |kernel -
+    plain| (atol MASK_ATOL), and each image's top MASK_TOP_K masks (the
+    kernel run's detections) finished on the host from both runs: every
+    IoU >= MASK_IOU_MIN (two empty masks count 1)."""
+    from datr_torch.models.postprocess import postprocess
+    from datr_torch.models.segmentation import det_mask_rles
+    from datr_torch.serve import wire_decode
+    from datr_torch.train.steps import gather_masks
+    from datr_torch.utils.rle import area_of_counts, mask_iou
+
+    images = torch.from_numpy(batch).cuda()
+    real = torch.from_numpy(sizes).cuda()
+    with torch.inference_mode():
+        x, pad = wire_decode(images, real, CANVAS, "u8")
+        out_k = model(x, pad)
+        idx = out_k["topk_idx"]
+        with mock.patch.object(msda, "ms_deform_attn",
+                               msda.ms_deform_attn_plain), \
+                mock.patch.object(dino_mod, "_stable_topk_indices",
+                                  lambda s, k: idx):
+            out_p = model(x, pad)
+        res = postprocess(out_k["pred_logits"], out_k["pred_boxes"],
+                          torch.ones((x.shape[0], 2), device=x.device))
+        q = res["queries"][:, :MASK_TOP_K]
+        m_k = gather_masks(out_k["pred_masks"], q).float().cpu().numpy()
+        m_p = gather_masks(out_p["pred_masks"], q).float().cpu().numpy()
+        max_abs = (out_k["pred_masks"] - out_p["pred_masks"]).abs().max()
+    ious, areas = [], []
+    for i, (h, w) in enumerate(orig_hw):
+        for a, b in zip(*(det_mask_rles(m[i], CANVAS, tuple(sizes[i]),
+                                        (h, w)) for m in (m_k, m_p))):
+            areas.append(area_of_counts(a))
+            both_empty = areas[-1] == 0 and area_of_counts(b) == 0
+            ious.append(1.0 if both_empty else float(
+                mask_iou([a], [b], np.zeros(1, bool), h, w)[0, 0]))
+    out = dict(pred_masks_max_abs=max_abs.item(), min_iou=min(ious),
+               mean_iou=float(np.mean(ious)), masks=len(ious),
+               empty_masks=int(sum(a == 0 for a in areas)),
+               mean_area_share=float(np.mean(areas)) / float(
+                   np.mean([h * w for h, w in orig_hw])))
+    log(f"  masks through the kernels vs plain (atol {MASK_ATOL}, IoU >= "
+        f"{MASK_IOU_MIN}): {out}")
+    assert out["pred_masks_max_abs"] <= MASK_ATOL, out
+    assert out["min_iou"] >= MASK_IOU_MIN, out
+    return out
+
+
+def _check_mask_answer(img, r):
+    """An answer of the masks server: 300 detections, the top MASK_TOP_K
+    with RLE counts covering the frame, the rest None."""
+    h, w = img.shape[:2]
+    assert r["boxes"].shape == (NUM_SELECT, 4)
+    assert np.isfinite(r["boxes"]).all() and np.isfinite(r["scores"]).all()
+    assert len(r["masks"]) == NUM_SELECT
+    for k, c in enumerate(r["masks"]):
+        if k < MASK_TOP_K:
+            assert c is not None and int(np.sum(c)) == h * w, k
+        else:
+            assert c is None, k
+
+
+def run_masks_serving(msda, card, frames, bodies) -> dict:
+    """The masks server in f32 (TF32 off): requests, step, memory,
+    profile, the checks against the plain forward, HTTP; then one batch
+    in bf16."""
+    from datr_torch.models import dino as dino_mod
+    from datr_torch.models.layers import MSDeformAttn
+    from datr_torch.serve import InferenceServer
+
+    out = {}
+    for mode, overrides in (("f32", {}), ("bf16", dict(BF16,
+                                                        use_remat=False))):
+        base_gb = torch.cuda.memory_allocated() / 1e9
+        model = flagship_model(masks=True, mask_query_chunk=MASK_CHUNK,
+                               **overrides)
+        n_msda = sum(isinstance(m, MSDeformAttn) for m in model.modules())
+        srv = InferenceServer(model, canvas_hw=CANVAS, batch_size=2,
+                              score_threshold=0.0, batch_timeout_s=1.0,
+                              mask_top_k=MASK_TOP_K)
+        reqs = frames if mode == "f32" else frames[:2]
+        try:
+            srv.warmup()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            # ---- the main path: counts from 0, requests, counts read ----
+            msda.msda_fwd.launches = 0
+            t0 = time.perf_counter()
+            answers = [f.result(timeout=600)
+                       for f in [srv.submit(im) for im in reqs]]
+            wall_s = time.perf_counter() - t0
+            launches = msda.msda_fwd.launches
+            st = srv.stats()
+            assert st["requests"] == len(reqs)
+            assert launches == n_msda * st["batches"], (launches, st)
+            for im, r in zip(reqs, answers):
+                _check_mask_answer(im, r)
+            r = dict(requests=len(reqs), batches=st["batches"],
+                     launches=launches, wall_img_s=len(reqs) / wall_s,
+                     serving_peak_memory_gb=torch.cuda.max_memory_allocated()
+                     / 1e9, allocated_before_gb=base_gb)
+            batch, sizes = serving_batch(srv, reqs)
+            r["step_ms"] = cuda_ms(lambda: srv._step(batch, sizes), 5,
+                                   warmup=1)
+            r["step_img_s"] = 2e3 / r["step_ms"]
+            log(f"  masks server {mode}: {r['requests']} requests in "
+                f"{r['batches']} batches ({r['wall_img_s']:.2f} img/s by "
+                f"wall clock with the host finish), msda_fwd launches "
+                f"{launches}; step {r['step_ms']:.2f} ms = "
+                f"{r['step_img_s']:.2f} img/s, peak memory "
+                f"{r['serving_peak_memory_gb']:.2f} GB ({base_gb:.2f} GB "
+                f"before) on {card}")
+            if mode == "f32":
+                r["profile"] = profile_step(
+                    lambda: [t.cpu() for t in srv._step(batch, sizes)],
+                    top=10)
+                r["forward_diffs"] = check_forward_against_plain(
+                    srv.model, batch, sizes, msda, dino_mod)
+                r["masks_against_plain"] = check_masks_against_plain(
+                    srv.model, batch, sizes,
+                    [im.shape[:2] for im in reqs[:2]], msda, dino_mod)
+                # HTTP: one request at a time, each answer's masks equal to
+                # detect's of the same decoded frame
+                srv.batch_timeout_s = 0.02
+                msda.msda_fwd.launches = 0
+                with http_front_end(srv) as url:
+                    posted = [http_post(url + "/detect", b) for b in bodies]
+                r["http_launches"] = msda.msda_fwd.launches
+                for (code, ans), im in zip(posted, frames):
+                    assert code == 200, (code, ans)
+                    want = srv.detect(im)
+                    assert len(ans["masks"]) == NUM_SELECT
+                    for k, (m, wm) in enumerate(zip(ans["masks"],
+                                                    want["masks"])):
+                        if wm is None:
+                            assert m is None, k
+                        else:
+                            assert m["size"] == list(im.shape[:2]), k
+                            assert m["counts"] == wm.tolist(), k
+                r["http_posts"] = len(posted)
+                log(f"  {len(posted)} HTTP POSTs: every answer's mask RLEs "
+                    f"equal detect's; msda_fwd launches "
+                    f"{r['http_launches']}")
+        finally:
+            srv.close()
+        out[mode] = r
+        del srv, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_masks_eval(msda, card, root) -> dict:
+    """engine.evaluate(segm=True) of the seeded masks model over the val
+    split (batch 2), the host finish timed by wrapping det_mask_rles."""
+    from datr_torch import engine
+    from datr_torch.data.coco import build_dataset
+    from datr_torch.data.loader import make_eval_loader
+    from datr_torch.data.transforms import EvalTransform
+    from datr_torch.models.layers import MSDeformAttn
+
+    model = flagship_model(masks=True, mask_query_chunk=MASK_CHUNK)
+    n_msda = sum(isinstance(m, MSDeformAttn) for m in model.modules())
+    ds = build_dataset("val", "masks", str(root))
+    loader = make_eval_loader(ds, 2, CANVAS, EvalTransform(800, 1333), 100)
+    finish_s, n_dets = [0.0], [0]
+    det_mask_rles = engine.det_mask_rles
+
+    def timed_finish(logits, *a, **kw):
+        t0 = time.perf_counter()
+        rles = det_mask_rles(logits, *a, **kw)
+        finish_s[0] += time.perf_counter() - t0
+        n_dets[0] += len(rles)
+        return rles
+
+    msda.msda_fwd.launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(engine, "det_mask_rles", timed_finish):
+        stats = engine.evaluate(model, loader, range(1, 9),
+                                num_select=MASK_EVAL_SELECT, segm=True)
+    wall_s = time.perf_counter() - t0
+    launches = msda.msda_fwd.launches
+    n_img = len(ds)
+    assert launches == n_msda * loader.n_batches, launches
+    for key in ("coco_eval_bbox", "coco_eval_masks"):
+        v = np.asarray(stats[key])
+        assert v.shape == (12,) and np.isfinite(v).all(), (key, v)
+        assert ((v >= -1) & (v <= 1)).all(), (key, v)
+    out = dict(images=n_img, launches=launches,
+               img_s=n_img / wall_s, wall_s=wall_s,
+               host_finish_s=finish_s[0], detections=n_dets[0],
+               host_finish_share=finish_s[0] / wall_s,
+               host_finish_ms_per_detection=1e3 * finish_s[0] / n_dets[0],
+               coco_eval_bbox=[float(x) for x in stats["coco_eval_bbox"]],
+               coco_eval_masks=[float(x) for x in stats["coco_eval_masks"]])
+    log(f"  evaluate(segm=True): {n_img} images in {wall_s:.2f} s "
+        f"({out['img_s']:.3f} img/s by wall clock), the host finish "
+        f"{finish_s[0]:.2f} s for {n_dets[0]} detections "
+        f"({out['host_finish_share']:.1%}); msda_fwd launches {launches}; "
+        f"bbox {out['coco_eval_bbox']}, segm {out['coco_eval_masks']} on "
+        f"{card}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_masks_training(msda, card, root) -> dict:
+    """train_one_epoch_plain of the flagship with masks (800x1344, batch
+    2, use_remat) over the tree's train split through make_single_loader
+    with return_masks: a warm-up step and 3 timed steps, then one step
+    against the plain step."""
+    from datr_torch.data.coco import build_dataset
+    from datr_torch.data.loader import make_single_loader, to_device
+    from datr_torch.data.transforms import SingleDomainTrainTransform
+    from datr_torch.engine import train_one_epoch_plain
+    from datr_torch.models.layers import MSDeformAttn
+    from datr_torch.train.steps import plain_loss_and_grads
+
+    n_batches = 4
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    state, ccfg, wd, cfg = c2f_train_state(
+        n_batches, "configs/DINO/DINO_4scale.py", num_classes=9, masks=True,
+        mask_query_chunk=MASK_CHUNK)
+    model = state.model
+    assert model.with_masks and model.use_remat
+    assert {"loss_mask", "loss_dice"} <= set(wd)
+    ds = build_dataset("train", "masks", str(root), return_masks=True)
+    tf = SingleDomainTrainTransform(
+        cfg.data_aug_scales, cfg.data_aug_max_size,
+        cfg.data_aug_scales2_resize, cfg.data_aug_scales2_crop)
+    canvas = (cfg.canvas_h, cfg.canvas_w)
+    batches = list(make_single_loader(ds, cfg.batch_size, canvas, tf, 100,
+                                      num_threads=4))
+    assert len(batches) == n_batches and batches[0]["masks"].shape == (
+        cfg.batch_size, 100, canvas[0] // 4, canvas[1] // 4)
+    n_msda = sum(isinstance(m, MSDeformAttn) for m in model.modules())
+    want_fwd, want_bwd = 2 * n_msda, n_msda  # one pass, remat's recompute
+    warm = train_one_epoch_plain(state, batches[:1], ccfg, wd)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = batches[1:]
+    r = timed_epoch(msda, lambda: train_one_epoch_plain(state, steps, ccfg,
+                                                        wd), len(steps))
+    metrics = r.pop("metrics")
+    r["img_s"] = cfg.batch_size / r["step_s"]
+    log(f"  train_step_plain with masks, canvas {canvas}, batch "
+        f"{cfg.batch_size}, mask_query_chunk {MASK_CHUNK}: {len(steps)} "
+        f"steps {r['step_s']:.3f} s/step by CUDA events "
+        f"({r['host_step_s']:.3f} s/step host), {r['img_s']:.3f} img/s, "
+        f"peak memory {r['peak_memory_gb']:.2f} GB ({base_gb:.2f} GB "
+        f"before) on {card}; launches {r['launches']} (per step expected "
+        f"{want_fwd} / {want_bwd}); loss {metrics['loss']:.4f}, loss_mask "
+        f"{metrics['loss_mask']:.4f}, loss_dice {metrics['loss_dice']:.4f} "
+        f"(warm-up loss {warm['loss']:.4f})")
+    assert r["launches"] == dict(msda_fwd=want_fwd * len(steps),
+                                 msda_bwd=want_bwd * len(steps)), r
+    assert all(np.isfinite(v) for v in metrics.values()), metrics
+    assert metrics["loss_mask"] > 0 and metrics["loss_dice"] > 0, metrics
+    b0 = to_device(batches[0], state.amount.device)
+    check = check_step_against_plain(
+        state, lambda d: plain_loss_and_grads(state, b0, ccfg, wd, d)[:2],
+        msda)
+    out = dict(r, launches_per_step=dict(msda_fwd=want_fwd,
+                                         msda_bwd=want_bwd),
+               steps=len(steps), allocated_before_gb=base_gb,
+               loss=metrics["loss"], loss_mask=metrics["loss_mask"],
+               loss_dice=metrics["loss_dice"], against_plain=check)
+    del state, batches, b0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_masks(msda, card) -> dict:
+    """Phase 11: the instance-mask path on its COCO tree: serving, the
+    segm evaluation, training; each part's state freed before the next."""
+    import pathlib
+    import tempfile
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        frames, bodies = write_mask_tree(root)
+        out["tree_s"] = time.perf_counter() - t0
+        log(f"  wrote {len(frames)} frames with instance masks "
+            f"({sum(map(len, bodies)) / 1e6:.2f} MB of PNG) in "
+            f"{out['tree_s']:.2f} s")
+        for part, fn in (
+                ("serving", lambda: run_masks_serving(msda, card, frames,
+                                                      bodies)),
+                ("eval", lambda: run_masks_eval(msda, card, root)),
+                ("training", lambda: run_masks_training(msda, card, root))):
+            log(f"  --- masks: {part}")
+            out[part] = fn()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
@@ -2900,6 +3295,15 @@ def main() -> int:
     bb = run_backbones(msda, card)
     log("backbones " + json.dumps(dict(bb, card=card)))
     phase_done("10")
+
+    log("phase 11: instance masks: the flagship with masks=True served "
+        "(f32 and bf16, HTTP), evaluated with segm AP and trained on a COCO "
+        "tree with instance masks")
+    mk = run_masks(msda, card)
+    log("masks " + json.dumps(dict(mk, card=card)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("11")
 
     # phases 6, 7 and 8 run before phase 5, whose profile must be the last
     # work of the process; each phase's state is gone before the next one
@@ -2995,6 +3399,15 @@ def main() -> int:
         "backbones_training": sum(bb[f"{n}_training"]["launches"]["msda_bwd"]
                                   for n, _ in BACKBONE_CONFIGS),
         "distillation": bb["distillation"]["launches"]["msda_bwd"]}
+    # phase 11: the masks server (f32 requests, HTTP, bf16), the segm
+    # evaluation, the training steps
+    mk_fwd = {
+        "masks_serving": (mk["serving"]["f32"]["launches"]
+                          + mk["serving"]["f32"]["http_launches"]
+                          + mk["serving"]["bf16"]["launches"]),
+        "masks_eval": mk["eval"]["launches"],
+        "masks_training": mk["training"]["launches"]["msda_fwd"]}
+    mk_bwd = {"masks_training": mk["training"]["launches"]["msda_bwd"]}
     k2, k3 = kg["copy"], kg["fma"]
     kernels = [{
         "name": "msda_fwd",
@@ -3004,13 +3417,14 @@ def main() -> int:
         "launches": (s["launches"] + tr["launches"]["msda_fwd"]
                      + st["launches"]["msda_fwd"] + st["eval"]["launches"]
                      + cl["launches"]["msda_fwd"] + sv["launches"]
-                     + sum(bb_fwd.values())),
+                     + sum(bb_fwd.values()) + sum(mk_fwd.values())),
         "launches_by_path": {"serving": s["launches"],
                              "training": tr["launches"]["msda_fwd"],
                              "self_training": st["launches"]["msda_fwd"],
                              "eval": st["eval"]["launches"],
                              "cli": cl["launches"]["msda_fwd"],
-                             "serving_surface": sv["launches"], **bb_fwd},
+                             "serving_surface": sv["launches"], **bb_fwd,
+                             **mk_fwd},
         "launches_per_distillation_step": bb["distillation"][
             "launches_per_step"]["msda_fwd"],
         "launches_per_forward": s["launches"] // s["batches"],
@@ -3061,10 +3475,12 @@ def main() -> int:
         "source": "datr_torch/csrc/msda_bwd.cu",
         "replaces": "datr_tpu/ops/msda_pallas.py:154",
         "launches": (tr["launches"]["msda_bwd"] + st["launches"]["msda_bwd"]
-                     + cl["launches"]["msda_bwd"] + sum(bb_bwd.values())),
+                     + cl["launches"]["msda_bwd"] + sum(bb_bwd.values())
+                     + sum(mk_bwd.values())),
         "launches_by_path": {"training": tr["launches"]["msda_bwd"],
                              "self_training": st["launches"]["msda_bwd"],
-                             "cli": cl["launches"]["msda_bwd"], **bb_bwd},
+                             "cli": cl["launches"]["msda_bwd"], **bb_bwd,
+                             **mk_bwd},
         "launches_per_train_step": tr["launches_per_step"]["msda_bwd"],
         "launches_per_self_training_step": st["launches_per_step"][
             "msda_bwd"],

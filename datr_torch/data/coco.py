@@ -3,8 +3,11 @@ datr_tpu/data/coco.py; images are uint8 [H, W, 3] arrays).
 
 The COCO JSON is parsed directly; annotations are filtered as the
 reference's ConvertCocoPolysToMask does: crowd dropped, boxes clamped to the
-image, degenerate ones dropped. Labels are the raw category_id. Instance
-masks and the panoptic layout are not ported (ROADMAP §A 7).
+image, degenerate ones dropped. Labels are the raw category_id. With
+`return_masks` the targets carry each kept annotation's instance mask
+(`decode_segmentation`: RLE through utils/rle.py, polygons rasterized as
+Pillow's ImageDraw.polygon fills them, `pil_ops.polygon_fill`). The
+panoptic layout is data/panoptic.py.
 """
 
 from __future__ import annotations
@@ -18,9 +21,9 @@ from typing import Dict, List
 import numpy as np
 
 from .. import native
-from . import png
+from ..utils.rle import counts_from_string, decode_counts, encode_mask
+from . import pil_ops, png
 from .strong_aug import strong_augment
-from .transforms import _MASKS
 
 
 def decode_rgb(data: bytes) -> np.ndarray:
@@ -56,6 +59,33 @@ def open_rgb(path: str) -> np.ndarray:
         return decode_rgb(f.read())
 
 
+def _rle_counts(seg: dict) -> np.ndarray:
+    c = seg["counts"]
+    return np.asarray(counts_from_string(c) if isinstance(c, (str, bytes))
+                      else c, np.int64)
+
+
+def decode_segmentation(seg, h: int, w: int) -> np.ndarray:
+    """A COCO 'segmentation' field -> binary mask [h, w] uint8: an RLE dict
+    (compressed or not, column-major runs from background) decoded, a list
+    of polygons filled as datr_tpu fills them through PIL's
+    ImageDraw.polygon (datr_tpu/data/coco.py:40-71; polygons of fewer
+    than 3 points are skipped). An RLE of another size than the image
+    raises."""
+    if isinstance(seg, dict):
+        rh, rw = seg.get("size", (h, w))
+        if (int(rh), int(rw)) != (h, w):
+            raise ValueError(
+                f"RLE size {(rh, rw)} != image size {(h, w)}: re-encode the "
+                "annotation at the image resolution")
+        return decode_counts(_rle_counts(seg), rh, rw).astype(np.uint8)
+    out = np.zeros((h, w), np.uint8)
+    for poly in seg:
+        if len(poly) >= 6:
+            out |= pil_ops.polygon_fill([float(v) for v in poly], h, w)
+    return out
+
+
 class CocoIndex:
     """Minimal in-memory COCO index (replaces pycocotools.coco.COCO)."""
 
@@ -74,14 +104,15 @@ class CocoIndex:
 
 
 class CocoDetectionDataset:
-    """Single-domain detection dataset: load(i) -> (image, target)."""
+    """Single-domain detection dataset: load(i) -> (image, target); with
+    `return_masks` the target's `masks` [N, h, w] uint8 align with its
+    boxes and labels."""
 
     def __init__(self, img_dir: str, ann_file: str,
                  return_masks: bool = False):
-        if return_masks:
-            raise NotImplementedError(_MASKS)
         self.img_dir = img_dir
         self.index = CocoIndex(ann_file)
+        self.return_masks = return_masks
 
     def __len__(self):
         return len(self.index.image_ids)
@@ -97,7 +128,7 @@ class CocoDetectionDataset:
         img = open_rgb(os.path.join(self.img_dir, info["file_name"]))
         h, w = img.shape[:2]
 
-        boxes, labels = [], []
+        boxes, labels, masks = [], [], []
         for a in self.index.anns_by_image[image_id]:
             if a.get("iscrowd", 0):
                 continue
@@ -110,6 +141,9 @@ class CocoDetectionDataset:
                 continue
             boxes.append([x0, y0, x1, y1])
             labels.append(a["category_id"])
+            if self.return_masks:
+                masks.append(decode_segmentation(
+                    a.get("segmentation", []), h, w))
         target = {
             "boxes": np.asarray(boxes, np.float32).reshape(-1, 4),
             "labels": np.asarray(labels, np.int64),
@@ -117,28 +151,41 @@ class CocoDetectionDataset:
             "orig_size": np.array([h, w], np.int64),
             "size": np.array([h, w], np.int64),
         }
+        if self.return_masks:
+            target["masks"] = (np.stack(masks) if masks
+                               else np.zeros((0, h, w), np.uint8))
         return img, target
 
     def eval_annotations(self, image_id: int, with_masks: bool = False):
         """Raw GT for COCO evaluation: unlike the training targets, crowd
         annotations are kept (they become ignore regions in the evaluator)
         and the annotation's 'area' is used when present, as the
-        reference's evaluation against the COCO API GT does."""
-        if with_masks:
-            raise NotImplementedError(_MASKS)
-        boxes, labels, iscrowd, areas = [], [], [], []
+        reference's evaluation against the COCO API GT does. `with_masks`
+        (the segm evaluation asks for it) adds each annotation's RLE
+        counts (`masks`) and the image's (h, w) (`mask_size`)."""
+        boxes, labels, iscrowd, areas, segs = [], [], [], [], []
         for a in self.index.anns_by_image[image_id]:
             x, y, bw, bh = a["bbox"]
             boxes.append([x, y, x + bw, y + bh])
             labels.append(a["category_id"])
             iscrowd.append(bool(a.get("iscrowd", 0)))
             areas.append(float(a.get("area", bw * bh)))
-        return {
+            segs.append(a.get("segmentation", []))
+        out = {
             "boxes": np.asarray(boxes, np.float64).reshape(-1, 4),
             "labels": np.asarray(labels, np.int64),
             "iscrowd": np.asarray(iscrowd, bool),
             "areas": np.asarray(areas, np.float64),
         }
+        if with_masks:
+            info = self.index.images[image_id]
+            h, w = int(info["height"]), int(info["width"])
+            out["masks"] = [
+                _rle_counts(seg) if isinstance(seg, dict)
+                else encode_mask(decode_segmentation(seg, h, w))
+                for seg in segs]
+            out["mask_size"] = (h, w)
+        return out
 
 
 class ConcatDetectionDataset:
@@ -216,6 +263,20 @@ def build_coco_classic(image_set: str, root: str,
     )
 
 
+def build_coco_panoptic(image_set: str, root: str,
+                        return_masks: bool = False):
+    """COCO-panoptic layout: <root>/{train2017,val2017} +
+    <root>/panoptic/{panoptic_<split>/, annotations/panoptic_<split>.json}."""
+    from .panoptic import CocoPanopticDataset
+
+    split = "train2017" if image_set == "train" else "val2017"
+    pan = os.path.join(root, "panoptic")
+    return CocoPanopticDataset(
+        os.path.join(root, split), os.path.join(pan, f"panoptic_{split}"),
+        os.path.join(pan, "annotations", f"panoptic_{split}.json"),
+        return_masks=return_masks)
+
+
 def build_o365_combine(image_set: str, root: str,
                        return_masks: bool = False):
     """Objects365-style layout: <root>/<split>/images plus one
@@ -245,7 +306,7 @@ def build_dataset(
     """image_set: 'train' (paired DA, or single-domain) or 'val'.
 
       'coco'          classic COCO-2017 tree (build_coco_classic)
-      'coco_panoptic' not ported (ROADMAP §A 7)
+      'coco_panoptic' panoptic tree (build_coco_panoptic)
       'o365'          sharded-annotations tree (build_o365_combine)
       any other name  <data_root>/<name>/ with either
                         source/{images,annotations.json},
@@ -253,17 +314,19 @@ def build_dataset(
                         val/{images,annotations.json} (paired DA),
                       or train/{images,annotations.json} (+ val/) for
                       single-domain training.
+    `return_masks` adds instance masks to the targets; the paired DA layout
+    carries none (its training raises, as datr_tpu's does).
     """
-    if return_masks:
-        raise NotImplementedError(_MASKS)
+    kw = dict(return_masks=return_masks)
     if dataset_file == "coco":
-        return build_coco_classic(image_set, os.path.join(data_root, "coco"))
+        return build_coco_classic(image_set, os.path.join(data_root, "coco"),
+                                  **kw)
     if dataset_file == "coco_panoptic":
-        raise NotImplementedError(
-            "the coco_panoptic layout is not ported (ROADMAP §A 7: "
-            "data/panoptic.py)")
+        return build_coco_panoptic(image_set,
+                                   os.path.join(data_root, "coco"), **kw)
     if dataset_file == "o365":
-        return build_o365_combine(image_set, os.path.join(data_root, "o365"))
+        return build_o365_combine(image_set, os.path.join(data_root, "o365"),
+                                  **kw)
     d = os.path.join(data_root, dataset_file)
     single_domain = (
         not os.path.isdir(os.path.join(d, "source"))
@@ -273,8 +336,14 @@ def build_dataset(
         if single_domain:
             return CocoDetectionDataset(
                 os.path.join(d, "train/images"),
-                os.path.join(d, "train/annotations.json"),
-            )
+                os.path.join(d, "train/annotations.json"), **kw)
+        if return_masks:
+            # the reference's DA pipeline carries no instance masks: a
+            # mask head trained there would get no gradient
+            raise ValueError(
+                "masks=True requires a single-domain dataset layout "
+                "(train/ + val/): the paired DA pipeline carries no "
+                "instance masks")
         src = CocoDetectionDataset(
             os.path.join(d, "source/images"),
             os.path.join(d, "source/annotations.json"),
@@ -287,6 +356,5 @@ def build_dataset(
     if image_set == "val":
         return CocoDetectionDataset(
             os.path.join(d, "val/images"),
-            os.path.join(d, "val/annotations.json"),
-        )
+            os.path.join(d, "val/annotations.json"), **kw)
     raise ValueError(image_set)

@@ -179,7 +179,8 @@ def make_single_loader(
 ) -> Iterator[Dict[str, np.ndarray]]:
     """Single-domain supervised batches:
       images [b, H, W, 3], pad_mask [b, H, W],
-      boxes/labels/valid [b, max_boxes, ...]
+      boxes/labels/valid [b, max_boxes, ...],
+      masks [b, max_boxes, H/4, W/4] f16 when the dataset returns masks
     """
 
     def make_batch(items):
@@ -188,9 +189,11 @@ def make_single_loader(
             img, tgt = dataset.load(idx)
             img, tgt = transform(img, tgt, random.Random(seed_i))
             out.append(finalize_example(img, tgt, canvas_hw, max_boxes))
+        keys = ("boxes", "labels", "valid") + (
+            ("masks",) if "masks" in out[0] else ())
         return {"images": _stack(out, "image"),
                 "pad_mask": _stack(out, "pad_mask"),
-                **{k: _stack(out, k) for k in ("boxes", "labels", "valid")}}
+                **{k: _stack(out, k) for k in keys}}
 
     batches = _batch_order(len(dataset), batch_size, seed, epoch, shuffle)
     return _threaded_in_order(batches, make_batch, seed + 7919 * epoch,

@@ -262,3 +262,139 @@ def gaussian_blur(img: np.ndarray, sigma: float) -> np.ndarray:
         for _ in range(_BLUR_PASSES):
             out = _box_blur_axis0(out, radius)
     return np.ascontiguousarray(out)
+
+
+# ---------------------------------------------------------------- polygons
+
+def _roundf(x) -> np.ndarray:
+    """C's roundf of float32 values: halves away from zero, exactly."""
+    x = np.asarray(x, np.float64)
+    return np.where(x >= 0, np.floor(x + 0.5), -np.floor(-x + 0.5))
+
+
+def _round_up(x: np.ndarray) -> np.ndarray:
+    """Draw.c ROUND_UP of float32 x: floor(x + 0.5f) with the sum taken in
+    float32 where x >= 0, in double below."""
+    pos = np.floor((x + np.float32(0.5)).astype(np.float64))
+    neg = -np.floor(np.abs(x.astype(np.float64)) + 0.5)
+    return np.where(x >= 0, pos, neg).astype(np.int64)
+
+
+def _round_down(x: np.ndarray) -> np.ndarray:
+    """Draw.c ROUND_DOWN: ceil(x - 0.5f), the same precisions."""
+    pos = np.ceil((x - np.float32(0.5)).astype(np.float64))
+    neg = -np.ceil(np.abs(x.astype(np.float64)) - 0.5)
+    return np.where(x >= 0, pos, neg).astype(np.int64)
+
+
+def _polygon_edges(xy: np.ndarray):
+    """ImagingDrawPolygon's edge list of integer vertices [n, 2]: a
+    horizontal edge that continues the previous one in the same x
+    direction widens the previous edge instead (its xmin / xmax); the
+    closing edge is added unless the last vertex is the first. Rows of
+    (x0, y0, x1, y1, xmin, xmax)."""
+    edges = []
+    for i in range(len(xy) - 1):
+        (x0, y0), (x1, y1) = xy[i], xy[i + 1]
+        if y0 == y1 and i != 0 and y0 == xy[i - 1][1]:
+            px = xy[i - 1][0]
+            if x1 > x0 > px:
+                edges[-1][5] = x1
+                continue
+            if x1 < x0 < px:
+                edges[-1][4] = x1
+                continue
+        edges.append([x0, y0, x1, y1, min(x0, x1), max(x0, x1)])
+    if tuple(xy[-1]) != tuple(xy[0]):
+        (x0, y0), (x1, y1) = xy[-1], xy[0]
+        edges.append([x0, y0, x1, y1, min(x0, x1), max(x0, x1)])
+    return np.asarray(edges, np.int64).reshape(-1, 6)
+
+
+def polygon_fill(coords, h: int, w: int) -> np.ndarray:
+    """`ImageDraw.Draw(Image.new("L", (w, h))).polygon(coords, fill=1)` as
+    Pillow 12 draws it (Draw.c ImagingDrawPolygon -> polygon_generic):
+    uint8 [h, w] of 0 / 1. The vertices are truncated to integers; each
+    horizontal edge is a span of its own; every other row between the
+    polygon's top and bottom gets the edges' float32 crossings, a crossing
+    doubled where an edge ends above the last row, and a crossing that
+    sits at a corner where two edges of the same slope sign start or end
+    on this row is moved one pixel past the neighbouring row's crossings
+    of both edges (Pillow's "connect discontiguous corners"); the sorted
+    crossings pair up into spans [ROUND_UP(a), ROUND_DOWN(b)]. Vectorized
+    over rows and edges; only the corner rows loop in Python."""
+    out = np.zeros((h, w), np.uint8)
+    xy = np.trunc(np.asarray(coords, np.float64)).astype(np.int64)
+    xy = xy.reshape(-1, 2)
+    if len(xy) == 0:
+        return out
+    e = _polygon_edges(xy)
+    if len(e) == 0:
+        return out
+    x0, y0, x1, y1, xmin, xmax = e.T
+    ymin, ymax = np.minimum(y0, y1), np.maximum(y0, y1)
+    lo = max(min(h - 1, int(ymin.min())), 0)
+    hi = min(max(0, int(ymax.max())), h)
+    spans = []  # (row, first x, last x)
+    flat = ymin == ymax
+    spans += [(int(y), int(a), int(b))
+              for y, a, b in zip(ymin[flat], xmin[flat], xmax[flat])]
+    keep = ~flat
+    x0, y0, ymin, ymax = x0[keep], y0[keep], ymin[keep], ymax[keep]
+    dx = ((x1[keep] - x0).astype(np.float32)
+          / (y1[keep] - y0).astype(np.float32))
+    x0f = x0.astype(np.float32)
+
+    def line(k, y):  # (y - y0) * dx + x0 in float32, as the C does
+        return np.float32(y - y0[k]) * dx[k] + x0f[k]
+
+    if len(dx):
+        rows = np.arange(lo, hi + 1)
+        X = (rows[:, None] - y0[None]).astype(np.float32) * dx + x0f
+        active = (rows[:, None] >= ymin) & (rows[:, None] <= ymax)
+        dup = active & (rows[:, None] == ymax) & (rows[:, None] < hi)
+        lines = X.copy()  # the edges' own crossings, before any move
+        # corners: an edge's own end row, the other edge earlier in the
+        # table ending (or starting) on the same row at the same rounded x
+        for r, i in zip(*np.nonzero(
+                active & ~dup & (dx != 0)
+                & ((rows[:, None] == ymin) | (rows[:, None] == ymax)))):
+            y, x = int(rows[r]), X[r, i]
+            ks = np.arange(i)
+            join = (_roundf(lines[r, :i]) == _roundf(x)) & (
+                ((y == ymin[i]) & (ymin[:i] == y))
+                | ((y == ymax[i]) & (ymax[:i] == y)))
+            opp = (dx[:i] <= 0) if dx[i] > 0 else (dx[:i] >= 0)
+            off = -1 if y == ymax[i] else 1
+            near = (ymin[:i] <= y + off) & (y + off <= ymax[:i])
+            stop = join & np.where(opp, dx[:i] != 0, near)
+            if not stop.any():
+                continue
+            k = int(ks[stop][0])
+            if opp[k]:
+                continue
+            a, b = line(i, y + off), line(k, y + off)
+            if x > a + 1 and x > b + 1:
+                X[r, i] = np.float32(_roundf(max(a, b)) + 1)
+            elif x < a - 1 and x < b - 1:
+                X[r, i] = np.float32(_roundf(min(a, b)) - 1)
+        n = active.sum(1) + dup.sum(1)
+        vals = np.concatenate([np.where(active, X, np.inf),
+                               np.where(dup, X, np.inf)], 1)
+        vals.sort(1)
+        for m in range(0, vals.shape[1] - 1, 2):
+            ok = m + 1 < n
+            if not ok.any():
+                break
+            a = _round_up(np.where(ok, vals[:, m], 0).astype(np.float32))
+            b = _round_down(np.where(ok, vals[:, m + 1], 0).astype(
+                np.float32))
+            ok &= b >= a
+            spans += [(int(y), int(s), int(t))
+                      for y, s, t in zip(rows[ok], a[ok], b[ok])]
+    for y, a, b in spans:  # hline8: clipped to the image
+        if 0 <= y < h and a < w and b >= 0:
+            a, b = max(a, 0), min(b, w - 1)
+            if a <= b:
+                out[y, a:b + 1] = 1
+    return out

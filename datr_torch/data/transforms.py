@@ -6,7 +6,9 @@ Every train transform acts on an (img, img_strong, target) triple, so the
 strong photometric view gets the same geometry: HFlip + RandomSelect(
 multi-scale resize | resize -> RandomSizeCrop -> resize); eval is one
 resize. `finalize_example` normalizes and pads to one static canvas. Targets
-hold xyxy pixel `boxes`; those with `masks` raise (ROADMAP §A 7).
+hold xyxy pixel `boxes` and, with instance masks, `masks` [N, h, w] uint8,
+which follow the geometry (nearest resize, flip, crop) and leave
+`finalize_example` as soft f16 targets at 1 / `mask_stride` of the canvas.
 """
 
 from __future__ import annotations
@@ -21,15 +23,6 @@ from . import pil_ops
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
-
-_MASKS = ("instance masks are not ported (ROADMAP §A 7: models/"
-          "segmentation.py and the mask targets)")
-
-
-def _refuse_masks(target: Optional[Dict]):
-    if target is not None and target.get("masks") is not None:
-        raise NotImplementedError(_MASKS)
-
 
 def get_size_with_aspect_ratio(
     image_size: Tuple[int, int], size: int, max_size: Optional[int] = None
@@ -56,8 +49,25 @@ def _wh(img: np.ndarray) -> Tuple[int, int]:
     return img.shape[1], img.shape[0]
 
 
+def _nearest_idx(n_out: int, n_in: int) -> np.ndarray:
+    """torch's nearest index map floor(i * scale), the scale and the product
+    in float32 as ATen computes them (datr_tpu/data/transforms.py:45-55)."""
+    scale = np.float32(n_in) / np.float32(n_out)
+    idx = np.floor(np.arange(n_out, dtype=np.float32) * scale).astype(
+        np.int64)
+    return np.minimum(idx, n_in - 1)
+
+
+def _resize_masks(masks: np.ndarray, oh: int, ow: int) -> np.ndarray:
+    """[N, h, w] uint8 -> [N, oh, ow], nearest."""
+    if masks.shape[0] == 0:
+        return np.zeros((0, oh, ow), masks.dtype)
+    yi = _nearest_idx(oh, masks.shape[1])
+    xi = _nearest_idx(ow, masks.shape[2])
+    return masks[:, yi[:, None], xi[None, :]]
+
+
 def _resize_triple(img, img_strong, target, size, max_size=None):
-    _refuse_masks(target)
     w, h = _wh(img)
     oh, ow = get_size_with_aspect_ratio((w, h), size, max_size)
     rw, rh = ow / w, oh / h
@@ -71,11 +81,12 @@ def _resize_triple(img, img_strong, target, size, max_size=None):
         target = dict(target, boxes=b)
     if target is not None:
         target = dict(target, size=np.array([oh, ow], np.int64))
+        if target.get("masks") is not None:
+            target["masks"] = _resize_masks(target["masks"], oh, ow)
     return img, img_strong, target
 
 
 def _hflip_triple(img, img_strong, target):
-    _refuse_masks(target)
     img = pil_ops.hflip(img)
     if img_strong is not None:
         img_strong = pil_ops.hflip(img_strong)
@@ -85,12 +96,13 @@ def _hflip_triple(img, img_strong, target):
         b = b[:, [2, 1, 0, 3]] * np.array([-1, 1, -1, 1]) + np.array(
             [w, 0, w, 0])
         target = dict(target, boxes=b.astype(np.float32))
+    if target is not None and target.get("masks") is not None:
+        target = dict(target, masks=target["masks"][:, :, ::-1])
     return img, img_strong, target
 
 
 def _crop_triple(img, img_strong, target, region):
     """region: (top, left, h, w)."""
-    _refuse_masks(target)
     top, left, h, w = region
     img = pil_ops.crop(img, (left, top, left + w, top + h))
     if img_strong is not None:
@@ -105,6 +117,11 @@ def _crop_triple(img, img_strong, target, region):
             keep = (b[:, 2] > b[:, 0]) & (b[:, 3] > b[:, 1])
             t["boxes"] = b[keep]
             t["labels"] = target["labels"][keep]
+            if target.get("masks") is not None:
+                t["masks"] = target["masks"][keep][:, top:top + h,
+                                                   left:left + w]
+        elif target.get("masks") is not None:
+            t["masks"] = target["masks"][:, top:top + h, left:left + w]
         target = t
     return img, img_strong, target
 
@@ -202,9 +219,10 @@ def finalize_example(
     """Normalize + pad to the static canvas; boxes -> cxcywh normalized by
     the real (unpadded) size, padded to max_boxes. An image larger than the
     canvas is first scaled to fit, in float32 (`native.resize_normalize_pad`).
-    `mask_stride` is the stride of the mask targets, which are not ported
-    (a target with `masks` raises)."""
-    _refuse_masks(target)
+    A target's `masks` leave as `masks` [max_boxes, ceil(H / s), ceil(W /
+    s)] f16 with s = `mask_stride`: each mask's occupied region padded to a
+    multiple of s with background and block-averaged (soft targets in
+    [0, 1]; s = 1 keeps the binary masks at the canvas)."""
     H, W = canvas_hw
     u8 = np.asarray(img, np.uint8)
     h, w = u8.shape[0], u8.shape[1]
@@ -215,6 +233,9 @@ def finalize_example(
             b = target["boxes"].copy()
             b *= scale
             target = dict(target, boxes=b)
+        if target is not None and target.get("masks") is not None:
+            target = dict(target,
+                          masks=_resize_masks(target["masks"], nh, nw))
         h, w = nh, nw
 
     canvas = native.resize_normalize_pad(u8, (h, w), (H, W), IMAGENET_MEAN,
@@ -249,8 +270,34 @@ def finalize_example(
             labels[:n] = tl[:n]
             valid[:n] = True
         out.update(boxes=boxes, labels=labels, valid=valid)
+        if target.get("masks") is not None:
+            out["masks"] = _mask_targets(target["masks"], n, (h, w),
+                                         canvas_hw, max_boxes, mask_stride)
         if "image_id" in target:
             out["image_id"] = np.int64(target["image_id"])
         if "orig_size" in target:
             out["orig_size"] = np.asarray(target["orig_size"], np.int64)
     return out
+
+
+def _mask_targets(tm: np.ndarray, n: int, hw: Tuple[int, int],
+                  canvas_hw: Tuple[int, int], max_boxes: int,
+                  mask_stride: int) -> np.ndarray:
+    """The first n masks [n, h, w] as f16 targets at the stride grid of the
+    canvas (datr_tpu/data/transforms.py:282-304)."""
+    H, W = canvas_hw
+    h, w = hw
+    s = max(1, int(mask_stride))
+    if s == 1:
+        mk = np.zeros((max_boxes, H, W), np.float16)
+        if n and len(tm):
+            mk[:n, :h, :w] = tm[:n]
+        return mk
+    mk = np.zeros((max_boxes, -(-H // s), -(-W // s)), np.float16)
+    if n and len(tm):
+        ph, pw = -(-h // s) * s, -(-w // s) * s
+        buf = np.zeros((n, ph, pw), np.uint8)
+        buf[:, :h, :w] = tm[:n]
+        mk[:n, :ph // s, :pw // s] = buf.reshape(
+            n, ph // s, s, pw // s, s).mean((2, 4), dtype=np.float32)
+    return mk

@@ -7,7 +7,7 @@ without blocking. The training loops average the scalar metrics in a
 MetricLogger and stop on a non-finite loss (reference engine.py:81-84). The
 metrics stay on the device between drains: every DRAIN_EVERY steps one copy
 brings them to the host, so the loop does not wait for the card each step.
-Evaluation is single-process and bbox only.
+Evaluation is single-process: bbox, and with `segm` mask AP too.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import torch
 
 from .data.loader import to_device
 from .eval.coco_eval import CocoEvaluator
+from .models.segmentation import det_mask_rles
 from .train.criterion import CriterionCfg
 from .train.ema import cosine_decay, ema_update, ramped_decay
 from .train.state import TrainState
@@ -152,28 +153,38 @@ _GT_KEYS = ("image_ids", "batch_valid", "orig_sizes", "boxes", "labels",
             "valid")
 
 
+def _to_host(k: str, v: torch.Tensor) -> np.ndarray:
+    """A result on the host: a bf16 model's scores and boxes in f32; the f16
+    mask logits copied as f16 and widened there."""
+    if k == "mask_logits":
+        return v.cpu().numpy().astype(np.float32)
+    return (v.float() if v.is_floating_point() else v).cpu().numpy()
+
+
 def _eval_batches(model, loader: Iterable, num_select: int,
                   nms_iou_threshold: float, not_to_xyxy: bool = False,
-                  logger=None):
-    """(results, batch GT) of each batch, as numpy on the host."""
+                  logger=None, with_masks: bool = False):
+    """(results, batch GT) of each batch, as numpy on the host; with masks
+    the GT also holds `real_sizes` and the `canvas_hw`."""
     dev = next(model.parameters()).device
     if logger:
         loader = MetricLogger(logger=logger).log_every(loader, 50, "Test:")
+    keys = _GT_KEYS + (("real_sizes",) if with_masks else ())
     for batch in loader:
         res = eval_step(model, to_device(batch, dev, ("images", "pad_mask",
                                                       "orig_sizes")),
                         num_select=num_select,
                         nms_iou_threshold=nms_iou_threshold,
-                        not_to_xyxy=not_to_xyxy)
-        # a bf16 model's scores reach the evaluator and the JSON in f32
-        yield ({k: (v.float() if v.is_floating_point() else v).cpu().numpy()
-                for k, v in res.items()},
-               {k: _host(batch[k]) for k in _GT_KEYS})
+                        not_to_xyxy=not_to_xyxy, with_masks=with_masks)
+        gt = {k: _host(batch[k]) for k in keys}
+        gt["canvas_hw"] = tuple(batch["images"].shape[1:3])
+        yield {k: _to_host(k, v) for k, v in res.items()}, gt
 
 
 def evaluate(model, loader: Iterable, categories: Sequence[int],
              num_select: int = 300, nms_iou_threshold: float = -1.0,
-             logger=None, save_results_path: Optional[str] = None) -> Dict:
+             logger=None, save_results_path: Optional[str] = None,
+             segm: bool = False) -> Dict:
     """Detection eval of `model` (the student or an EMA track) over eval
     batches (`EvalLoader`'s or `synthetic_eval_batches`'): the 12 COCO
     stats (datr_tpu/engine.py:161-323 -> coco_eval_bbox) and AP50. A
@@ -182,13 +193,21 @@ def evaluate(model, loader: Iterable, categories: Sequence[int],
     loader's dataset has `eval_annotations` (crowd regions and annotation
     areas, as the reference evaluates against the COCO API's GT), else the
     batches' boxes. `save_results_path` dumps each image's detections and
-    GT to an npz (`results`: one dict per image)."""
+    GT to an npz (`results`: one dict per image). `segm` (a model with
+    masks, a dataset whose eval_annotations give GT masks) adds the 12 mask
+    AP stats, `coco_eval_masks` (datr_tpu/engine.py:166-322): each
+    detection's f16 stride-4 logits finished on the host
+    (`det_mask_rles`)."""
     evaluator = CocoEvaluator(categories)
+    evaluator_m = CocoEvaluator(categories, iou_type="segm") if segm else None
     raw_gt = getattr(getattr(loader, "dataset", None), "eval_annotations",
                      None)
+    if segm and raw_gt is None:
+        raise ValueError("segm eval needs dataset.eval_annotations")
     dumped = [] if save_results_path else None
     for res, gt in _eval_batches(model, loader, num_select,
-                                 float(nms_iou_threshold), logger=logger):
+                                 float(nms_iou_threshold), logger=logger,
+                                 with_masks=segm):
         for i, image_id in enumerate(gt["image_ids"]):
             if not gt["batch_valid"][i]:
                 continue
@@ -197,7 +216,8 @@ def evaluate(model, loader: Iterable, categories: Sequence[int],
                 keep = res["valid"][i]
                 db, ds, dl = db[keep], ds[keep], dl[keep]
             if raw_gt is not None:
-                ann = raw_gt(int(image_id))
+                ann = (raw_gt(int(image_id), with_masks=True) if segm
+                       else raw_gt(int(image_id)))
                 gt_kw = dict(gt_boxes=ann["boxes"], gt_labels=ann["labels"],
                              gt_iscrowd=ann["iscrowd"],
                              gt_areas=ann["areas"])
@@ -208,6 +228,20 @@ def evaluate(model, loader: Iterable, categories: Sequence[int],
                     gt_labels=gt["labels"][i][gv])
             evaluator.add_image(int(image_id), det_boxes=db, det_scores=ds,
                                 det_labels=dl, **gt_kw)
+            if evaluator_m is not None:
+                if "masks" not in ann:
+                    raise ValueError("segm eval needs GT mask RLEs from "
+                                     "eval_annotations(with_masks=True)")
+                ml_i = res["mask_logits"][i]
+                if "valid" in res:
+                    ml_i = ml_i[keep]
+                oh, ow = gt["orig_sizes"][i]
+                rles = det_mask_rles(ml_i, gt["canvas_hw"],
+                                     tuple(gt["real_sizes"][i]), (oh, ow))
+                evaluator_m.add_image(
+                    int(image_id), det_boxes=db, det_scores=ds, det_labels=dl,
+                    gt_masks=ann["masks"], det_masks=rles,
+                    mask_size=ann["mask_size"], **gt_kw)
             if dumped is not None:
                 dumped.append(dict(image_id=int(image_id), boxes=db,
                                    scores=ds, labels=dl, **gt_kw))
@@ -218,7 +252,13 @@ def evaluate(model, loader: Iterable, categories: Sequence[int],
     if logger:
         logger.info("COCO stats: AP=%.4f AP50=%.4f AP75=%.4f"
                     % tuple(stats[:3]))
-    return {"coco_eval_bbox": stats, "ap50": stats[1]}
+    out = {"coco_eval_bbox": stats, "ap50": stats[1]}
+    if evaluator_m is not None:
+        out["coco_eval_masks"] = evaluator_m.summarize()
+        if logger:
+            logger.info("COCO segm stats: AP=%.4f AP50=%.4f AP75=%.4f"
+                        % tuple(out["coco_eval_masks"][:3]))
+    return out
 
 
 def test(model, loader: Iterable, output_dir: Optional[str],

@@ -1,6 +1,6 @@
 """COCO-style detection mAP in pure numpy: the port's own copy of
-datr_tpu/eval/coco_eval.py, bbox only (the mask IoU needs datr_tpu's RLE
-utilities, which come with the masks path).
+datr_tpu/eval/coco_eval.py, box IoU ('bbox') or mask IoU ('segm', through
+utils/rle.py's mask_iou, pycocotools' maskUtils.iou semantics).
 
 It implements pycocotools' protocol (which the reference wraps,
 datasets/coco_eval.py:22-266): greedy score-ordered matching at IoU
@@ -16,6 +16,8 @@ from __future__ import annotations
 from typing import Dict, List, Sequence
 
 import numpy as np
+
+from ..utils.rle import area_of_counts, mask_iou, masks_to_rles
 
 IOU_THRS = np.linspace(0.5, 0.95, 10)
 REC_THRS = np.linspace(0.0, 1.0, 101)
@@ -84,13 +86,28 @@ def _greedy_match(ious, g_ignore, crowd):
 
 
 class CocoEvaluator:
-    """Accumulates per-image detections + GT, computes the 12 COCO stats
-    (bbox IoU)."""
+    """Accumulates per-image detections + GT, computes the 12 COCO stats.
 
-    def __init__(self, categories: Sequence[int]):
+    iou_type 'bbox' matches on box IoU, 'segm' on mask IoU (the reference's
+    CocoEvaluator(base_ds, ('bbox', 'segm')) when masks are on). For 'segm'
+    add_image takes the masks as binary [N, H, W] arrays or as lists of RLE
+    counts with mask_size=(H, W); the detections' areas are their masks'."""
+
+    def __init__(self, categories: Sequence[int], iou_type: str = "bbox"):
+        assert iou_type in ("bbox", "segm"), iou_type
         self.categories = sorted(set(int(c) for c in categories))
+        self.iou_type = iou_type
         self._gt: Dict[int, dict] = {}  # image_id -> gt dict
         self._dt: Dict[int, dict] = {}
+
+    @staticmethod
+    def _as_rles(masks, n):
+        if isinstance(masks, (list, tuple)):  # already RLE counts
+            rles = [np.asarray(c, np.int64) for c in masks]
+        else:
+            rles = masks_to_rles(masks)
+        assert len(rles) == n, (len(rles), n)
+        return rles
 
     # -- update API -------------------------------------------------------
     def add_image(
@@ -104,6 +121,9 @@ class CocoEvaluator:
         gt_iscrowd: np.ndarray | None = None,
         gt_areas: np.ndarray | None = None,  # annotation areas (segmentation
         # area in real COCO jsons); defaults to box area
+        gt_masks=None,    # segm: [G, H, W] binary or list of RLE counts
+        det_masks=None,   # segm: [D, H, W] binary or list of RLE counts
+        mask_size=None,   # (H, W) when masks are passed as RLE counts
     ):
         image_id = int(image_id)
         gt_boxes = np.asarray(gt_boxes, np.float64).reshape(-1, 4)
@@ -114,16 +134,30 @@ class CocoEvaluator:
                 np.clip(gt_boxes[:, 2] - gt_boxes[:, 0], 0, None)
                 * np.clip(gt_boxes[:, 3] - gt_boxes[:, 1], 0, None)
             )
+        det_boxes = np.asarray(det_boxes, np.float64).reshape(-1, 4)
+        gt, dt = {}, {}
+        if self.iou_type == "segm":
+            assert gt_masks is not None and det_masks is not None, (
+                "segm evaluator needs gt_masks and det_masks")
+            if mask_size is None:
+                assert not isinstance(gt_masks, (list, tuple)), (
+                    "mask_size=(H, W) is required with RLE-counts inputs")
+                mask_size = np.asarray(gt_masks).shape[-2:]
+            gt = {"rles": self._as_rles(gt_masks, len(gt_boxes)),
+                  "hw": tuple(int(x) for x in mask_size)}
+            dt = {"rles": self._as_rles(det_masks, len(det_boxes))}
         self._gt[image_id] = {
             "boxes": gt_boxes,
             "labels": np.asarray(gt_labels, np.int64).reshape(-1),
             "iscrowd": np.asarray(gt_iscrowd, bool).reshape(-1),
             "areas": np.asarray(gt_areas, np.float64).reshape(-1),
+            **gt,
         }
         self._dt[image_id] = {
-            "boxes": np.asarray(det_boxes, np.float64).reshape(-1, 4),
+            "boxes": det_boxes,
             "scores": np.asarray(det_scores, np.float64).reshape(-1),
             "labels": np.asarray(det_labels, np.int64).reshape(-1),
+            **dt,
         }
 
     # -- evaluation -------------------------------------------------------
@@ -144,10 +178,19 @@ class CocoEvaluator:
         order = np.argsort(-ds, kind="mergesort")[:max_det]
         d = d[order]
         ds = ds[order]
-        da = np.clip(d[:, 2] - d[:, 0], 0, None) * np.clip(
-            d[:, 3] - d[:, 1], 0, None
-        )
-        ious = _iou_xyxy(d, g, crowd)
+        if self.iou_type == "segm":
+            # mask IoU, and the detections' mask areas (pycocotools' dtArea
+            # for iouType 'segm')
+            d_rles = [dt["rles"][i] for i in np.flatnonzero(dm)[order]]
+            g_rles = [gt["rles"][i] for i in np.flatnonzero(gm)]
+            h, w = gt["hw"]
+            da = np.array([area_of_counts(c) for c in d_rles], np.float64)
+            ious = mask_iou(d_rles, g_rles, crowd, h, w)
+        else:
+            da = np.clip(d[:, 2] - d[:, 0], 0, None) * np.clip(
+                d[:, 3] - d[:, 1], 0, None
+            )
+            ious = _iou_xyxy(d, g, crowd)
         return {
             "g": g, "crowd": crowd, "ga": ga, "ds": ds, "da": da,
             "ious": ious,

@@ -3,7 +3,8 @@
 Load config + checkpoint (the student, the use_ema model_ema track or the
 EMA teacher), resize the shorter side to 800 capped at 1333 (PIL's bilinear,
 `data/pil_ops.py`), forward, postprocess at size (1, 1) -> normalized boxes,
-score threshold 0.2, draw rectangles, save. Runs on the CUDA card unless
+score threshold 0.2, draw rectangles (and, for a model with masks, blend
+each detection's instance mask first), save. Runs on the CUDA card unless
 `--device cpu` is given. The image is decoded without PIL where it is a
 JPEG or an 8-bit PNG (`data.coco.decode_rgb`); drawing and saving need PIL.
 
@@ -23,21 +24,27 @@ import torch
 from .data import pil_ops
 from .data.transforms import finalize_example, get_size_with_aspect_ratio
 from .models.postprocess import postprocess
+from .models.segmentation import det_mask_rles
 from .train.checkpoint import _is_state, _load
+from .utils.rle import decode_counts
 
 CLASS_PALETTE = [
     (255, 99, 71), (65, 105, 225), (60, 179, 113), (238, 130, 238),
     (255, 165, 0), (106, 90, 205), (64, 224, 208), (218, 165, 32),
     (199, 21, 133), (0, 191, 255),
 ]
+# datr_tpu/utils/visualizer.py's PALETTE, which draw_masks colours by
+MASK_PALETTE = CLASS_PALETTE + [(154, 205, 50), (255, 20, 147)]
 
 
 def run_inference(model, img_u8: np.ndarray, canvas_hw, num_select=300,
-                  threshold=0.2):
+                  threshold=0.2, with_masks=False):
     """One image (uint8 [h, w, 3]) through `model` (in eval mode) on its
     own device: (boxes [N, 4] xyxy in original pixels, labels [N], scores
-    [N]) of the detections scoring above `threshold` (datr_tpu/inference.py:
-    34-73 without masks)."""
+    [N]) of the detections scoring above `threshold`, and with `with_masks`
+    (a model with masks) their original-size binary masks [N, h, w]
+    (datr_tpu/inference.py:34-73: the f32 stride-4 logits finished by
+    `det_mask_rles` on the host)."""
     h0, w0 = img_u8.shape[:2]
     oh, ow = get_size_with_aspect_ratio((w0, h0), 800, 1333)
     resized = pil_ops.resize_bilinear(np.asarray(img_u8, np.uint8), (ow, oh))
@@ -55,7 +62,32 @@ def run_inference(model, img_u8: np.ndarray, canvas_hw, num_select=300,
     boxes = res["boxes"][0].float().cpu().numpy()[keep] * np.array(
         [w0, h0, w0, h0], np.float32)
     labels = res["labels"][0].cpu().numpy()[keep]
-    return boxes, labels, scores[keep]
+    if not with_masks:
+        return boxes, labels, scores[keep]
+    queries = res["queries"][0].cpu().numpy()[keep]
+    pm = out["pred_masks"][0].float().cpu().numpy()[queries]
+    # real_size: the extent on the canvas (finalize_example rescales a
+    # resize larger than the canvas)
+    rles = det_mask_rles(pm, canvas_hw, tuple(ex["real_size"]), (h0, w0))
+    masks = (np.stack([decode_counts(c, h0, w0) for c in rles]) if rles
+             else np.zeros((0, h0, w0), bool))
+    return boxes, labels, scores[keep], masks
+
+
+def draw_masks(img: np.ndarray, masks: np.ndarray, labels=None,
+               alpha: float = 0.45) -> np.ndarray:
+    """Instance masks [N, h, w] alpha-blended into uint8 img [h, w, 3] in
+    per-class palette colours (datr_tpu/utils/visualizer.py:63-81)."""
+    base = np.asarray(img, np.float32).copy()
+    for i, m in enumerate(np.asarray(masks)):
+        if m.shape != base.shape[:2]:
+            raise ValueError(f"mask {i} shape {m.shape} != image "
+                             f"{base.shape[:2]}")
+        lab = int(labels[i]) if labels is not None else i
+        color = np.array(MASK_PALETTE[lab % len(MASK_PALETTE)], np.float32)
+        sel = np.asarray(m, bool)
+        base[sel] = (1 - alpha) * base[sel] + alpha * color
+    return np.clip(base, 0, 255).astype(np.uint8)
 
 
 def load_eval_params(ckpt_path: str, ema: bool = False,
@@ -112,8 +144,12 @@ def main(argv=None):
                        device=args.device)
     canvas_hw = (cfg.get("canvas_h", 800), cfg.get("canvas_w", 1344))
     img = open_rgb(args.image)
-    boxes, labels, scores = run_inference(
-        model, img, canvas_hw, cfg.get("num_select", 300), args.threshold)
+    with_masks = bool(getattr(model, "with_masks", False))
+    r = run_inference(model, img, canvas_hw, cfg.get("num_select", 300),
+                      args.threshold, with_masks=with_masks)
+    boxes, labels, scores = r[:3]
+    if with_masks and len(r[3]):
+        img = draw_masks(img, r[3], labels)
     try:
         from PIL import Image, ImageDraw
     except ImportError as e:

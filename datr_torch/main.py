@@ -16,7 +16,9 @@ DINO_4scale_C2F.py --data_root /data --output_dir runs/c2f \\
 
 `--amp` (or `--options amp_dtype=bfloat16`) runs the model in bfloat16 with
 f32 parameters, optimizer moments and EMA tracks, as datr_tpu's does;
-`--options fast_norm=True` adds its fast bf16 norms.
+`--options fast_norm=True` adds its fast bf16 norms. `--options masks=True
+[mask_query_chunk=N]` trains the instance-mask head on a single-domain
+layout (or `coco` / `coco_panoptic`) and adds mask AP to every evaluation.
 `--distill_teacher_ckpt` (a port checkpoint) makes the self-training
 epochs' pseudo-labels with that model, built from
 `--distill_teacher_config` (any backbone, the student's classes), in place
@@ -123,7 +125,6 @@ def _refuse_unported(args, cfg):
         (cfg.get("amp_dtype", "float32") not in ("float32", "bfloat16"),
          f"amp_dtype={cfg.get('amp_dtype')!r} (float32 and bfloat16 are "
          "ported; float64: ROADMAP §A 4)"),
-        (cfg.get("masks", False), "masks (ROADMAP §A 7)"),
         (cfg.get("use_tensorboard", False),
          "use_tensorboard (utils/tb.py: ROADMAP §A 9)"),
     ]
@@ -193,7 +194,10 @@ def main(args):
         categories = val_ds.categories
     else:
         train_ds = build_dataset("train", cfg.dataset_file, args.data_root,
-                                 cfg.get("strong_aug", True))
+                                 cfg.get("strong_aug", True),
+                                 return_masks=cfg.get("masks", False))
+        # the val set decodes no masks per image: the segm evaluation reads
+        # GT RLEs from eval_annotations(with_masks=True)
         val_ds = build_dataset("val", cfg.dataset_file, args.data_root)
         categories = val_ds.category_ids() or list(range(1, cfg.num_classes))
 
@@ -255,6 +259,8 @@ def main(args):
     val_loader = make_eval_loader(val_ds, cfg.batch_size, canvas_hw, eval_tf,
                                   max_boxes, num_threads=args.num_workers)
     nms_thr = float(cfg.get("nms_iou_threshold") or -1.0)
+    # masks add the segm-AP evaluation; the synthetic sets carry no masks
+    segm_eval = bool(cfg.get("masks")) and not args.synthetic
 
     if args.test:
         test(state.model_ema if args.ema else state.model, val_loader,
@@ -265,7 +271,7 @@ def main(args):
         stats = evaluate(
             state.model_ema if args.ema else state.model, val_loader,
             categories, cfg.num_select, nms_iou_threshold=nms_thr,
-            logger=logger,
+            logger=logger, segm=segm_eval,
             save_results_path=os.path.join(args.output_dir, "results.npz")
             if args.save_results else None)
         logger.info(json.dumps(stats))
@@ -278,7 +284,8 @@ def main(args):
 
     def eval_stats(m):
         return evaluate(m, val_loader, categories, cfg.num_select,
-                        nms_iou_threshold=nms_thr, logger=logger)
+                        nms_iou_threshold=nms_thr, logger=logger,
+                        segm=segm_eval)
 
     for epoch in range(start_epoch, cfg.epochs):
         t0 = time.time()

@@ -12,7 +12,12 @@ outputs, the image discriminator behind gradient reversal over every level,
 class prototypes of both domains, and the target pass without DN. With
 `use_remat` each encoder and decoder layer is recomputed in the backward
 (torch.utils.checkpoint). With `self_training` the target pass's own
-detection outputs come back too (`*_target`). No masks.
+detection outputs come back too (`*_target`). With `with_masks` the
+instance-mask head (models/segmentation.py, datr_tpu's DETRsegm wiring,
+dino.py:102-129, 431-450) adds `pred_masks` [B, Q, h4, w4] to the eval
+outputs and to the supervised half's train outputs (the matching queries,
+after the DN split); the backbone then also returns its stride-4 / 8 / 16
+stages, which the head's adapters read.
 Module attribute names mirror the flax parameter tree (`input_proj0_conv`,
 `enc_layer3`, `class_head`, `d_img`, ...).
 
@@ -52,6 +57,7 @@ from .convnext import (
     ConvNeXtBlock,
 )
 from .da import ImageDiscriminator, class_prototypes, grad_reverse
+from .segmentation import MaskHeadSmallConv, MHAttentionMap, mask_head_forward
 from .layers import MLP, Conv2d, Linear, MSDeformAttn
 from .norms import FastGroupNorm, FastLayerNorm, group_norm, layer_norm
 from .position_encoding import position_embedding_sine_hw
@@ -125,6 +131,8 @@ class DINO(nn.Module):
         use_remat: bool = False,
         dtype: torch.dtype = torch.float32,
         fast_norm: bool = False,
+        with_masks: bool = False,
+        mask_query_chunk: int = 0,
     ):
         super().__init__()
         C = hidden_dim
@@ -139,8 +147,15 @@ class DINO(nn.Module):
         self.enc_layers, self.dec_layers = enc_layers, dec_layers
         self.pe_temperature_h = pe_temperature_h
         self.pe_temperature_w = pe_temperature_w
-        self.backbone = make_backbone(backbone_name, dtype,
-                                      return_interm_indices)
+        self.return_interm_indices = tuple(return_interm_indices)
+        self.with_masks, self.mask_query_chunk = with_masks, mask_query_chunk
+        # the mask head's laterals are the raw stages 0..2 (C2 / C3 / C4):
+        # the backbone returns their union with the detection stages
+        stages = self.return_interm_indices
+        if with_masks:
+            stages = tuple(sorted(set(stages) | {0, 1, 2}))
+        self.backbone_stages = stages
+        self.backbone = make_backbone(backbone_name, dtype, stages)
         in_chs = [self.backbone.widths[s] for s in return_interm_indices]
         for i in range(num_feature_levels):
             if i < len(in_chs):
@@ -177,6 +192,11 @@ class DINO(nn.Module):
         # them does not depend on them
         self.d_img = ImageDiscriminator(C, dtype=dtype)
         self.proto_d = MLP(C, C, 1, 3, dtype=dtype)
+        if with_masks:  # after the rest, for the same reason
+            self.bbox_attention = MHAttentionMap(C, nheads, dtype=dtype)
+            self.mask_head = MaskHeadSmallConv(
+                C + nheads, C, [self.backbone.widths[s] for s in (2, 1, 0)],
+                dtype=dtype)
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -231,8 +251,10 @@ class DINO(nn.Module):
     # ------------------------------------------------------------------
     def _extract_features(self, images, pad_mask):
         """images [B,H,W,3], pad_mask [B,H,W] -> per level: src [B,C,h,w],
-        mask [B,h,w], pos [B,h,w,C]."""
-        feats = self.backbone(images)
+        mask [B,h,w], pos [B,h,w,C]; and the raw backbone stages by
+        index."""
+        stage_feats = dict(zip(self.backbone_stages, self.backbone(images)))
+        feats = [stage_feats[s] for s in self.return_interm_indices]
         srcs, masks, poss = [], [], []
         for lvl in range(self.num_feature_levels):
             if lvl < len(feats):
@@ -255,7 +277,7 @@ class DINO(nn.Module):
             srcs.append(s)
             masks.append(m)
             poss.append(p)
-        return srcs, masks, poss
+        return srcs, masks, poss, stage_feats
 
     def _flatten_levels(self, srcs, masks, poss):
         B = srcs[0].shape[0]
@@ -321,7 +343,9 @@ class DINO(nn.Module):
                           self_attn_mask=None):
         """Encoder, two-stage selection and the decoder, with the DN queries
         in front of the matching queries when given
-        (datr_tpu/models/dino.py:335-407)."""
+        (datr_tpu/models/dino.py:335-407). Returns the decoder's hidden
+        states and references, the two-stage outputs, the top-k indices
+        and the encoder memory."""
         B = src_flat.shape[0]
         enc_ref = encoder_reference_points(spatial_shapes, valid_ratios)
         memory = src_flat
@@ -353,7 +377,24 @@ class DINO(nn.Module):
             ref = new_ref.detach()
             hs_list.append(self.decoder_norm(x))
         return (torch.stack(hs_list), torch.stack(refs_list), tgt_undetach,
-                ref_unsig_undetach, init_box_proposal, topk_idx)
+                ref_unsig_undetach, init_box_proposal, topk_idx, memory)
+
+    def _compute_masks(self, hs_last, srcs, masks, memory, spatial_shapes,
+                       stage_feats):
+        """The mask head (datr_tpu/models/dino.py:431-450): attention maps
+        of the final hidden states against the stride-32 slice of the
+        memory, the projected stride-32 source as context, the C4 / C3 / C2
+        stages as laterals; f32 logits [B, Q, h4, w4]."""
+        lvl = len(self.return_interm_indices) - 1  # the stride-32 level
+        h, w = spatial_shapes[lvl]
+        off = sum(a * b for a, b in spatial_shapes[:lvl])
+        B = hs_last.shape[0]
+        memory_32 = memory[:, off:off + h * w].reshape(B, h, w, -1)
+        fpns = [stage_feats[2][:B], stage_feats[1][:B], stage_feats[0][:B]]
+        return mask_head_forward(
+            self.bbox_attention, self.mask_head, hs_last, srcs[lvl][:B],
+            memory_32, masks[lvl][:B], fpns, self.mask_query_chunk,
+            remat=self.use_remat).float()
 
     def _head_outputs(self, hs, refs):
         """hs [n_dec,B,N,C] pairs with refs[:-1] (dino.py:452-458)."""
@@ -386,16 +427,17 @@ class DINO(nn.Module):
         plus `topk_idx` / `topk_idx_target`. With `domain_adapt=False` the
         whole batch is supervised (single-domain training): `targets`
         covers every image, and the outputs stop before the DA branch."""
-        srcs, masks, poss = self._extract_features(images, pad_mask)
+        srcs, masks, poss, stage_feats = self._extract_features(images,
+                                                                pad_mask)
         src_flat, mask_flat, pos_flat, spatial_shapes = self._flatten_levels(
             srcs, masks, poss)
         valid_ratios = valid_ratios_from_mask(masks)
         if not train:
-            hs, refs, tgt_undetach, ref_unsig, init_box_proposal, topk_idx = (
-                self._transformer_pass(src_flat, mask_flat, pos_flat,
-                                       valid_ratios, spatial_shapes))
+            (hs, refs, tgt_undetach, ref_unsig, init_box_proposal, topk_idx,
+             memory) = self._transformer_pass(src_flat, mask_flat, pos_flat,
+                                              valid_ratios, spatial_shapes)
             logits, coords = self._head_outputs(hs, refs)
-            return {
+            out = {
                 "pred_logits": logits[-1],
                 "pred_boxes": coords[-1],
                 "aux_logits": logits[:-1],
@@ -405,15 +447,20 @@ class DINO(nn.Module):
                 "init_box_proposal": init_box_proposal,
                 "topk_idx": topk_idx,
             }
-        return self._train_forward(srcs, src_flat, mask_flat, pos_flat,
-                                   valid_ratios, spatial_shapes, targets,
-                                   global_proto, amount, dn_generator,
-                                   dn_draws, self_training, domain_adapt)
+            if self.with_masks:
+                out["pred_masks"] = self._compute_masks(
+                    hs[-1], srcs, masks, memory, spatial_shapes, stage_feats)
+            return out
+        return self._train_forward(srcs, masks, stage_feats, src_flat,
+                                   mask_flat, pos_flat, valid_ratios,
+                                   spatial_shapes, targets, global_proto,
+                                   amount, dn_generator, dn_draws,
+                                   self_training, domain_adapt)
 
-    def _train_forward(self, srcs, src_flat, mask_flat, pos_flat,
-                       valid_ratios, spatial_shapes, targets, global_proto,
-                       amount, dn_generator, dn_draws, self_training,
-                       domain_adapt=True):
+    def _train_forward(self, srcs, masks, stage_feats, src_flat, mask_flat,
+                       pos_flat, valid_ratios, spatial_shapes, targets,
+                       global_proto, amount, dn_generator, dn_draws,
+                       self_training, domain_adapt=True):
         B = src_flat.shape[0]
         if domain_adapt and B % 2:
             raise ValueError("paired DA batches must have an even batch size")
@@ -444,7 +491,8 @@ class DINO(nn.Module):
             dn_bbox = cdn.query_bbox_unsig
 
         # ---- source pass, DN split off (dino.py:545-568)
-        hs, refs, tgt_undetach, ref_unsig, init_box_proposal, topk_idx = (
+        (hs, refs, tgt_undetach, ref_unsig, init_box_proposal, topk_idx,
+         memory) = (
             self._transformer_pass(src_flat[:half], mask_flat[:half],
                                    pos_flat[:half], valid_ratios[:half],
                                    spatial_shapes, dn_embed, dn_bbox,
@@ -464,6 +512,10 @@ class DINO(nn.Module):
         out["interm_boxes"] = ref_unsig.sigmoid()
         out["init_box_proposal"] = init_box_proposal
         out["topk_idx"] = topk_idx
+        if self.with_masks:  # the matching queries of the supervised half
+            out["pred_masks"] = self._compute_masks(
+                hs[-1][:, pad_size:], srcs, masks, memory, spatial_shapes,
+                stage_feats)
         if not domain_adapt:
             return out
 
@@ -474,7 +526,7 @@ class DINO(nn.Module):
         proto_src = class_prototypes(hs[-1][:, pad_size:],
                                      out["pred_logits"], global_proto, amount)
         # target pass, no DN
-        hs_t, refs_t, tgt_undetach_t, ref_unsig_t, _, topk_idx_t = (
+        hs_t, refs_t, tgt_undetach_t, ref_unsig_t, _, topk_idx_t, _ = (
             self._transformer_pass(src_flat[half:], mask_flat[half:],
                                    pos_flat[half:], valid_ratios[half:],
                                    spatial_shapes))
@@ -507,14 +559,14 @@ def build_dino_from_config(cfg, device=None, seed: int = 0) -> DINO:
     card), in eval mode. Mirrors datr_tpu/models/dino.py:632-674 for the
     settings the eval and training paths read, `amp_dtype` ("float32" or
     "bfloat16") and `fast_norm` included, and refuses those it does not
-    implement (masks, shared two-stage heads, any other amp_dtype:
-    datr_tpu's "float64" is its x64 debugging mode)."""
+    implement (shared two-stage heads, any other amp_dtype: datr_tpu's
+    "float64" is its x64 debugging mode). `masks` builds the mask head,
+    `mask_query_chunk` bounds its live (image, query) pairs."""
     get = cfg.get if hasattr(cfg, "get") else lambda k, d=None: getattr(
         cfg, k, d)
     dev = resolve_device(device)
     amp_dtype = get("amp_dtype", "float32")
     unsupported = {
-        "masks": get("masks", False),
         "two_stage_bbox_embed_share": get("two_stage_bbox_embed_share",
                                           False),
         f"amp_dtype={amp_dtype!r}": amp_dtype not in AMP_DTYPES,
@@ -546,6 +598,8 @@ def build_dino_from_config(cfg, device=None, seed: int = 0) -> DINO:
         use_remat=get("use_remat", True),
         dtype=AMP_DTYPES[amp_dtype],
         fast_norm=bool(get("fast_norm", False)),
+        with_masks=bool(get("masks", False)),
+        mask_query_chunk=int(get("mask_query_chunk", 0) or 0),
     )
     model.init_params(torch.Generator().manual_seed(seed))
     return model.to(dev).eval()

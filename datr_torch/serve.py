@@ -11,7 +11,8 @@ Threads as in datr_tpu: a batcher assembles batches, dispatchers upload and
 enqueue the forward (CUDA work is asynchronous, so a dispatcher returns while
 the card still runs), collectors copy results to the host (the copy waits for
 the card) and resolve futures. A semaphore bounds the live batches on the
-device (`max_in_flight`). One device, detection only.
+device (`max_in_flight`). One device. A model with masks also answers each
+detection's instance mask (the top `mask_top_k`), finished on the host.
 
 Components:
   InferenceServer - request queue + micro-batcher + device step + futures
@@ -41,6 +42,8 @@ from .data.transforms import (
     get_size_with_aspect_ratio,
 )
 from .models.postprocess import postprocess
+from .models.segmentation import det_mask_rles
+from .train.steps import gather_masks
 
 WIRE_FORMATS = ("u8", "yuv420")
 
@@ -117,7 +120,13 @@ class InferenceServer:
     batch (submit blocks beyond it), `dispatcher_threads` upload and
     enqueue, `collector_threads` copy results back, and `wire_format`
     ('u8' or 'yuv420', which needs an even canvas) is the upload's
-    layout. Mesh serving and masks are not ported (ROADMAP §A 8, §A 7)."""
+    layout. Mesh serving is not ported (ROADMAP §A 8).
+
+    A model with masks (`with_masks`) copies the f16 stride-4 mask logits
+    of each image's top `mask_top_k` detections (datr_tpu/serve.py:195-233)
+    and the collector finishes them to original-size RLE counts
+    (`det_mask_rles`): the result's `masks` holds one per kept detection,
+    None for a detection ranked below `mask_top_k`."""
 
     def __init__(
         self,
@@ -135,15 +144,13 @@ class InferenceServer:
         dispatcher_threads: int = 2,
         wire_format: str = "u8",
         device=None,
+        mask_top_k: int = 50,
     ):
         if wire_format not in WIRE_FORMATS:
             raise ValueError(f"unknown wire_format {wire_format!r}")
         if wire_format == "yuv420" and (canvas_hw[0] % 2 or canvas_hw[1] % 2):
             raise ValueError(
                 f"yuv420 wire format needs an even canvas, got {canvas_hw}")
-        if getattr(model, "with_masks", False):
-            raise NotImplementedError(
-                "mask serving is not ported (ROADMAP §A 7)")
         self.wire_format = wire_format
         self.device = resolve_device(device)
         if self.device.type == "cuda":
@@ -157,6 +164,8 @@ class InferenceServer:
         self.resize_short = int(resize_short)
         self.resize_max = int(resize_max)
         self.batch_timeout_s = float(batch_timeout_s)
+        self._with_masks = bool(getattr(model, "with_masks", False))
+        self.mask_top_k = min(int(mask_top_k), self.num_select)
 
         self._queue: "queue.Queue[Optional[_Request]]" = queue.Queue(
             max_queue)
@@ -190,10 +199,12 @@ class InferenceServer:
 
     # ---------------- the device step ----------------
 
-    def _step(self, wire: np.ndarray, sizes: np.ndarray) -> torch.Tensor:
+    def _step(self, wire: np.ndarray, sizes: np.ndarray):
         """Upload one batch of wire payloads and enqueue decode + forward +
         postprocess. Returns the packed [B, num_select, 6] (score, label,
-        xyxy) results on the device; reading them waits for the card."""
+        xyxy) results on the device, and for a model with masks also the
+        f16 mask logits [B, mask_top_k, h4, w4] of the best detections;
+        reading them waits for the card."""
         with torch.inference_mode():
             images = torch.from_numpy(wire).to(self.device)
             real_hw = torch.from_numpy(sizes).to(self.device)
@@ -205,9 +216,14 @@ class InferenceServer:
             ones = torch.ones((x.shape[0], 2), device=self.device)
             res = postprocess(out["pred_logits"], out["pred_boxes"], ones,
                               num_select=self.num_select)
-            return torch.cat([res["scores"].to(torch.float32)[..., None],
-                              res["labels"].to(torch.float32)[..., None],
-                              res["boxes"].to(torch.float32)], -1)
+            packed = torch.cat([res["scores"].to(torch.float32)[..., None],
+                                res["labels"].to(torch.float32)[..., None],
+                                res["boxes"].to(torch.float32)], -1)
+            if not self._with_masks:
+                return packed
+            # the scores come sorted: [:k] are the k best detections
+            return packed, gather_masks(out["pred_masks"],
+                                        res["queries"][:, :self.mask_top_k])
 
     # ---------------- client API ----------------
 
@@ -215,10 +231,11 @@ class InferenceServer:
         """One full batch outside the serving path (kernel build, cuDNN
         algorithm choice, allocator growth)."""
         H, W = self.canvas_hw
-        packed = self._step(
+        res = self._step(
             np.zeros((self.batch_size, *self._wire_shape()), np.uint8),
             np.tile(np.int32([H, W]), (self.batch_size, 1)))
-        packed.cpu()
+        for t in (res if isinstance(res, tuple) else (res,)):
+            t.cpu()
 
     def submit(self, img_u8: np.ndarray,
                timeout: Optional[float] = None) -> Future:
@@ -389,15 +406,19 @@ class InferenceServer:
             got = self._in_flight.get()
             if got is None:
                 break
-            packed_d, items = got
+            res_d, items = got
             try:
-                packed = packed_d.cpu().numpy()
+                if isinstance(res_d, tuple):
+                    packed = res_d[0].cpu().numpy()
+                    pred_masks = res_d[1].cpu().numpy()
+                else:
+                    packed, pred_masks = res_d.cpu().numpy(), None
             except Exception as e:  # a fault during the device run
-                del packed_d
+                del res_d
                 self._dev_slots.release()
                 self._resolve_items(items, None, exc=e)
                 continue
-            del packed_d  # drop the device tensor before freeing the slot
+            del res_d  # drop the device tensors before freeing the slot
             self._dev_slots.release()
             now = time.monotonic()
             with self._stats_lock:
@@ -407,9 +428,9 @@ class InferenceServer:
                 self._stats["latency_sum_s"] += sum(
                     now - it.t_enqueue for it in items)
                 self._latencies.extend(now - it.t_enqueue for it in items)
-            self._resolve_items(items, packed)
+            self._resolve_items(items, packed, pred_masks)
 
-    def _resolve_items(self, items, packed, exc=None):
+    def _resolve_items(self, items, packed, pred_masks=None, exc=None):
         """Resolve each request's Future; a cancelled Future or one bad item
         must not strand the batch's other futures."""
         for i, it in enumerate(items):
@@ -429,13 +450,30 @@ class InferenceServer:
                 b = packed[i, :, 2:6][keep] * scale
                 b[:, 0::2] = np.clip(b[:, 0::2], 0, w0)
                 b[:, 1::2] = np.clip(b[:, 1::2], 0, h0)
-                it.future.set_result({
+                result = {
                     "boxes": b,
                     "scores": scores[keep],
                     "labels": packed[i, :, 1][keep].astype(np.int32),
-                })
+                }
+                if pred_masks is not None:
+                    result["masks"] = self._finish_masks(
+                        pred_masks[i], np.nonzero(keep)[0], it)
+                it.future.set_result(result)
             except Exception as e:
                 it.future.set_exception(e)
+
+    def _finish_masks(self, pm_i: np.ndarray, kept_idx: np.ndarray,
+                      it: _Request) -> List[Optional[np.ndarray]]:
+        """Original-size RLE counts of the kept detections
+        (datr_tpu/serve.py:571-590): pm_i holds the top mask_top_k only, so
+        a kept detection ranked below them gets None."""
+        with_mask = kept_idx[kept_idx < self.mask_top_k]
+        rles = det_mask_rles(pm_i[with_mask].astype(np.float32),
+                             self.canvas_hw, it.real_hw, it.orig_hw)
+        out: List[Optional[np.ndarray]] = [None] * len(kept_idx)
+        for slot, rle in zip(with_mask, rles):
+            out[int(np.searchsorted(kept_idx, slot))] = rle
+        return out
 
 
 # ---------------- HTTP front end ----------------
@@ -450,7 +488,9 @@ def serve_http(server: InferenceServer, host: str = "127.0.0.1",
     """JSON-over-HTTP front end (stdlib only; datr_tpu/serve.py:594-716).
 
     POST /detect   body = encoded image -> {"boxes": [[x1, y1, x2, y2], ...],
-                   "scores": [...], "labels": [...]}; the body is decoded
+                   "scores": [...], "labels": [...]} and, for a model with
+                   masks, "masks": [{"size": [h, w], "counts": [...]} or
+                   null, ...] (uncompressed COCO RLE); the body is decoded
                    by `data.coco.decode_rgb` (JPEG through libjpeg, PNG
                    through the port's decoder, other formats through PIL
                    where the machine has it)
@@ -518,9 +558,16 @@ def serve_http(server: InferenceServer, host: str = "127.0.0.1",
                     fut.cancel()  # the collector skips cancelled futures
                     self._send(503, {"error": "deadline"})
                     return
-                self._send(200, {"boxes": res["boxes"].tolist(),
-                                 "scores": res["scores"].tolist(),
-                                 "labels": res["labels"].tolist()})
+                payload = {"boxes": res["boxes"].tolist(),
+                           "scores": res["scores"].tolist(),
+                           "labels": res["labels"].tolist()}
+                if "masks" in res:  # None past the server's mask_top_k
+                    h0, w0 = img.shape[:2]
+                    payload["masks"] = [
+                        None if r is None
+                        else {"size": [h0, w0], "counts": r.tolist()}
+                        for r in res["masks"]]
+                self._send(200, payload)
             except Exception as e:
                 # a client socket broken mid-200 raises again on a 500:
                 # answer only while nothing has been sent

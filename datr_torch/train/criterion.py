@@ -7,6 +7,11 @@ A bf16 model's outputs are upcast where datr_tpu upcasts them
 and DN boxes, the prototype BCE and the matcher's costs take f32; the
 image discriminator's BCE stays in the logits' dtype, as there.
 
+With instance masks (`gt_masks` [B, T, h4, w4] soft targets and the
+outputs' `pred_masks`), the final layer adds `loss_mask` / `loss_dice` on
+the final layer's assignment (datr_tpu/train/criterion.py:274-313; the
+reference skips the aux and encoder layers' masks).
+
 Targets have static shapes: boxes [B, T, 4] normalized cxcywh, labels [B, T]
 int, valid [B, T] bool. `num_boxes` is the valid-target count. The
 assignments of every decoder layer and of the encoder output are solved
@@ -23,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.focal import sigmoid_ce, sigmoid_focal_loss
+from ..models.segmentation import loss_masks
 from ..ops.matcher import detr_matching_cost, match_many, minsum_match
 from ..utils.boxes import box_cxcywh_to_xyxy, generalized_box_iou_elementwise
 
@@ -209,13 +215,16 @@ def criterion(outputs: Dict[str, torch.Tensor], gt_labels: torch.Tensor,
               num_boxes: Optional[torch.Tensor] = None,
               target_domain: bool = False,
               img_mask: Optional[torch.Tensor] = None,
+              gt_masks: Optional[torch.Tensor] = None,
               ) -> Dict[str, torch.Tensor]:
     """Every loss of one domain's outputs: the final layer, the aux layers
     (`_{i}`), the encoder output (`_interm`), and for the source domain the
     DN losses of every layer and the three DA losses. `target_domain` reads
     the `*_target` outputs of a self-training forward against the
     pseudo-labels and skips DN and DA; `img_mask` [B] drops whole images
-    (those without pseudo-labels), before `num_boxes` is counted."""
+    (those without pseudo-labels), before `num_boxes` is counted.
+    `gt_masks` [B, T, h4, w4] with the outputs' `pred_masks` adds the masks
+    term of the final layer."""
     sfx = "_target" if target_domain else ""
     if img_mask is not None:
         gt_valid = gt_valid & (img_mask > 0)[:, None]
@@ -236,6 +245,9 @@ def criterion(outputs: Dict[str, torch.Tensor], gt_labels: torch.Tensor,
                                 img_mask)
 
     losses: Dict[str, torch.Tensor] = dict(losses_of(0))
+    if gt_masks is not None and "pred_masks" + sfx in outputs:
+        losses.update(loss_masks(outputs["pred_masks" + sfx], gt_masks,
+                                 gt_valid, assigns[0], num_boxes))
     for i in range(n_aux):
         losses.update({f"{k}_{i}": v for k, v in losses_of(1 + i).items()})
     losses.update({f"{k}_interm": v for k, v in losses_of(1 + n_aux).items()})
@@ -274,13 +286,19 @@ def build_weight_dict(
     interm_loss_coef: float = 1.0,
     no_interm_box_loss: bool = False,
     use_dn: bool = True,
+    masks: bool = False,
+    mask_loss_coef: float = 1.0,
+    dice_loss_coef: float = 1.0,
 ) -> Dict[str, float]:
-    """Loss weights (datr_tpu/train/criterion.py:369-411, no mask terms)."""
+    """Loss weights (datr_tpu/train/criterion.py:369-411)."""
     w = {
         "loss_ce": cls_loss_coef,
         "loss_bbox": bbox_loss_coef,
         "loss_giou": giou_loss_coef,
     }
+    if masks:
+        w["loss_mask"] = mask_loss_coef
+        w["loss_dice"] = dice_loss_coef
     base = dict(w)
     w["loss_backbone_DA"] = da_backbone_loss_coef
     w["loss_proto_DA"] = da_proto_loss_coef
@@ -338,5 +356,8 @@ def criterion_from_config(cfg, model) -> tuple:
         interm_loss_coef=get("interm_loss_coef", 1.0),
         no_interm_box_loss=get("no_interm_box_loss", False),
         use_dn=get("use_dn", True),
+        masks=get("masks", False),
+        mask_loss_coef=get("mask_loss_coef", 1.0),
+        dice_loss_coef=get("dice_loss_coef", 1.0),
     )
     return ccfg, weight_dict

@@ -11,7 +11,9 @@ device:
   boxes    [B//2, T, 4] | labels [B//2, T] | valid [B//2, T]   (source GT)
   (self-training) images_strong [B, H, W, 3]: source weak, target strong
 Single-domain training (`train_step_plain`) supervises the whole batch:
-boxes / labels / valid are [B, T, ...] and there is no DA branch.
+boxes / labels / valid are [B, T, ...] and there is no DA branch. A batch's
+`masks` [B, T, h4, w4] (instance masks, single-domain) reach the criterion
+as its mask targets.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ def loss_and_grads(state: TrainState, batch: Dict[str, torch.Tensor],
     `.grad`. Returns (total, losses, outputs)."""
     out = _student_forward(state, batch["images"], batch, dn_draws)
     losses = criterion(out, batch["labels"], batch["boxes"], batch["valid"],
-                       ccfg)
+                       ccfg, gt_masks=batch.get("masks"))
     total = weighted_total(losses, weight_dict)
     total.backward()
     return total, losses, out
@@ -99,7 +101,7 @@ def plain_loss_and_grads(state: TrainState, batch: Dict[str, torch.Tensor],
                 train=True, dn_generator=state.dn_generator,
                 dn_draws=dn_draws, domain_adapt=False)
     losses = criterion(out, batch["labels"], batch["boxes"], batch["valid"],
-                       ccfg)
+                       ccfg, gt_masks=batch.get("masks"))
     total = weighted_total(losses, weight_dict)
     total.backward()
     return total, losses, out
@@ -195,16 +197,33 @@ def train_step_self_training(state: TrainState,
 @torch.no_grad()
 def eval_step(model, batch: Dict[str, torch.Tensor], num_select: int = 300,
               nms_iou_threshold: float = -1.0,
-              not_to_xyxy: bool = False) -> Dict[str, torch.Tensor]:
+              not_to_xyxy: bool = False,
+              with_masks: bool = False) -> Dict[str, torch.Tensor]:
     """Forward + postprocess for evaluation (datr_tpu/train/steps.py:
-    234-272, without masks): boxes scaled to `orig_sizes`. A positive
-    `nms_iou_threshold` adds the class-aware NMS, and the result a `valid`
-    mask; `not_to_xyxy` keeps the boxes cxcywh."""
+    234-272): boxes scaled to `orig_sizes`. A positive `nms_iou_threshold`
+    adds the class-aware NMS, and the result a `valid` mask; `not_to_xyxy`
+    keeps the boxes cxcywh. `with_masks` adds each detection's stride-4
+    mask logits, rounded to f16 and gathered by its query (`mask_logits`
+    [B, num_select, h4, w4])."""
     out = model(batch["images"], batch["pad_mask"])
     if nms_iou_threshold > 0:
-        return postprocess_with_nms(out["pred_logits"], out["pred_boxes"],
-                                    batch["orig_sizes"], num_select,
-                                    nms_iou_threshold, max_out=num_select)
-    return postprocess(out["pred_logits"], out["pred_boxes"],
-                       batch["orig_sizes"], num_select,
-                       not_to_xyxy=not_to_xyxy)
+        res = postprocess_with_nms(out["pred_logits"], out["pred_boxes"],
+                                   batch["orig_sizes"], num_select,
+                                   nms_iou_threshold, max_out=num_select)
+    else:
+        res = postprocess(out["pred_logits"], out["pred_boxes"],
+                          batch["orig_sizes"], num_select,
+                          not_to_xyxy=not_to_xyxy)
+    if with_masks:
+        res["mask_logits"] = gather_masks(out["pred_masks"], res["queries"])
+    return res
+
+
+def gather_masks(pred_masks: torch.Tensor, queries: torch.Tensor
+                 ) -> torch.Tensor:
+    """pred_masks [B, Q, h, w] rounded to f16 (the device-to-host copy's
+    size halved, as datr_tpu does) and gathered at queries [B, k]."""
+    pm = pred_masks.to(torch.float16)
+    B, k = queries.shape
+    idx = queries.long()[:, :, None, None].expand(B, k, *pm.shape[-2:])
+    return torch.gather(pm, 1, idx)

@@ -270,7 +270,6 @@ def test_loader_error_reaches_the_caller(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("extra", [
     ["--options", "amp_dtype=float64"],
-    ["--options", "masks=True"],
     ["--options", "amp_dtype=float16"],
     ["--options", "use_tensorboard=True"],
 ])
@@ -280,6 +279,44 @@ def test_unported_flags_raise(tmp_path, extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _run(_cfg(tmp_path), tmp_path / "out", *extra)
     assert not (tmp_path / "out").exists()
+
+
+def test_masks_train_and_evaluate(tmp_path):
+    """`--options masks=True mask_query_chunk=N` on a single-domain PNG
+    tree whose annotations carry polygon and RLE segmentations: one epoch
+    of the plain step with finite loss_mask / loss_dice, then the epoch's
+    evaluations with mask AP (datr_tpu/main.py:196-205, 318-342). The mask
+    head's GroupNorm(8) needs hidden_dim / 16 >= 8."""
+    _write_single_domain(tmp_path)
+    for split in ("train", "val"):
+        p = tmp_path / "single" / split / "annotations.json"
+        ann = json.loads(p.read_text())
+        for a in ann["annotations"]:
+            x, y, w, h = a["bbox"]
+            a["segmentation"] = (
+                [[x, y, x + w, y, x + w / 2, y + h]] if a["id"] % 2 else
+                {"size": [60, 80], "counts": [int(y + 80 * 60 // 2), 9]})
+        p.write_text(json.dumps(ann))
+    out = tmp_path / "masks_run"
+    # main's logger messages (its file is bound to the process's first
+    # output_dir, another test's under xdist)
+    logger = logging.getLogger("datr_torch")
+    msgs, level = _Messages(), logger.level
+    logger.setLevel(logging.INFO)
+    logger.addHandler(msgs)
+    try:
+        _run(_cfg(tmp_path), out, "--options", "masks=True",
+             "mask_query_chunk=12", "hidden_dim=128", "nheads=8",
+             "save_checkpoint_interval=0",
+             data=f"--data_root {tmp_path} --dataset_file single")
+    finally:
+        logger.removeHandler(msgs)
+        logger.setLevel(level)
+    (ln,) = _log(out)
+    assert np.isfinite(ln["train_loss_mask"]) and np.isfinite(
+        ln["train_loss_dice"])
+    # the student's and the EMA teacher's evaluations, each with mask AP
+    assert sum("COCO segm stats" in m for m in msgs.lines) == 2
 
 
 # ---------------- the learning-rate schedules ----------------

@@ -492,6 +492,77 @@ def test_tiny_train_step_cuda_matches_cpu(cuda):
         assert err <= 1e-3 * max(g_c[n].norm().item(), 1e-3 * total), (n, err)
 
 
+def test_tiny_masks_train_step_keeps_mask_and_msda_gradients(cuda):
+    """One train_step_plain forward + backward of a tiny model with masks
+    (hidden 128, 8 heads: GroupNorm(8) of the mask head) on a batch with
+    mask targets, on the card through msda_fwd / msda_bwd with the mask
+    head chunked and rematerialized, against the CPU's plain run with the
+    same weights, batch and CDN noise: no gradient dropped (the mask head,
+    bbox_attention and every MSDeformAttn projection get one, as PR 2's
+    dropped-gradient fault did not), losses within 1e-4, gradients within
+    1e-3 by norm (as the burn-in step above)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from datr_torch.models.cdn import cdn_layout, draw_cdn_noise
+    from datr_torch.train.criterion import CriterionCfg, build_weight_dict
+    from datr_torch.train.optim import Optimizer
+    from datr_torch.train.state import create_train_state
+    from datr_torch.train.steps import plain_loss_and_grads
+
+    kw = dict(num_classes=4, num_queries=12, hidden_dim=128, nheads=8,
+              enc_layers=1, dec_layers=2, dim_feedforward=128, dn_number=2,
+              dn_single_pad=2, with_masks=True)
+    gen = torch.Generator().manual_seed(4)
+    img = torch.randn(2, 64, 96, 3, generator=gen)
+    pad = torch.zeros(2, 64, 96, dtype=torch.bool)
+    pad[1, :, 70:] = True
+    batch = dict(images=img, pad_mask=pad,
+                 boxes=torch.rand(2, 3, 4, generator=gen) * 0.3 + 0.3,
+                 labels=torch.randint(0, 4, (2, 3), generator=gen),
+                 valid=torch.tensor([[True, True, False], [True] * 3]),
+                 masks=(torch.rand(2, 3, 16, 24, generator=gen) > 0.5).half())
+    groups, _ = cdn_layout(2, 2)
+    draws = draw_cdn_noise(torch.Generator().manual_seed(3), 2, groups, 2, 4,
+                           "cpu")
+    ccfg = CriterionCfg(num_classes=4, dn_single_pad=2, dn_groups=groups)
+    wd = build_weight_dict(dec_layers=2, masks=True)
+    results = {}
+    for dev in ("cpu", "cuda"):
+        on = dev == "cuda"
+        model = DINO(**kw, use_remat=on, mask_query_chunk=5 if on else 0)
+        model.init_params(torch.Generator().manual_seed(0)).to(dev)
+        state = create_train_state(model, Optimizer(model))
+        b = {k: v.to(dev) for k, v in batch.items()}
+        d = type(draws)(*(t.to(dev) for t in draws))
+        fwd0, bwd0 = msda.msda_fwd.launches, msda.msda_bwd.launches
+        total, losses, _ = plain_loss_and_grads(state, b, ccfg, wd, d)
+        if on:  # one pass of 3 layers, recomputed once by remat
+            assert msda.msda_fwd.launches == fwd0 + 6
+            assert msda.msda_bwd.launches == bwd0 + 3
+        grads = {n: p.grad for n, p in model.named_parameters()
+                 if p.requires_grad}
+        assert all(g is not None for n, g in grads.items()
+                   if not n.startswith(("d_img", "proto_d"))), [
+            n for n, g in grads.items() if g is None]
+        results[dev] = (total.item(),
+                        {k: v.item() for k, v in losses.items()},
+                        {n: g.cpu() for n, g in grads.items()
+                         if g is not None})
+    (t_c, l_c, g_c), (t_g, l_g, g_g) = results["cpu"], results["cuda"]
+    assert {"loss_mask", "loss_dice"} <= l_c.keys() == l_g.keys()
+    assert abs(t_c - t_g) <= 1e-4 * abs(t_c)
+    for k in l_c:
+        assert abs(l_c[k] - l_g[k]) <= 1e-4 * abs(l_c[k]) + 1e-5, k
+    watched = [n for n in g_g if n.startswith(("mask_head", "bbox_attention"))
+               or "sampling_offsets" in n or "attention_weights" in n
+               or "value_proj" in n]
+    assert len(watched) > 32 and all(g_g[n].norm() > 0 for n in watched)
+    total = torch.stack([g.norm() for g in g_c.values()]).norm().item()
+    for n in g_c:
+        err = (g_c[n] - g_g[n]).norm().item()
+        assert err <= 1e-3 * max(g_c[n].norm().item(), 1e-3 * total), (n, err)
+
+
 def test_batched_nms_cuda_equals_cpu(cuda):
     """The suppression matrix computed on the card and walked on the host
     keeps exactly what the CPU path keeps (ties, duplicates, three

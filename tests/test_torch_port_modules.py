@@ -288,8 +288,7 @@ def test_get_size_with_aspect_ratio(wh):
             == jtransforms.get_size_with_aspect_ratio(wh, 800, 1333))
 
 
-@pytest.mark.parametrize("flag", [dict(masks=True),
-                                  dict(amp_dtype="float64"),
+@pytest.mark.parametrize("flag", [dict(amp_dtype="float64"),
                                   dict(amp_dtype="float16"),
                                   dict(two_stage_bbox_embed_share=True)])
 def test_build_refuses_what_the_port_lacks(flag):
@@ -299,6 +298,22 @@ def test_build_refuses_what_the_port_lacks(flag):
     with pytest.raises(NotImplementedError, match=next(iter(flag))):
         tdino.build_dino_from_config(dict(num_classes=4, **flag),
                                      device="cpu")
+
+
+def test_build_with_masks():
+    """masks=True builds the mask head (tests/test_torch_port_masks.py
+    holds it against datr_tpu): the backbone returns stages 0..3, the
+    chunk reaches the model, and the head's widths follow hidden_dim."""
+    m = tdino.build_dino_from_config(
+        dict(num_classes=4, hidden_dim=128, nheads=8, enc_layers=1,
+             dec_layers=1, num_queries=8, masks=True, mask_query_chunk=7),
+        device="cpu")
+    assert m.with_masks and m.mask_query_chunk == 7
+    assert m.backbone_stages == (0, 1, 2, 3)
+    assert m.mask_head.lay1.weight.shape == (136, 136, 3, 3)
+    assert m.mask_head.adapter3.weight.shape == (16, 256, 1, 1)
+    assert not hasattr(tdino.build_dino_from_config(
+        dict(num_classes=4), device="cpu"), "mask_head")
 
 
 def test_flagship_config_tree_matches_flax():

@@ -144,8 +144,9 @@ def test_yuv420_server_matches_datr_tpu_server(models, monkeypatch):
 
 def test_server_options(models):
     """datr_tpu's options and errors: the wire formats, an odd canvas for
-    yuv420, the thread counts, max_in_flight / max_queue, a model with
-    masks; reset_stats zeroes the counters and the latency ring."""
+    yuv420, the thread counts, max_in_flight / max_queue, mask_top_k
+    (clamped to num_select); reset_stats zeroes the counters and the
+    latency ring."""
     _, _, tm = models
     kw = _server_kw()
     with pytest.raises(ValueError, match="unknown wire_format"):
@@ -153,12 +154,9 @@ def test_server_options(models):
     with pytest.raises(ValueError, match="even canvas"):
         tserve.InferenceServer(tm, device="cpu", **dict(
             kw, canvas_hw=(95, 128), wire_format="yuv420"))
-    tm.with_masks = True
-    try:
-        with pytest.raises(NotImplementedError, match="§A 7"):
-            tserve.InferenceServer(tm, device="cpu", **kw)
-    finally:
-        del tm.with_masks
+    with tserve.InferenceServer(tm, device="cpu", mask_top_k=500,
+                                **kw) as srv:
+        assert srv.mask_top_k == kw["num_select"] and not srv._with_masks
     with tserve.InferenceServer(tm, device="cpu", max_in_flight=3,
                                 max_queue=5, collector_threads=3,
                                 dispatcher_threads=1, **kw) as srv:
