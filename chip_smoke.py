@@ -6,7 +6,9 @@
 Phases, each of which fails the run (non-zero exit, no result line):
   1. environment: card name and power limit, torch/CUDA versions, and a fresh
      build of every CUDA kernel from datr_torch/csrc (one nvcc per source,
-     all at once; build time printed);
+     all at once; build time printed), then of the host image ops
+     (csrc/image_ops.cpp, g++ with native.IMAGE_OPS_FLAGS; time and flags
+     printed);
   2. msda_fwd against its plain PyTorch version at the serving shapes, in
      f32 and bf16, plus an edge set; kernel, plain-version and bound times at
      uniform-random locations, beside the bytes the kernel requests from the
@@ -67,7 +69,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      and one self-training epoch of 2 steps, 2 + 2 images at 1216x2048,
      fed by the augmenting host loader), in a temporary directory: its
      log.txt lines hold datr_tpu's keys, the checkpoint and the best
-     families are written, the msda_fwd / msda_bwd launches equal the count
+     families are written, with use_tensorboard the event file in tb/ holds
+     each log.txt line's scalars (where no TensorBoard backend imports, a
+     line says the writer was inactive), the msda_fwd / msda_bwd launches
+     equal the count
      derived from the steps and eval batches it made; each epoch's parts
      (train loop, evaluations, checkpoint saves, EMA update); then the host
      loader's img/s at Cityscapes size (make_da_loader with the strong
@@ -145,7 +150,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
      peak memory, loss_mask / loss_dice finite), one step through the
      kernels against the plain step (phase 5's check: losses 1e-3
      relative, every gradient, the mask head's too, 1e-3 by norm);
-  12. the result: the wall time of each phase, a {"kernels": [...]} line,
+  12. the model registry and the host ops (runs after 11, before 6): the
+     flagship with two_stage_bbox_embed_share=True built through
+     models.build_model (its encoder's proposal heads are the decoder's,
+     no enc_out_* entry), served at 800x1344, batch 2, f32 with TF32 off
+     (12 msda_fwd launches per batch, the step by CUDA events, the forward
+     against the plain forward at phase 3's tolerances) and trained as
+     phase 10 trains the backbones (train_step_plain through
+     make_single_loader: warm-up + 3 timed steps at 24 / 12 launches, the
+     step against the plain step); the C++ host image ops against their
+     plain versions on seeded 1024x2048 frames at the serving and the
+     loader's sizes (resize_normalize_pad and rgb_to_yuv420 bitwise,
+     resize_pad_u8 within one count, the share that differs printed),
+     each timed beside its plain version on one thread, and beside the
+     same source built with -fopenmp, alone and from 4 threads at once;
+     the loader's img/s (phase 7's) and serve_bench through submit (u8,
+     f32, 4 clients, 64 images) through the C++ ops, the plain versions
+     patched in, and the OpenMP build; `python -m
+     datr_torch.tools.benchmark` on the flagship at 800x1344, batch 1;
+  13. the result: the wall time of each phase, a {"kernels": [...]} line,
      the card line, and as the last line {"ok": true, "device": {...}}.
 Imports nothing of JAX or datr_tpu. Needs one CUDA card; fails without one.
 """
@@ -594,12 +617,12 @@ def flagship_model(config="configs/DINO/DINO_4scale.py", **overrides):
     """The flagship DINO-R50 4-scale model (or `config`, with `overrides`),
     seeded random weights, on the card."""
     from datr_torch.config import load_config
-    from datr_torch.models import dino as dino_mod
+    from datr_torch.models import build_model
 
     cfg = load_config(config)
     cfg["num_classes"] = 9
     cfg.update(overrides)
-    model = dino_mod.build_dino_from_config(cfg, seed=0)
+    model, _, _ = build_model(cfg, seed=0)
     n_params = sum(p.numel() for p in model.parameters())
     log(f"  {config} {overrides or ''}: {n_params} parameters, on "
         f"{next(model.parameters()).device}, {model.dtype}, fast_norm "
@@ -1059,13 +1082,19 @@ def check_step_against_plain(state, run, msda, loss_tol=1e-3,
     return res
 
 
+def loss_terms(wd) -> set:
+    """The loss terms a weight dict weights: its keys but
+    loss_self_training, the coefficient of a self-training step's whole
+    target-domain loss (datr_tpu/models/dino.py:718)."""
+    return set(wd) - {"loss_self_training"}
+
+
 def c2f_train_state(n_batches, config=C2F, seed=0, device=None, **overrides):
     """(state, criterion config, weight dict, config) of a C2F
     configuration (with `overrides`, e.g. amp_dtype) with seeded random
     weights on `device` (default: the card), TF32 off."""
     from datr_torch.config import load_config
-    from datr_torch.models import dino as dino_mod
-    from datr_torch.train.criterion import criterion_from_config
+    from datr_torch.models import build_model
     from datr_torch.train.optim import Optimizer
     from datr_torch.train.state import create_train_state
 
@@ -1073,8 +1102,7 @@ def c2f_train_state(n_batches, config=C2F, seed=0, device=None, **overrides):
     torch.backends.cudnn.allow_tf32 = False
     cfg = load_config(config)
     cfg.update(overrides)
-    model = dino_mod.build_dino_from_config(cfg, device, seed=seed)
-    ccfg, wd = criterion_from_config(cfg, model)
+    model, ccfg, wd = build_model(cfg, device, seed=seed)
     opt = Optimizer(model, lr=cfg.lr, lr_backbone=cfg.lr_backbone,
                     weight_decay=cfg.weight_decay,
                     clip_max_norm=cfg.clip_max_norm,
@@ -1163,7 +1191,7 @@ def run_training(msda, card):
     # criterion's other keys are logging-only (loss_xy / loss_hw, errors)
     weighted = {k for k in metrics if k.startswith("loss_")
                 and not k.startswith(("loss_xy", "loss_hw"))}
-    assert weighted == set(wd), weighted ^ set(wd)
+    assert weighted == loss_terms(wd), weighted ^ loss_terms(wd)
     unchanged = [n for n, p in model.named_parameters() if p.requires_grad
                  and torch.equal(p.detach(), trainable[n])]
     assert not unchanged, f"trainable parameters unchanged: {unchanged}"
@@ -1397,8 +1425,9 @@ def run_self_training(msda, card) -> dict:
     assert all(np.isfinite(v) for v in metrics.values()), metrics
     weighted = {k for k in metrics if k.startswith("loss_")
                 and not k.startswith(("loss_xy", "loss_hw"))}
-    assert weighted == set(wd) | {f"{k}_target" for k in wd if "_dn" not in
-                                  k and not k.endswith("_DA")}, weighted
+    terms = loss_terms(wd)
+    assert weighted == terms | {f"{k}_target" for k in terms if "_dn" not in
+                                k and not k.endswith("_DA")}, weighted
     assert metrics["loss_ce_target"] > 0 and metrics["loss_bbox_target"] > 0
     assert state.step == n_batches
 
@@ -1575,6 +1604,58 @@ def check_gather_fma(gather, bench) -> dict:
 LOG_KEYS = {"epoch", "lr", "ap50_student", "ap50_teacher", "time"}
 
 
+def tb_scalars(tb_dir) -> dict:
+    """{tag: [(step, value)]} of the TensorBoard event files in `tb_dir`,
+    read record by record (length, its CRC, an Event protobuf, its CRC)
+    with the Event message of tensorboard or, failing that, tensorboardX."""
+    import struct
+
+    try:
+        from tensorboard.compat.proto.event_pb2 import Event
+    except ImportError:
+        from tensorboardX.proto.event_pb2 import Event
+    out = {}
+    for name in sorted(os.listdir(tb_dir)):
+        with open(os.path.join(tb_dir, name), "rb") as f:
+            data = f.read()
+        pos = 0
+        while pos < len(data):
+            (n,) = struct.unpack("<Q", data[pos:pos + 8])
+            ev = Event.FromString(data[pos + 12:pos + 12 + n])
+            pos += 12 + n + 4
+            for v in ev.summary.value:
+                out.setdefault(v.tag, []).append((ev.step, v.simple_value))
+    return out
+
+
+def check_tensorboard(out_dir, lines) -> dict:
+    """The run's `<out_dir>/tb` against its log.txt lines: every numeric
+    key an f32 scalar of its epoch. Where no TensorBoard backend imports,
+    the writer is inactive (datr_tpu's behaviour) and there is no file."""
+    from datr_torch.utils.tb import ScalarWriter
+
+    tb_dir = os.path.join(out_dir, "tb")
+    probe = ScalarWriter(os.path.join(out_dir, "tb_probe"))
+    active = probe.active
+    probe.close()
+    if not active:
+        assert not os.path.exists(tb_dir) or not os.listdir(tb_dir)
+        log("  tensorboard: no backend imports here (torch.utils."
+            "tensorboard, tensorboardX): the writer was inactive")
+        return dict(active=False)
+    got = tb_scalars(tb_dir)
+    want = {}
+    for ln in lines:
+        for k, v in ln.items():
+            want.setdefault(k, []).append((ln["epoch"], np.float32(v)))
+    assert set(got) == set(want), (sorted(got), sorted(want))
+    for k, w in want.items():
+        assert [(st, np.float32(v)) for st, v in got[k]] == w, (k, got[k], w)
+    log(f"  tensorboard: {len(got)} scalars x {len(lines)} epochs in tb/ "
+        "equal to the log.txt lines")
+    return dict(active=True, tags=len(got))
+
+
 def loader_rate(threads=4, n_batches=8) -> dict:
     """img/s of the host loader at Cityscapes size: make_da_loader over
     synthetic 1024x2048 frames with the C2F transforms, the strong view
@@ -1677,7 +1758,8 @@ def run_cli(msda, card, flags=()) -> dict:
     with tempfile.TemporaryDirectory() as out_dir:
         args = main_mod.get_args_parser().parse_args([
             "-c", C2F_ST, "--synthetic", "--output_dir", out_dir, *flags,
-            "--options", "synthetic_images=4", "epochs=2", "burn_epochs=1"])
+            "--options", "synthetic_images=4", "epochs=2", "burn_epochs=1",
+            "use_tensorboard=True"])
         torch.cuda.reset_peak_memory_stats()
         for pt in patches:
             pt.start()
@@ -1696,7 +1778,9 @@ def run_cli(msda, card, flags=()) -> dict:
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         lines = [json.loads(ln) for ln in open(f"{out_dir}/log.txt")
                  if ln.startswith("{")]
-        files = sorted(os.listdir(out_dir))
+        tb = check_tensorboard(out_dir, lines)
+        files = sorted(f for f in os.listdir(out_dir)
+                       if not f.startswith("tb"))
         sizes = {f: os.path.getsize(f"{out_dir}/{f}") / 1e9 for f in files
                  if not f.endswith((".json", ".txt"))}
     state = seen.pop("state")
@@ -1727,7 +1811,7 @@ def run_cli(msda, card, flags=()) -> dict:
     for ep, ln in zip(epochs, lines):
         ep["log_time_s"] = ln["time"]
     res = dict(dtype=dtype, wall_s=wall_s, epochs=epochs, calls=calls,
-               launches=launches,
+               launches=launches, tensorboard=tb,
                launches_derived=want, n_msda=n_msda, peak_memory_gb=peak_gb,
                allocated_before_gb=base_gb, files=files, sizes_gb=sizes,
                log_lines=[{k: v for k, v in ln.items()
@@ -1736,7 +1820,7 @@ def run_cli(msda, card, flags=()) -> dict:
                           for ln in lines])
     log(f"  CLI (python -m datr_torch.main -c {C2F_ST} --synthetic "
         f"{' '.join(flags)} --options synthetic_images=4 epochs=2 "
-        f"burn_epochs=1), model {dtype}: {wall_s:.2f} s in main, peak "
+        f"burn_epochs=1 use_tensorboard=True), model {dtype}: {wall_s:.2f} s in main, peak "
         f"{peak_gb:.2f} GB ({base_gb:.2f} GB before) on {card}")
     for i, ep in enumerate(epochs):
         log(f"  epoch {i}: " + ", ".join(
@@ -2550,9 +2634,6 @@ def run_serving_surface(msda, card) -> dict:
     return out
 
 
-# ---------------------------------------------------------------- main
-
-
 # ---------------------------------------------------------------- phase 10
 
 BACKBONE_CONFIGS = (("swin_L", "configs/DINO/DINO_4scale_swin.py"),
@@ -2631,9 +2712,10 @@ def run_backbone_serving(msda, card, config) -> dict:
     return out
 
 
-def run_backbone_training(msda, card, config) -> dict:
-    """train_one_epoch_plain on `config` at its own canvas and batch
-    (800x1344, 2 images, f32 with TF32 off, the config's use_remat), fed by
+def run_backbone_training(msda, card, config, **overrides) -> dict:
+    """train_one_epoch_plain on `config` (with `overrides`) at its own
+    canvas and batch (800x1344, 2 images, f32 with TF32 off, the config's
+    use_remat), fed by
     make_single_loader with the config's SingleDomainTrainTransform over
     synthetic Cityscapes-sized frames: a warm-up step, then 3 timed steps
     (launches, s/step, peak memory), and one step through the kernels
@@ -2647,7 +2729,7 @@ def run_backbone_training(msda, card, config) -> dict:
 
     n_batches = 4
     base_gb = torch.cuda.memory_allocated() / 1e9
-    state, ccfg, wd, cfg = c2f_train_state(n_batches, config)
+    state, ccfg, wd, cfg = c2f_train_state(n_batches, config, **overrides)
     model = state.model
     if hasattr(model.backbone, "patch_embed"):
         # seeded as flax seeds it, Swin's biases are all 0: a token of a
@@ -3226,6 +3308,273 @@ def run_masks(msda, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 12
+
+FLAGSHIP = "configs/DINO/DINO_4scale.py"
+SHARED = dict(two_stage_bbox_embed_share=True)
+HOST_OPS = ("resize_pad_u8", "resize_normalize_pad", "rgb_to_yuv420")
+
+
+def run_shared_heads(msda, card) -> dict:
+    """The flagship with shared two-stage heads, built through the
+    registry: served at 800x1344, batch 2, f32 with TF32 off (requests at
+    12 msda_fwd launches per batch, the step by CUDA events, the forward
+    through the kernels against the plain forward at phase 3's
+    tolerances), then one train_step_plain as phase 10 trains the other
+    backbones (warm-up + 3 timed steps at 24 / 12 launches, the step
+    against the plain step)."""
+    from datr_torch.models import dino as dino_mod
+
+    imgs = request_images()
+    srv = flagship_server(FLAGSHIP, **SHARED)
+    try:
+        model = srv.model
+        assert model.two_stage_share_heads
+        assert model.enc_out_class_head is model.class_head
+        assert not any(k.startswith("enc_out_") for k in model.state_dict())
+        srv.warmup()
+        torch.cuda.synchronize()
+        res = serve_requests(srv, msda, imgs)
+        batch, sizes = serving_batch(srv, imgs)
+        res["step_ms"] = cuda_ms(lambda: srv._step(batch, sizes), 10,
+                                 warmup=2)
+        res["step_img_s"] = 2e3 / res["step_ms"]
+        log(f"  shared heads, served: {res['requests']} requests in "
+            f"{res['batches']} batches, msda_fwd launches "
+            f"{res['launches']}; step {res['step_ms']:.2f} ms = "
+            f"{res['step_img_s']:.2f} img/s (f32, TF32 off) on {card}")
+        res["forward_diffs"] = check_forward_against_plain(
+            model, batch, sizes, msda, dino_mod)
+    finally:
+        srv.close()
+    del srv, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = run_backbone_training(msda, card, FLAGSHIP, num_classes=9,
+                                  **SHARED)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(serving=res, training=train)
+
+
+def host_ms(fn, reps) -> float:
+    """Median host milliseconds of `reps` calls of fn()."""
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ts.append(time.perf_counter() - t0)
+    return float(np.median(ts)) * 1e3
+
+
+def calls_per_s(fn, threads=4, per_thread=6) -> float:
+    """fn() from `threads` threads at once, `per_thread` calls each: calls
+    per second by wall clock (the loader's and submit's parallelism)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(threads) as pool:
+        t0 = time.perf_counter()
+        for f in [pool.submit(fn) for _ in range(threads * per_thread)]:
+            f.result()
+        return threads * per_thread / (time.perf_counter() - t0)
+
+
+def openmp_image_ops():
+    """csrc/image_ops.cpp built as datr_tpu builds its copy, with -fopenmp
+    (the package builds it without), into a temporary directory, its entry
+    points declared: the measured alternative. Returns (library, build s)
+    or (None, why) where the machine cannot build it."""
+    import ctypes
+    import tempfile
+
+    from datr_torch import native
+
+    with tempfile.TemporaryDirectory() as tmp:  # loaded, then unlinked
+        so = os.path.join(tmp, "libimage_ops_omp.so")
+        cmd = ["g++", *native.IMAGE_OPS_FLAGS, "-fopenmp", "-shared",
+               "-fPIC", "-std=c++17", str(native.CSRC_DIR / "image_ops.cpp"),
+               "-o", so]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            return None, proc.stderr[-500:]
+        lib = ctypes.CDLL(so)
+    for name, (argtypes, restype) in native.IMAGE_OPS_SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, restype
+    return lib, time.perf_counter() - t0
+
+
+def run_host_ops(card, build, omp) -> dict:
+    """The C++ host ops against their plain versions on seeded 1024x2048
+    frames at the serving and the loader's sizes (resize_normalize_pad and
+    rgb_to_yuv420 bitwise, resize_pad_u8 within one count, with the share
+    that differs); each timed beside its plain version on one thread, and
+    the same source built with OpenMP (`omp`: the library, or None; the
+    default thread count) timed beside the package's build, alone and from
+    4 threads at once."""
+    from datr_torch import native
+    from datr_torch.data.transforms import (
+        IMAGENET_MEAN,
+        IMAGENET_STD,
+        get_size_with_aspect_ratio,
+    )
+
+    frames = [np.random.default_rng(s).integers(0, 256, (*FRAME_HW, 3),
+                                                dtype=np.uint8)
+              for s in range(2)]
+    oh, ow = get_size_with_aspect_ratio(FRAME_HW[::-1], 800, 1333)
+    serving_canvas = native.resize_pad_u8(frames[0], (oh, ow), CANVAS)
+    norm = (IMAGENET_MEAN, IMAGENET_STD)
+    # name -> (C++ call, plain call); the loader's canvas step at a scaled
+    # (1.5x scales capped by the canvas) and an unscaled extent
+    cases = {
+        "resize_pad_u8": lambda f, op: op(f, (oh, ow), CANVAS),
+        "rgb_to_yuv420": lambda f, op: op(serving_canvas, (oh, ow)),
+        "resize_normalize_pad_scaled": lambda f, op: op(
+            f, (922, 1843), TRAIN_CANVAS, *norm),
+        "resize_normalize_pad_unscaled": lambda f, op: op(
+            f, FRAME_HW, TRAIN_CANVAS, *norm),
+    }
+    out = {"build": build, "cpus": os.cpu_count(), "cases": {}}
+    for name, call in cases.items():
+        base = name if name in HOST_OPS else "resize_normalize_pad"
+        cpp = getattr(native, base)
+        plain = getattr(native, base + "_plain")
+        got, want = call(frames[1], cpp), call(frames[1], plain)
+        d = np.abs(got.astype(np.int32) - want.astype(np.int32)) \
+            if got.dtype == np.uint8 else np.abs(got - want)
+        r = dict(max_abs_diff=float(d.max()),
+                 differing_share=float((got != want).mean()),
+                 ms=host_ms(lambda: call(frames[1], cpp), 7),
+                 plain_ms=host_ms(lambda: call(frames[1], plain), 2),
+                 calls_per_s_4_threads=calls_per_s(
+                     lambda: call(frames[1], cpp)))
+        if base == "resize_pad_u8":
+            assert r["max_abs_diff"] <= 1, (name, r)
+        else:
+            assert r["max_abs_diff"] == 0, (name, r)
+        if omp is not None:
+            with mock.patch.dict(native._host_libs, {"image_ops": omp}):
+                assert np.array_equal(call(frames[1], cpp), got), name
+                r["openmp_ms"] = host_ms(lambda: call(frames[1], cpp), 7)
+                r["openmp_calls_per_s_4_threads"] = calls_per_s(
+                    lambda: call(frames[1], cpp))
+        out["cases"][name] = r
+        log(f"  {name}: C++ {r['ms']:.2f} ms, plain {r['plain_ms']:.2f} ms "
+            f"(one thread); C++ from 4 threads "
+            f"{r['calls_per_s_4_threads']:.1f} calls/s; OpenMP build "
+            f"{r.get('openmp_ms', float('nan')):.2f} ms alone, "
+            f"{r.get('openmp_calls_per_s_4_threads', float('nan')):.1f} "
+            f"calls/s from 4 threads; max |C++ - plain| "
+            f"{r['max_abs_diff']}, differing share {r['differing_share']:.6f}"
+            f" ({os.cpu_count()} CPUs)")
+    return out
+
+
+@contextlib.contextmanager
+def plain_host_ops():
+    """The package's three host ops replaced by their plain numpy
+    versions while the block runs (a measurement's control; the package
+    has no such switch)."""
+    from datr_torch import native
+
+    with contextlib.ExitStack() as stack:
+        for name in HOST_OPS:
+            stack.enter_context(mock.patch.object(
+                native, name, getattr(native, name + "_plain")))
+        yield
+
+
+def run_host_traffic(msda, card, omp) -> dict:
+    """The loader's img/s (phase 7's loader_rate: 4 threads, 1024x2048, 6
+    batches) and serve_bench through submit (u8, f32, 4 clients, 64
+    images) with the plain versions patched in, through the C++ host ops
+    and (where `omp`, the OpenMP build, is given) through that build; the
+    loader once more per variant in the reverse order, so that each
+    variant has a run early and a run late in the sequence."""
+    from datr_torch import native
+    from datr_torch.tools import serve_bench
+
+    argv = ["--clients", "4", "--images", "64", "--in_flight", "2",
+            "--wire", "u8"]
+    variants = [("plain", plain_host_ops), ("cpp", contextlib.nullcontext)]
+    if omp is not None:
+        variants.append(("openmp", lambda: mock.patch.dict(
+            native._host_libs, {"image_ops": omp})))
+    out = {ops: {"loader": []} for ops, _ in variants}
+    for ops, ctx in variants:
+        with ctx():
+            out[ops]["loader"].append(loader_rate(n_batches=6))
+            r = serve_bench.run(serve_bench.get_args_parser().parse_args(
+                argv))
+        assert r["msda_fwd_launches"] == MSDA_PER_FORWARD * r["batches"], r
+        log(f"  host ops {ops}: serve_bench {' '.join(argv)}: "
+            f"{r['img_s']:.2f} img/s, p50 / p95 {r['p50_latency_s']:.3f} / "
+            f"{r['p95_latency_s']:.3f} s, occupancy "
+            f"{r['mean_batch_occupancy']:.2f} on {card}")
+        out[ops]["submit"] = r
+        gc.collect()
+        torch.cuda.empty_cache()
+    for ops, ctx in reversed(variants):
+        with ctx():
+            out[ops]["loader"].append(loader_rate(n_batches=6))
+    for ops, _ in variants:
+        rates = [x["img_s"] for x in out[ops]["loader"]]
+        out[ops]["loader_img_s"] = float(np.mean(rates))
+        log(f"  host ops {ops}: loader {rates} img/s, mean "
+            f"{out[ops]['loader_img_s']:.3f}; submit "
+            f"{out[ops]['submit']['img_s']:.2f} img/s")
+    return out
+
+
+def run_benchmark_tool(card) -> dict:
+    """`python -m datr_torch.tools.benchmark` on the flagship (9 classes)
+    at 800x1344, batch 1, its line printed."""
+    import tempfile
+
+    from datr_torch.tools import benchmark
+
+    with tempfile.TemporaryDirectory() as tmp:
+        r = benchmark.main(["-c", FLAGSHIP, "--options", "num_classes=9",
+                            "--hw", "800", "1344", "--batch", "1",
+                            "--out", os.path.join(tmp, "log.txt")])
+    assert r["device"] == torch.cuda.get_device_name(0)
+    assert r["fps"] > 0 and r["gflops_per_image"] > 0, r
+    log(f"  benchmark tool: {json.dumps(r)} on {card}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
+
+
+def run_registry_and_host(msda, card, host_build) -> dict:
+    """Phase 12: shared two-stage heads through the registry, the C++ host
+    ops, the loader and submit traffic with and without them, the
+    benchmark tool."""
+    omp, omp_build = openmp_image_ops()
+    out = {"openmp_build_s" if omp else "openmp_unavailable": omp_build}
+    for part, fn in (
+            ("shared_heads", lambda: run_shared_heads(msda, card)),
+            ("host_ops", lambda: run_host_ops(card, host_build, omp)),
+            ("traffic", lambda: run_host_traffic(msda, card, omp)),
+            ("benchmark", lambda: run_benchmark_tool(card))):
+        log(f"  --- {part}")
+        t0 = time.perf_counter()
+        out[part] = fn()
+        out[f"{part}_s"] = time.perf_counter() - t0
+    sh = out["shared_heads"]
+    out["launches"] = dict(
+        msda_fwd=(sh["serving"]["launches"]
+                  + sh["training"]["launches"]["msda_fwd"]
+                  + sum(t["submit"]["msda_fwd_launches"]
+                        for t in out["traffic"].values())),
+        msda_bwd=sh["training"]["launches"]["msda_bwd"])
+    return out
+
+
+# ---------------------------------------------------------------- main
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
@@ -3251,6 +3600,17 @@ def main() -> int:
     log("\n".join("  " + ln.strip()[:150] for ln in build_log.splitlines()
                   if any(w in ln for w in ("Compiling entry", "registers",
                                            "spill"))))
+    from datr_torch import native
+
+    so = native.BUILD_DIR / "libimage_ops.so"
+    fresh = not so.exists()
+    t0 = time.perf_counter()
+    native.image_ops_library()
+    host_build = dict(s=time.perf_counter() - t0, fresh=fresh,
+                      flags=list(native.IMAGE_OPS_FLAGS),
+                      source="datr_torch/csrc/image_ops.cpp")
+    log(f"  host library image_ops {'built' if fresh else 'loaded'} in "
+        f"{host_build['s']:.2f} s (g++ {' '.join(native.IMAGE_OPS_FLAGS)})")
 
     phase_done("1")
     log("phase 2: msda_fwd against its plain version, serving shapes")
@@ -3304,6 +3664,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_done("11")
+
+    log("phase 12: the model registry with shared two-stage heads (served "
+        "and trained), the C++ host image ops against their plain versions, "
+        "the loader and submit traffic with and without them, the "
+        "benchmark tool")
+    rh = run_registry_and_host(msda, card, host_build)
+    log("registry_and_host " + json.dumps(dict(rh, card=card)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("12")
 
     # phases 6, 7 and 8 run before phase 5, whose profile must be the last
     # work of the process; each phase's state is gone before the next one
@@ -3408,6 +3778,16 @@ def main() -> int:
         "masks_eval": mk["eval"]["launches"],
         "masks_training": mk["training"]["launches"]["msda_fwd"]}
     mk_bwd = {"masks_training": mk["training"]["launches"]["msda_bwd"]}
+    # phase 12: the shared-head server and training steps, the traffic
+    # runs through submit
+    sh = rh["shared_heads"]
+    rh_fwd = {
+        "shared_heads_serving": sh["serving"]["launches"],
+        "shared_heads_training": sh["training"]["launches"]["msda_fwd"],
+        "host_traffic": sum(t["submit"]["msda_fwd_launches"]
+                            for t in rh["traffic"].values())}
+    rh_bwd = {"shared_heads_training": sh["training"]["launches"][
+        "msda_bwd"]}
     k2, k3 = kg["copy"], kg["fma"]
     kernels = [{
         "name": "msda_fwd",
@@ -3417,14 +3797,15 @@ def main() -> int:
         "launches": (s["launches"] + tr["launches"]["msda_fwd"]
                      + st["launches"]["msda_fwd"] + st["eval"]["launches"]
                      + cl["launches"]["msda_fwd"] + sv["launches"]
-                     + sum(bb_fwd.values()) + sum(mk_fwd.values())),
+                     + sum(bb_fwd.values()) + sum(mk_fwd.values())
+                     + sum(rh_fwd.values())),
         "launches_by_path": {"serving": s["launches"],
                              "training": tr["launches"]["msda_fwd"],
                              "self_training": st["launches"]["msda_fwd"],
                              "eval": st["eval"]["launches"],
                              "cli": cl["launches"]["msda_fwd"],
                              "serving_surface": sv["launches"], **bb_fwd,
-                             **mk_fwd},
+                             **mk_fwd, **rh_fwd},
         "launches_per_distillation_step": bb["distillation"][
             "launches_per_step"]["msda_fwd"],
         "launches_per_forward": s["launches"] // s["batches"],
@@ -3476,11 +3857,11 @@ def main() -> int:
         "replaces": "datr_tpu/ops/msda_pallas.py:154",
         "launches": (tr["launches"]["msda_bwd"] + st["launches"]["msda_bwd"]
                      + cl["launches"]["msda_bwd"] + sum(bb_bwd.values())
-                     + sum(mk_bwd.values())),
+                     + sum(mk_bwd.values()) + sum(rh_bwd.values())),
         "launches_by_path": {"training": tr["launches"]["msda_bwd"],
                              "self_training": st["launches"]["msda_bwd"],
                              "cli": cl["launches"]["msda_bwd"], **bb_bwd,
-                             **mk_bwd},
+                             **mk_bwd, **rh_bwd},
         "launches_per_train_step": tr["launches_per_step"]["msda_bwd"],
         "launches_per_self_training_step": st["launches_per_step"][
             "msda_bwd"],

@@ -4,9 +4,10 @@ Load config + checkpoint (the student, the use_ema model_ema track or the
 EMA teacher), resize the shorter side to 800 capped at 1333 (PIL's bilinear,
 `data/pil_ops.py`), forward, postprocess at size (1, 1) -> normalized boxes,
 score threshold 0.2, draw rectangles (and, for a model with masks, blend
-each detection's instance mask first), save. Runs on the CUDA card unless
-`--device cpu` is given. The image is decoded without PIL where it is a
-JPEG or an 8-bit PNG (`data.coco.decode_rgb`); drawing and saving need PIL.
+each detection's instance mask first, `utils/visualizer.draw_masks`), save.
+Runs on the CUDA card unless `--device cpu` is given. The image is decoded
+without PIL where it is a JPEG or an 8-bit PNG (`data.coco.decode_rgb`);
+drawing and saving need PIL.
 
 Usage:
   python -m datr_torch.inference -c configs/.../DINO_4scale_C2F.py \
@@ -27,14 +28,13 @@ from .models.postprocess import postprocess
 from .models.segmentation import det_mask_rles
 from .train.checkpoint import _is_state, _load
 from .utils.rle import decode_counts
+from .utils.visualizer import draw_masks
 
 CLASS_PALETTE = [
     (255, 99, 71), (65, 105, 225), (60, 179, 113), (238, 130, 238),
     (255, 165, 0), (106, 90, 205), (64, 224, 208), (218, 165, 32),
     (199, 21, 133), (0, 191, 255),
 ]
-# datr_tpu/utils/visualizer.py's PALETTE, which draw_masks colours by
-MASK_PALETTE = CLASS_PALETTE + [(154, 205, 50), (255, 20, 147)]
 
 
 def run_inference(model, img_u8: np.ndarray, canvas_hw, num_select=300,
@@ -74,22 +74,6 @@ def run_inference(model, img_u8: np.ndarray, canvas_hw, num_select=300,
     return boxes, labels, scores[keep], masks
 
 
-def draw_masks(img: np.ndarray, masks: np.ndarray, labels=None,
-               alpha: float = 0.45) -> np.ndarray:
-    """Instance masks [N, h, w] alpha-blended into uint8 img [h, w, 3] in
-    per-class palette colours (datr_tpu/utils/visualizer.py:63-81)."""
-    base = np.asarray(img, np.float32).copy()
-    for i, m in enumerate(np.asarray(masks)):
-        if m.shape != base.shape[:2]:
-            raise ValueError(f"mask {i} shape {m.shape} != image "
-                             f"{base.shape[:2]}")
-        lab = int(labels[i]) if labels is not None else i
-        color = np.array(MASK_PALETTE[lab % len(MASK_PALETTE)], np.float32)
-        sel = np.asarray(m, bool)
-        base[sel] = (1 - alpha) * base[sel] + alpha * color
-    return np.clip(base, 0, 255).astype(np.uint8)
-
-
 def load_eval_params(ckpt_path: str, ema: bool = False,
                      teacher: bool = False) -> Dict[str, torch.Tensor]:
     """The serving / eval state_dict of a checkpoint in the port's format
@@ -107,9 +91,9 @@ def load_model(cfg, ckpt_path: str, ema: bool = False, teacher: bool = False,
                device=None):
     """The config's model on `device` (default: the card), in eval mode,
     with the weights `load_eval_params` picks."""
-    from .models.dino import build_dino_from_config
+    from .models import build_model
 
-    model = build_dino_from_config(cfg, device)
+    model, _, _ = build_model(cfg, device)
     model.load_state_dict(load_eval_params(ckpt_path, ema=ema,
                                            teacher=teacher))
     return model.eval()
@@ -148,16 +132,11 @@ def main(argv=None):
     r = run_inference(model, img, canvas_hw, cfg.get("num_select", 300),
                       args.threshold, with_masks=with_masks)
     boxes, labels, scores = r[:3]
-    if with_masks and len(r[3]):
-        img = draw_masks(img, r[3], labels)
-    try:
-        from PIL import Image, ImageDraw
-    except ImportError as e:
-        raise ImportError(
-            f"{len(boxes)} detections found; drawing them needs PIL, which "
-            "this machine lacks (utils/visualizer.py is not ported: ROADMAP "
-            "§A 9)") from e
+    from PIL import Image, ImageDraw
+
     im = Image.fromarray(img)
+    if with_masks and len(r[3]):
+        im = draw_masks(im, r[3], labels)
     draw = ImageDraw.Draw(im)
     for b, l, s in zip(boxes, labels, scores):
         color = CLASS_PALETTE[int(l) % len(CLASS_PALETTE)]

@@ -22,7 +22,9 @@ layout (or `coco` / `coco_panoptic`) and adds mask AP to every evaluation.
 `--distill_teacher_ckpt` (a port checkpoint) makes the self-training
 epochs' pseudo-labels with that model, built from
 `--distill_teacher_config` (any backbone, the student's classes), in place
-of the EMA teacher.
+of the EMA teacher. The model comes from the registry by the config's
+`modelname` (`models.build_model`); `--options use_tensorboard=True`
+mirrors each epoch's log.txt scalars to `<output_dir>/tb`.
 """
 
 from __future__ import annotations
@@ -53,7 +55,7 @@ from .engine import (
     train_one_epoch_self_training,
     update_emas_per_epoch,
 )
-from .models.dino import build_dino_from_config
+from .models import build_model
 from .train.checkpoint import (
     BestTracker,
     load_pretrain_params,
@@ -62,10 +64,10 @@ from .train.checkpoint import (
     save_checkpoint,
     update_checkpoint_meta,
 )
-from .train.criterion import criterion_from_config
 from .train.optim import Optimizer
 from .train.state import EMA_TRACKS, create_train_state
 from .utils.logger import setup_logger
+from .utils.tb import ScalarWriter
 
 
 def get_args_parser():
@@ -118,19 +120,14 @@ def get_args_parser():
     return p
 
 
-def _refuse_unported(args, cfg):
-    """The flags and config keys whose parts are not ported raise here,
-    before anything is built."""
-    unported = [
-        (cfg.get("amp_dtype", "float32") not in ("float32", "bfloat16"),
-         f"amp_dtype={cfg.get('amp_dtype')!r} (float32 and bfloat16 are "
-         "ported; float64: ROADMAP §A 4)"),
-        (cfg.get("use_tensorboard", False),
-         "use_tensorboard (utils/tb.py: ROADMAP §A 9)"),
-    ]
-    bad = [name for on, name in unported if on]
-    if bad:
-        raise NotImplementedError(f"datr_torch does not port {bad} yet")
+def _refuse_unported(cfg):
+    """The config keys whose parts are not ported raise here, before
+    anything is built."""
+    amp_dtype = cfg.get("amp_dtype", "float32")
+    if amp_dtype not in ("float32", "bfloat16"):
+        raise NotImplementedError(
+            f"datr_torch does not port amp_dtype={amp_dtype!r} yet (float32 "
+            "and bfloat16 are ported; float64: ROADMAP §A 7)")
 
 
 def _load_into_all(state, params):
@@ -147,7 +144,7 @@ def main(args):
         cfg["dataset_file"] = args.dataset_file
     if args.amp:
         cfg["amp_dtype"] = "bfloat16"
-    _refuse_unported(args, cfg)
+    _refuse_unported(cfg)
     os.makedirs(args.output_dir, exist_ok=True)
     logger = setup_logger(args.output_dir)
     try:  # git sha for reproducibility
@@ -163,8 +160,7 @@ def main(args):
               "w") as f:
         json.dump({**dict(cfg), **vars(args)}, f, default=str, indent=1)
 
-    model = build_dino_from_config(cfg, args.device, seed=args.seed)
-    ccfg, weight_dict = criterion_from_config(cfg, model)
+    model, ccfg, weight_dict = build_model(cfg, args.device, seed=args.seed)
     canvas_hw = (cfg.get("canvas_h", 800), cfg.get("canvas_w", 1344))
     max_boxes = cfg.get("max_boxes", 100)
 
@@ -175,7 +171,7 @@ def main(args):
     if args.distill_teacher_ckpt:
         t_cfg = (load_config(args.distill_teacher_config)
                  if args.distill_teacher_config else cfg)
-        teacher = build_dino_from_config(t_cfg, args.device, seed=args.seed)
+        teacher, _, _ = build_model(t_cfg, args.device, seed=args.seed)
         teacher.load_state_dict(load_pretrain_params(
             args.distill_teacher_ckpt, teacher))
         teacher.requires_grad_(False)
@@ -287,87 +283,97 @@ def main(args):
                         nms_iou_threshold=nms_thr, logger=logger,
                         segm=segm_eval)
 
-    for epoch in range(start_epoch, cfg.epochs):
-        t0 = time.time()
-        # at the lr drop, restart the student from the best EMA teacher
-        # (reference main.py:321-327)
-        if epoch == cfg.get("lr_drop") and epoch > start_epoch:
-            best_teacher = os.path.join(args.output_dir, "best_ema_teacher")
-            if os.path.exists(best_teacher):
-                state.model.load_state_dict(
-                    load_pretrain_params(best_teacher, state.model))
-                logger.info("reloaded best_ema_teacher weights at lr_drop")
-        if single_domain:
-            loader = make_single_loader(
-                train_ds, cfg.batch_size, canvas_hw, train_tf, max_boxes,
-                seed=args.seed, epoch=epoch, num_threads=args.num_workers)
-        else:
-            loader = make_da_loader(
-                train_ds, cfg.batch_size, canvas_hw, train_tf, max_boxes,
-                seed=args.seed, epoch=epoch, num_threads=args.num_workers,
-                # burn-in steps never read the strong views
-                compute_strong=(epoch >= burn_epochs))
-        if args.debug:
-            loader = itertools.islice(loader, 4)
-        # the use_ema per-step ModelEma, from ema_epoch on
-        ema_decay = float(cfg.get("ema_decay", 0.9997)) if (
-            cfg.get("use_ema") and epoch >= int(cfg.get("ema_epoch", 0))
-        ) else 0.0
-        kw = dict(ema_decay=ema_decay, logger=logger, epoch=epoch)
-        if single_domain:
-            train_stats = train_one_epoch_plain(state, loader, ccfg,
-                                                weight_dict, **kw)
-        elif epoch < burn_epochs:
-            train_stats = train_one_epoch(state, loader, ccfg, weight_dict,
-                                          **kw)
-        else:
-            train_stats = train_one_epoch_self_training(
-                state, loader, ccfg, weight_dict, thresholds, canvas_hw,
-                teacher=teacher, **kw)
-        update_emas_per_epoch(state, epoch, cfg)
+    # the log.txt scalars mirrored to <output_dir>/tb (datr_tpu/main.py:
+    # 350-355); a no-op where use_tensorboard is off or no backend imports
+    tb = ScalarWriter(os.path.join(args.output_dir, "tb"),
+                      enabled=bool(cfg.get("use_tensorboard")))
+    try:
+        for epoch in range(start_epoch, cfg.epochs):
+            t0 = time.time()
+            # at the lr drop, restart the student from the best EMA teacher
+            # (reference main.py:321-327)
+            if epoch == cfg.get("lr_drop") and epoch > start_epoch:
+                best_teacher = os.path.join(args.output_dir,
+                                            "best_ema_teacher")
+                if os.path.exists(best_teacher):
+                    state.model.load_state_dict(
+                        load_pretrain_params(best_teacher, state.model))
+                    logger.info("reloaded best_ema_teacher weights at lr_drop")
+            if single_domain:
+                loader = make_single_loader(
+                    train_ds, cfg.batch_size, canvas_hw, train_tf, max_boxes,
+                    seed=args.seed, epoch=epoch, num_threads=args.num_workers)
+            else:
+                loader = make_da_loader(
+                    train_ds, cfg.batch_size, canvas_hw, train_tf, max_boxes,
+                    seed=args.seed, epoch=epoch, num_threads=args.num_workers,
+                    # burn-in steps never read the strong views
+                    compute_strong=(epoch >= burn_epochs))
+            if args.debug:
+                loader = itertools.islice(loader, 4)
+            # the use_ema per-step ModelEma, from ema_epoch on
+            ema_decay = float(cfg.get("ema_decay", 0.9997)) if (
+                cfg.get("use_ema") and epoch >= int(cfg.get("ema_epoch", 0))
+            ) else 0.0
+            kw = dict(ema_decay=ema_decay, logger=logger, epoch=epoch)
+            if single_domain:
+                train_stats = train_one_epoch_plain(state, loader, ccfg,
+                                                    weight_dict, **kw)
+            elif epoch < burn_epochs:
+                train_stats = train_one_epoch(state, loader, ccfg, weight_dict,
+                                              **kw)
+            else:
+                train_stats = train_one_epoch_self_training(
+                    state, loader, ccfg, weight_dict, thresholds, canvas_hw,
+                    teacher=teacher, **kw)
+            update_emas_per_epoch(state, epoch, cfg)
 
-        save_checkpoint(os.path.join(args.output_dir, "checkpoint"), state,
-                        epoch, extra={"best": best.best})
-        if cfg.get("save_checkpoint_interval", 1) and (
-                (epoch + 1) % cfg.save_checkpoint_interval == 0):
-            save_checkpoint(
-                os.path.join(args.output_dir, f"checkpoint{epoch:04d}"),
-                state, epoch)
+            save_checkpoint(os.path.join(args.output_dir, "checkpoint"), state,
+                            epoch, extra={"best": best.best})
+            if cfg.get("save_checkpoint_interval", 1) and (
+                    (epoch + 1) % cfg.save_checkpoint_interval == 0):
+                save_checkpoint(
+                    os.path.join(args.output_dir, f"checkpoint{epoch:04d}"),
+                    state, epoch)
 
-        # --- per-epoch eval: student + EMA teacher (+ best-EMA after
-        # burn-in), best families keyed on AP50 (main.py:416-515) ---
-        stats = eval_stats(state.model)
-        best.update("checkpoint_best_regular", stats["ap50"], state.model,
-                    epoch)
-        t_stats = eval_stats(state.ema_teacher)
-        best.update("best_ema_teacher", t_stats["ap50"], state.ema_teacher,
-                    epoch)
-        if cfg.get("use_ema"):
-            # the fourth family: the use_ema ModelEma track
-            e_stats = eval_stats(state.model_ema)
-            best.update("checkpoint_best_ema", e_stats["ap50"],
-                        state.model_ema, epoch)
-        log_line = {
-            "epoch": epoch,
-            "lr": state.optimizer.lr_at(state.step),
-            **{f"train_{k}": v for k, v in train_stats.items()},
-            "ap50_student": stats["ap50"],
-            "ap50_teacher": t_stats["ap50"],
-            **({"ap50_ema": e_stats["ap50"]} if cfg.get("use_ema") else {}),
-            "time": time.time() - t0,
-        }
-        if epoch >= burn_epochs:
-            b_stats = eval_stats(state.best_ema)
-            best.update("best_ema_model", b_stats["ap50"], state.best_ema,
+            # --- per-epoch eval: student + EMA teacher (+ best-EMA after
+            # burn-in), best families keyed on AP50 (main.py:416-515) ---
+            stats = eval_stats(state.model)
+            best.update("checkpoint_best_regular", stats["ap50"], state.model,
                         epoch)
-            log_line["ap50_best_ema"] = b_stats["ap50"]
-        # the best families as they stand after this epoch's evaluations,
-        # in the resumable checkpoint
-        update_checkpoint_meta(os.path.join(args.output_dir, "checkpoint"),
-                               {"best": best.best})
-        with open(os.path.join(args.output_dir, "log.txt"), "a") as f:
-            f.write(json.dumps(log_line) + "\n")
-        logger.info(json.dumps(log_line))
+            t_stats = eval_stats(state.ema_teacher)
+            best.update("best_ema_teacher", t_stats["ap50"], state.ema_teacher,
+                        epoch)
+            if cfg.get("use_ema"):
+                # the fourth family: the use_ema ModelEma track
+                e_stats = eval_stats(state.model_ema)
+                best.update("checkpoint_best_ema", e_stats["ap50"],
+                            state.model_ema, epoch)
+            log_line = {
+                "epoch": epoch,
+                "lr": state.optimizer.lr_at(state.step),
+                **{f"train_{k}": v for k, v in train_stats.items()},
+                "ap50_student": stats["ap50"],
+                "ap50_teacher": t_stats["ap50"],
+                **({"ap50_ema": e_stats["ap50"]} if cfg.get("use_ema")
+                   else {}),
+                "time": time.time() - t0,
+            }
+            if epoch >= burn_epochs:
+                b_stats = eval_stats(state.best_ema)
+                best.update("best_ema_model", b_stats["ap50"], state.best_ema,
+                            epoch)
+                log_line["ap50_best_ema"] = b_stats["ap50"]
+            # the best families as they stand after this epoch's evaluations,
+            # in the resumable checkpoint
+            update_checkpoint_meta(os.path.join(args.output_dir, "checkpoint"),
+                                   {"best": best.best})
+            with open(os.path.join(args.output_dir, "log.txt"), "a") as f:
+                f.write(json.dumps(log_line) + "\n")
+            tb.write(epoch, log_line)
+            logger.info(json.dumps(log_line))
+    finally:
+        tb.close()
 
 
 def cli():

@@ -133,6 +133,7 @@ class DINO(nn.Module):
         fast_norm: bool = False,
         with_masks: bool = False,
         mask_query_chunk: int = 0,
+        two_stage_share_heads: bool = False,
     ):
         super().__init__()
         C = hidden_dim
@@ -149,6 +150,7 @@ class DINO(nn.Module):
         self.pe_temperature_w = pe_temperature_w
         self.return_interm_indices = tuple(return_interm_indices)
         self.with_masks, self.mask_query_chunk = with_masks, mask_query_chunk
+        self.two_stage_share_heads = two_stage_share_heads
         # the mask head's laterals are the raw stages 0..2 (C2 / C3 / C4):
         # the backbone returns their union with the detection stages
         stages = self.return_interm_indices
@@ -179,9 +181,10 @@ class DINO(nn.Module):
         self.ref_point_head = MLP(2 * C, C, C, 2, dtype=dtype)
         self.class_head = Linear(C, num_classes, dtype=dtype)
         self.bbox_head = MLP(C, C, 4, 3, last_zero_init=True, dtype=dtype)
-        self.enc_out_class_head = Linear(C, num_classes, dtype=dtype)
-        self.enc_out_bbox_head = MLP(C, C, 4, 3, last_zero_init=True,
-                                     dtype=dtype)
+        if not two_stage_share_heads:  # shared: the properties below
+            self.enc_out_class_head = Linear(C, num_classes, dtype=dtype)
+            self.enc_out_bbox_head = MLP(C, C, 4, 3, last_zero_init=True,
+                                         dtype=dtype)
         self.enc_output = Linear(C, C, dtype=dtype)
         self.enc_output_norm = layer_norm(C, dtype, fast_norm)
         self.tgt_embed = nn.Parameter(torch.empty(num_queries, C))
@@ -197,6 +200,24 @@ class DINO(nn.Module):
             self.mask_head = MaskHeadSmallConv(
                 C + nheads, C, [self.backbone.widths[s] for s in (2, 1, 0)],
                 dtype=dtype)
+
+    # The encoder's proposal heads. With `two_stage_share_heads` they are the
+    # decoder's `class_head` / `bbox_head` themselves (datr_tpu/models/
+    # dino.py:194-196): one module and one state-dict entry per tensor, as
+    # datr_tpu's tree has no enc_out_* entries, and each shared tensor's
+    # gradient sums both uses. Assigning the decoder's heads to these names
+    # would register them twice (two state-dict keys).
+    @property
+    def enc_out_class_head(self) -> nn.Module:
+        if self.two_stage_share_heads:
+            return self.class_head
+        return self._modules["enc_out_class_head"]
+
+    @property
+    def enc_out_bbox_head(self) -> nn.Module:
+        if self.two_stage_share_heads:
+            return self.bbox_head
+        return self._modules["enc_out_bbox_head"]
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -558,22 +579,19 @@ def build_dino_from_config(cfg, device=None, seed: int = 0) -> DINO:
     """Config -> model with seeded weights, on `device` (default: the CUDA
     card), in eval mode. Mirrors datr_tpu/models/dino.py:632-674 for the
     settings the eval and training paths read, `amp_dtype` ("float32" or
-    "bfloat16") and `fast_norm` included, and refuses those it does not
-    implement (shared two-stage heads, any other amp_dtype: datr_tpu's
-    "float64" is its x64 debugging mode). `masks` builds the mask head,
-    `mask_query_chunk` bounds its live (image, query) pairs."""
+    "bfloat16"), `fast_norm` and `two_stage_bbox_embed_share` (the encoder's
+    proposal heads are the decoder's) included, and refuses any other
+    amp_dtype (datr_tpu's "float64" is its x64 debugging mode: ROADMAP
+    §A 7). `masks` builds the mask head, `mask_query_chunk` bounds its live
+    (image, query) pairs."""
     get = cfg.get if hasattr(cfg, "get") else lambda k, d=None: getattr(
         cfg, k, d)
     dev = resolve_device(device)
     amp_dtype = get("amp_dtype", "float32")
-    unsupported = {
-        "two_stage_bbox_embed_share": get("two_stage_bbox_embed_share",
-                                          False),
-        f"amp_dtype={amp_dtype!r}": amp_dtype not in AMP_DTYPES,
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad:
-        raise NotImplementedError(f"datr_torch does not implement {bad}")
+    if amp_dtype not in AMP_DTYPES:
+        raise NotImplementedError(
+            f"datr_torch does not implement amp_dtype={amp_dtype!r} "
+            f"(it runs {sorted(AMP_DTYPES)}; float64: ROADMAP §A 7)")
     num_classes = get("num_classes", 91)
     model = DINO(
         num_classes=num_classes,
@@ -600,6 +618,20 @@ def build_dino_from_config(cfg, device=None, seed: int = 0) -> DINO:
         fast_norm=bool(get("fast_norm", False)),
         with_masks=bool(get("masks", False)),
         mask_query_chunk=int(get("mask_query_chunk", 0) or 0),
+        two_stage_share_heads=bool(get("two_stage_bbox_embed_share", False)),
     )
     model.init_params(torch.Generator().manual_seed(seed))
     return model.to(dev).eval()
+
+
+from .registry import register_model  # noqa: E402
+
+
+@register_model("dino")
+def _build_dino_entry(cfg, device=None, seed: int = 0):
+    """datr_tpu/models/dino.py:677-719: the model and its criterion."""
+    from ..train.criterion import criterion_from_config
+
+    model = build_dino_from_config(cfg, device, seed=seed)
+    ccfg, weight_dict = criterion_from_config(cfg, model)
+    return model, ccfg, weight_dict

@@ -1,13 +1,18 @@
-"""Host image work: the serving resize (own copy of the numpy form of
-datr_tpu/native/__init__.py:235-275, which carries the native C++ kernel's
-exact sampling and rounding), the training / eval canvas step
-(`resize_normalize_pad`), the yuv420 wire's packing (`rgb_to_yuv420`) and
-JPEG through libjpeg (`decode_jpeg_rgb`, `encode_jpeg_rgb`).
+"""Host image work: the serving resize (`resize_pad_u8`), the training /
+eval canvas step (`resize_normalize_pad`), the yuv420 wire's packing
+(`rgb_to_yuv420`), all three in C++ (`csrc/image_ops.cpp`, the port's copy
+of datr_tpu/native/image_ops.cpp, bitwise equal to it), and JPEG through
+libjpeg (`decode_jpeg_rgb`, `encode_jpeg_rgb`). The three image functions'
+plain numpy versions (`*_plain`) stay beside them for the tests and
+chip_smoke.py to hold the C++ against: `resize_normalize_pad_plain` and
+`rgb_to_yuv420_plain` are bitwise equal to it, `resize_pad_u8_plain`
+(datr_tpu's numpy fallback, float64 weights) within one count.
 
 The host routines in C++ (`csrc/*.cpp`) are built with g++ at first use
 into build/datr_torch/ and loaded with ctypes (`host_library`), never at
-import. A library that cannot be built raises where it is needed; it takes
-nothing else down with it (PNG decodes without libjpeg)."""
+import. A library that cannot be built raises where it is needed (there is
+no fallback to numpy); it takes nothing else down with it (PNG decodes
+without libjpeg)."""
 
 from __future__ import annotations
 
@@ -32,6 +37,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _PI = ctypes.POINTER(ctypes.c_int)
+IMAGE_OPS_SIGNATURES = {
+    "resize_normalize_pad": ([_P, _I, _I, _P, _I, _I, _I, _I, _P, _P], None),
+    "resize_bilinear_u8": ([_P, _I, _I, _P, _I, _I], None),
+    "rgb_to_yuv420": ([_P, _I, _I, _I, _I, _P], None),
+}
+# datr_tpu's flags (datr_tpu/native/__init__.py:27) without its -fopenmp:
+# no fused multiply-adds, so the floats round as datr_tpu's build rounds
+# them; one thread per call (csrc/image_ops.cpp says why)
+IMAGE_OPS_FLAGS = ("-O3", "-ffp-contract=off")
 JPEG_SIGNATURES = {
     "jpeg_probe": ([_P, _I64, _PI, _PI], _I),
     "jpeg_decode_rgb": ([_P, _I64, _I, _P, _I64, _PI, _PI], _I),
@@ -42,13 +56,13 @@ JPEG_SIGNATURES = {
 }
 
 
-def _build_host(src: Path, so: Path, link):
+def _build_host(src: Path, so: Path, link, flags):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # built in a private directory and renamed into place, so concurrent
     # builders (test workers) never load a partial file
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         out = Path(tmp) / so.name
-        cmd = ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", str(src),
+        cmd = ["g++", *flags, "-shared", "-fPIC", "-std=c++17", str(src),
                "-o", str(out), *link]
         try:
             proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -60,11 +74,12 @@ def _build_host(src: Path, so: Path, link):
         os.replace(out, so)
 
 
-def host_library(stem: str, signatures: dict, link=()):
-    """The host library built from csrc/<stem>.cpp with g++ (again when the
-    source is newer than the build), loaded with ctypes and its entry points
-    declared. A failed build raises RuntimeError with g++'s output, here and
-    on every later call (it is not retried)."""
+def host_library(stem: str, signatures: dict, link=(), flags=("-O2",)):
+    """The host library built from csrc/<stem>.cpp with g++ and compile
+    `flags` (again when the source is newer than the build), loaded with
+    ctypes and its entry points declared. A failed build raises
+    RuntimeError with g++'s output, here and on every later call (it is not
+    retried)."""
     with _host_lock:
         lib = _host_libs.get(stem)
         if lib is None:
@@ -72,7 +87,7 @@ def host_library(stem: str, signatures: dict, link=()):
             so = BUILD_DIR / f"lib{stem}.so"
             try:
                 if not so.exists() or so.stat().st_mtime < src.stat().st_mtime:
-                    _build_host(src, so, link)
+                    _build_host(src, so, link, flags)
                 lib = ctypes.CDLL(str(so))
                 for name, (argtypes, restype) in signatures.items():
                     fn = getattr(lib, name)
@@ -92,9 +107,52 @@ def jpeg_library():
     return host_library("jpeg_codec", JPEG_SIGNATURES, link=("-ljpeg",))
 
 
+def image_ops_library():
+    """csrc/image_ops.cpp, built with IMAGE_OPS_FLAGS."""
+    return host_library("image_ops", IMAGE_OPS_SIGNATURES,
+                        flags=IMAGE_OPS_FLAGS)
+
+
+def _rgb_u8(img: np.ndarray) -> np.ndarray:
+    """A C-contiguous uint8 [h, w, 3] image (h, w > 0), else ValueError:
+    the C++ reads h * w * 3 bytes behind the pointer."""
+    img = np.ascontiguousarray(img)
+    if (img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3
+            or 0 in img.shape):
+        raise ValueError(f"expected a uint8 [h, w, 3] image, got "
+                         f"{img.dtype} {img.shape}")
+    return img
+
+
+def _extent_in_canvas(out_hw, canvas_hw):
+    dh, dw = int(out_hw[0]), int(out_hw[1])
+    H, W = int(canvas_hw[0]), int(canvas_hw[1])
+    if not (0 < dh <= H and 0 < dw <= W):
+        raise ValueError(f"resized extent {(dh, dw)} outside canvas "
+                         f"{(H, W)}")
+    return dh, dw, H, W
+
+
 def resize_pad_u8(img_u8: np.ndarray, out_hw, canvas_hw) -> np.ndarray:
     """Bilinear resize (align_corners=False) kept in uint8, zero-padded into
-    an [H, W, 3] canvas at the top-left."""
+    an [H, W, 3] canvas at the top-left; f32 weights and arithmetic, u8 =
+    trunc(v + 0.5) (csrc/image_ops.cpp resize_bilinear_u8)."""
+    src = _rgb_u8(img_u8)
+    dh, dw, H, W = _extent_in_canvas(out_hw, canvas_hw)
+    lib = image_ops_library()
+    dst = np.empty((dh, dw, 3), np.uint8)
+    lib.resize_bilinear_u8(src.ctypes.data, src.shape[0], src.shape[1],
+                           dst.ctypes.data, dh, dw)
+    canvas = np.zeros((H, W, 3), np.uint8)
+    canvas[:dh, :dw] = dst
+    return canvas
+
+
+def resize_pad_u8_plain(img_u8: np.ndarray, out_hw,
+                        canvas_hw) -> np.ndarray:
+    """`resize_pad_u8` in numpy, as datr_tpu's numpy fallback computes it
+    (datr_tpu/native/__init__.py:257-275): float64 weights, so a few values
+    in a thousand are one count off the C++."""
     sh, sw = img_u8.shape[:2]
     dh, dw = out_hw
     H, W = canvas_hw
@@ -124,11 +182,30 @@ def resize_pad_u8(img_u8: np.ndarray, out_hw, canvas_hw) -> np.ndarray:
 def resize_normalize_pad(img_u8: np.ndarray, out_hw, canvas_hw,
                          mean: np.ndarray, std: np.ndarray) -> np.ndarray:
     """Bilinear resize (align_corners=False) + ImageNet normalize + zero pad
-    into a float32 [H, W, 3] canvas: the arithmetic of datr_tpu's native
-    kernel (datr_tpu/native/image_ops.cpp resize_normalize_pad, whose numpy
-    oracle is datr_tpu/native/__init__.py:112-138), every operation in
-    float32 and in its order, so the canvases are bitwise equal. An
-    unscaled image skips the sampling: its weights are exactly 1 and 0."""
+    into a float32 [H, W, 3] canvas (csrc/image_ops.cpp
+    resize_normalize_pad)."""
+    src = _rgb_u8(img_u8)
+    dh, dw, H, W = _extent_in_canvas(out_hw, canvas_hw)
+    m = np.ascontiguousarray(mean, np.float32)
+    s = np.ascontiguousarray(std, np.float32)
+    if m.shape != (3,) or s.shape != (3,):
+        raise ValueError(f"mean / std of 3 channels expected, got "
+                         f"{m.shape} / {s.shape}")
+    lib = image_ops_library()
+    dst = np.empty((H, W, 3), np.float32)
+    lib.resize_normalize_pad(src.ctypes.data, src.shape[0], src.shape[1],
+                             dst.ctypes.data, dh, dw, H, W, m.ctypes.data,
+                             s.ctypes.data)
+    return dst
+
+
+def resize_normalize_pad_plain(img_u8: np.ndarray, out_hw, canvas_hw,
+                               mean: np.ndarray,
+                               std: np.ndarray) -> np.ndarray:
+    """`resize_normalize_pad` in numpy: the C++'s arithmetic, every
+    operation in float32 and in its order, so the canvases are bitwise
+    equal. An unscaled image skips the sampling: its weights are exactly 1
+    and 0."""
     f32 = np.float32
     sh, sw = img_u8.shape[:2]
     dh, dw = out_hw
@@ -158,19 +235,34 @@ def resize_normalize_pad(img_u8: np.ndarray, out_hw, canvas_hw,
     return out
 
 
-def rgb_to_yuv420(canvas_u8: np.ndarray, real_hw=None) -> np.ndarray:
-    """Planar I420 (YUV 4:2:0, full-range BT.601 / JFIF) of an RGB canvas:
-    the yuv420 wire (1.5 bytes/px); own copy of datr_tpu's numpy form
-    (datr_tpu/native/__init__.py:187-232), every operation in float32 as
-    there. Chroma 2x2 averages clamp their samples to `real_hw`, so the zero
-    pads never bleed into the chroma of real boundary pixels. Returns flat
-    uint8 [H*W*3//2]: the Y plane, then U, then V; H and W must be even."""
+def _yuv_extent(canvas_u8: np.ndarray, real_hw):
     H, W = canvas_u8.shape[:2]
     if H % 2 or W % 2:
         raise ValueError(f"yuv420 needs an even canvas, got {(H, W)}")
     rh, rw = (int(real_hw[0]), int(real_hw[1])) if real_hw else (H, W)
     if not (0 < rh <= H and 0 < rw <= W):
         raise ValueError(f"real extent {(rh, rw)} outside canvas {(H, W)}")
+    return H, W, rh, rw
+
+
+def rgb_to_yuv420(canvas_u8: np.ndarray, real_hw=None) -> np.ndarray:
+    """Planar I420 (YUV 4:2:0, full-range BT.601 / JFIF) of an RGB canvas:
+    the yuv420 wire (1.5 bytes/px; csrc/image_ops.cpp rgb_to_yuv420).
+    Chroma 2x2 averages clamp their samples to `real_hw`, so the zero pads
+    never bleed into the chroma of real boundary pixels. Returns flat uint8
+    [H*W*3//2]: the Y plane, then U, then V; H and W must be even."""
+    H, W, rh, rw = _yuv_extent(canvas_u8, real_hw)
+    src = _rgb_u8(canvas_u8)
+    lib = image_ops_library()
+    out = np.empty(H * W * 3 // 2, np.uint8)
+    lib.rgb_to_yuv420(src.ctypes.data, H, W, rh, rw, out.ctypes.data)
+    return out
+
+
+def rgb_to_yuv420_plain(canvas_u8: np.ndarray, real_hw=None) -> np.ndarray:
+    """`rgb_to_yuv420` in numpy, every operation in float32 as the C++ does
+    it (datr_tpu/native/__init__.py:213-232): bitwise equal."""
+    H, W, rh, rw = _yuv_extent(canvas_u8, real_hw)
     f = canvas_u8.astype(np.float32)
     y = 0.299 * f[..., 0] + 0.587 * f[..., 1] + 0.114 * f[..., 2]
     yp = np.trunc(y + 0.5).astype(np.uint8)

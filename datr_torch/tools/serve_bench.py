@@ -80,7 +80,7 @@ def encode_bodies(frames, body: str):
 def build_server(args):
     """The bench's model behind an InferenceServer, as the flags say."""
     from ..config import load_config
-    from ..models.dino import build_dino_from_config
+    from ..models import build_model
     from ..serve import InferenceServer
 
     cfg = load_config(FLAGSHIP)
@@ -89,7 +89,7 @@ def build_server(args):
         cfg.update(TINY)
     if args.amp:
         cfg["amp_dtype"] = "bfloat16"
-    model = build_dino_from_config(cfg, args.device, seed=0)
+    model, _, _ = build_model(cfg, args.device, seed=0)
     canvas = tuple(args.canvas or ((96, 128) if args.tiny else (800, 1344)))
     return InferenceServer(
         model, canvas_hw=canvas, batch_size=args.batch,

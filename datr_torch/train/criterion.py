@@ -360,4 +360,7 @@ def criterion_from_config(cfg, model) -> tuple:
         mask_loss_coef=get("mask_loss_coef", 1.0),
         dice_loss_coef=get("dice_loss_coef", 1.0),
     )
+    # scales the target-domain loss of a self-training step
+    # (train/steps.py:self_training_loss_and_grads)
+    weight_dict["loss_self_training"] = get("self_training_loss_coef", 1.0)
     return ccfg, weight_dict

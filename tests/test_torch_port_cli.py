@@ -271,11 +271,11 @@ def test_loader_error_reaches_the_caller(tmp_path, monkeypatch):
 @pytest.mark.parametrize("extra", [
     ["--options", "amp_dtype=float64"],
     ["--options", "amp_dtype=float16"],
-    ["--options", "use_tensorboard=True"],
 ])
 def test_unported_flags_raise(tmp_path, extra):
     """`--amp` and amp_dtype=bfloat16 run (tests/test_torch_port_bf16.py);
-    float64 (datr_tpu's x64 debugging mode) and other dtypes do not."""
+    float64 (datr_tpu's x64 debugging mode) and other dtypes do not.
+    use_tensorboard runs (tests/test_torch_port_utils.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _run(_cfg(tmp_path), tmp_path / "out", *extra)
     assert not (tmp_path / "out").exists()

@@ -719,3 +719,46 @@ def test_http_round_trip_on_card(cuda):
     assert out["labels"] == want["labels"].tolist()
     np.testing.assert_allclose(out["scores"], want["scores"], atol=1e-6)
     np.testing.assert_allclose(out["boxes"], want["boxes"], atol=1e-3)
+
+
+def test_shared_heads_forward_through_kernels(cuda):
+    """A tiny model with shared two-stage heads (its encoder's proposal
+    heads are the decoder's): the eval forward on the card, through
+    msda_fwd (3 launches: 1 encoder + 2 decoder layers), against the same
+    model's plain forward on the CPU, with TF32 off: the two-stage
+    selection equal, logits atol 1e-3, boxes 1e-4 (chip_smoke.py phase
+    3's tolerances)."""
+    kw = dict(num_classes=4, num_queries=12, hidden_dim=32, nheads=2,
+              enc_layers=1, dec_layers=2, dim_feedforward=64, dn_number=4,
+              dn_single_pad=2, two_stage_share_heads=True)
+    model = DINO(**kw)
+    model.init_params(torch.Generator().manual_seed(0))
+    assert model.enc_out_bbox_head is model.bbox_head
+    assert not any(k.startswith("enc_out_") for k in model.state_dict())
+    model.eval()
+    gen = torch.Generator().manual_seed(1)
+    img = torch.randn(2, 64, 96, 3, generator=gen)
+    pad = torch.zeros(2, 64, 96, dtype=torch.bool)
+    pad[1, :, 80:] = True
+    with torch.no_grad():
+        want = model(img, pad)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        model.to(cuda)
+        msda.msda_fwd.launches = 0
+        with torch.no_grad():
+            got = model(img.to(cuda), pad.to(cuda))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    assert msda.msda_fwd.launches == 3
+    assert torch.equal(got["topk_idx"].cpu(), want["topk_idx"])
+    for key, w in want.items():
+        if key.endswith("logits"):
+            torch.testing.assert_close(got[key].cpu(), w, rtol=0, atol=1e-3)
+        elif key.endswith("boxes"):
+            torch.testing.assert_close(got[key].cpu(), w, rtol=0, atol=1e-4)

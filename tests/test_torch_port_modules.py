@@ -289,12 +289,12 @@ def test_get_size_with_aspect_ratio(wh):
 
 
 @pytest.mark.parametrize("flag", [dict(amp_dtype="float64"),
-                                  dict(amp_dtype="float16"),
-                                  dict(two_stage_bbox_embed_share=True)])
+                                  dict(amp_dtype="float16")])
 def test_build_refuses_what_the_port_lacks(flag):
     """bfloat16 and fast_norm build (tests/test_torch_port_bf16.py); the
     other dtypes do not: datr_tpu's float64 is its x64 debugging mode, and
-    it reads any other name as float32."""
+    it reads any other name as float32. Shared two-stage heads build
+    (tests/test_torch_port_registry.py)."""
     with pytest.raises(NotImplementedError, match=next(iter(flag))):
         tdino.build_dino_from_config(dict(num_classes=4, **flag),
                                      device="cpu")

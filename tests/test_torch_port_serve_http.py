@@ -125,11 +125,12 @@ def test_wire_decode_yuv420_matches_jax():
                            CANVAS, "rgb565")
 
 
-def test_yuv420_server_matches_datr_tpu_server(models, monkeypatch):
+def test_yuv420_server_matches_datr_tpu_server(models):
     """Both servers with the yuv420 wire answer the same uint8 requests
-    with the same detections (datr_tpu packs with its numpy forms here)."""
+    with the same detections (both resize and pack with their C++, which
+    are bitwise equal)."""
     jm, params, tm = models
-    monkeypatch.setattr(jnative, "get_lib", lambda: None)
+    assert jnative.get_lib() is not None
     imgs = _images(11)
     kw = dict(_server_kw(), wire_format="yuv420")
     with jserve.InferenceServer(jm, params, **kw) as srv:
@@ -429,8 +430,8 @@ def test_load_eval_params_picks_each_track(tmp_path):
 
 def test_inference_cli_end_to_end(tiny_ckpt, tmp_path, monkeypatch, capsys):
     """`python -m datr_torch.inference` on the CPU: decodes a PNG, draws,
-    saves; without PIL it finds the detections and raises at the drawing
-    step, naming ROADMAP §A 9."""
+    saves; without PIL it raises PIL's ImportError at the drawing step
+    (datr_tpu's drawing, utils/visualizer.py included, needs PIL)."""
     cfg, path = tiny_ckpt
     img = _images(6, ((60, 90),))[0]
     (tmp_path / "in.png").write_bytes(png.encode_png(img))
@@ -441,7 +442,7 @@ def test_inference_cli_end_to_end(tiny_ckpt, tmp_path, monkeypatch, capsys):
     assert "with 8 detections" in capsys.readouterr().out
     assert Image.open(tmp_path / "out.png").size == (90, 60)
     monkeypatch.setitem(sys.modules, "PIL", None)
-    with pytest.raises(ImportError, match="8 detections.*§A 9"):
+    with pytest.raises(ImportError, match="PIL"):
         tinference.main(argv)
 
 
