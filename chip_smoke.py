@@ -168,7 +168,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
      f32, 4 clients, 64 images) through the C++ ops, the plain versions
      patched in, and the OpenMP build; `python -m
      datr_torch.tools.benchmark` on the flagship at 800x1344, batch 1;
-  13. the result: the wall time of each phase, a {"kernels": [...]} line,
+  13. data parallelism across processes on the one card (runs after 7,
+     before 8): a. the C2F burn-in config at full width on 2 spawned ranks
+     over gloo with CUDA tensors (NCCL refuses two ranks on one device),
+     1 + 1 images per rank; the DDP step against the one-process step on
+     the whole 2 + 2 batch (each rank runs that in turn with the package's
+     collectives off; its top-k, assignments, prototype classes and ReLU
+     signs held, each rank taking its share; losses and gradients 1e-3 as
+     phase 5's check), then a warm-up, 3 timed burn-in and 2 self-training
+     DDP steps (s/step, launches per step, peak per rank; the ranks'
+     parameters and prototype state compared after every step); b. one
+     FSDP burn-in step from the same weights, batch and CDN draws, its
+     parameters within 2 lr of DDP's, the bytes each rank holds beside
+     DDP's; c. engine.evaluate(segm=True) of phase 11's masks model on 8
+     fogged frames over the 2 ranks (equal stats on both, within 1e-3 of
+     the one-process evaluate's, detections within phase 6's tolerances);
+     d. the FSDP state saved sharded (torch.distributed.checkpoint) and
+     loaded into one process by load_resume, its forward bitwise the
+     ranks'; e. phase 7's CLI under torchrun's environment, NCCL, world 1
+     (DDP on one card), its step time beside phase 7's; f. the flagship
+     served on devices=[cuda:0, cuda:0], answers as one device's;
+  14. the result: the wall time of each phase, a {"kernels": [...]} line,
      the card line, and as the last line {"ok": true, "device": {...}}.
 Imports nothing of JAX or datr_tpu. Needs one CUDA card; fails without one.
 """
@@ -860,6 +880,98 @@ def paired_batches(n, device, seed, strong=False):
             device=device, strong=strong), range(n)))
 
 
+def _share(held, like, rank, world):
+    """Rank's share of a choice `held` from the whole batch's run, for a
+    rank-local tensor of shape `like`: the slice of the first axis on
+    which they differ (whole-batch size = world x local), or `held` when
+    the shapes agree (a choice without a batch axis)."""
+    like = tuple(like)
+    if tuple(held.shape) == like:
+        return held
+    for d, (g, n) in enumerate(zip(held.shape, like)):
+        if g != n:
+            assert g == world * n, (tuple(held.shape), like)
+            return held.narrow(d, rank * n, n)
+    raise AssertionError((tuple(held.shape), like))
+
+
+@contextlib.contextmanager
+def held_choices(rank=0, world=1, held=None):
+    """Record (held=None) or replay the discrete choices of a training
+    step, as check_step_against_plain holds them: the two-stage top-k of
+    both passes, the matcher's assignments, the prototypes' class of each
+    query and the sign under every ReLU of the transformer and its heads.
+    A replay takes rank's share of each choice of the whole batch's run
+    (all of it for one process). Yields the record (dict of lists), or a
+    dict that holds, after the block, the replay's flips per call
+    (`cls_flips`, `relu_flips`) and `relu_calls`."""
+    import torch.nn.functional as F
+
+    from datr_torch.models import dino as dino_mod
+    from datr_torch.models import layers as layers_mod
+    from datr_torch.models import transformer as transformer_mod
+    from datr_torch.train import criterion as crit_mod
+
+    topk, match = dino_mod._stable_topk_indices, crit_mod.match_many
+    protos = dino_mod.class_prototypes
+    if held is None:
+        out = dict(topk=[], match=[], cls=[], relu=[])
+
+        def f_topk(x, k):
+            out["topk"].append(topk(x, k))
+            return out["topk"][-1]
+
+        def f_match(*a, **kw):
+            out["match"].append(match(*a, **kw))
+            return out["match"][-1]
+
+        def f_protos(q, logits, *a):
+            out["cls"].append(torch.sigmoid(logits).argmax(-1))
+            return protos(q, logits, *a)
+
+        def f_relu(x):
+            out["relu"].append(x > 0)
+            return F.relu(x)
+    else:
+        it = {k: iter(v) for k, v in held.items()}
+        flips = dict(cls=[], relu=[])  # device counts: no sync per call
+        out = {}
+
+        def f_topk(x, k):
+            h = next(it["topk"])
+            return _share(h, (x.shape[0], *h.shape[1:]), rank, world)
+
+        def f_match(preds, labels, *a, **kw):
+            return [_share(h, labels.shape, rank, world)
+                    for h in next(it["match"])]
+
+        def f_protos(q, logits, *a):
+            cls = _share(next(it["cls"]), q.shape[:2], rank, world)
+            flips["cls"].append((torch.sigmoid(logits).argmax(-1)
+                                 != cls).sum())
+            return protos(q, F.one_hot(cls, logits.shape[-1]).to(
+                logits.dtype), *a)
+
+        def f_relu(x):
+            h = _share(next(it["relu"]), x.shape, rank, world)
+            flips["relu"].append(((x > 0) != h).sum())
+            return torch.where(h, x, torch.zeros_like(x))
+
+    fns = types.SimpleNamespace(**{**vars(F), "relu": f_relu})
+    with mock.patch.object(dino_mod, "_stable_topk_indices", f_topk), \
+            mock.patch.object(crit_mod, "match_many", f_match), \
+            mock.patch.object(dino_mod, "class_prototypes", f_protos), \
+            mock.patch.object(layers_mod, "F", fns), \
+            mock.patch.object(transformer_mod, "F", fns):
+        yield out
+    if held is not None:
+        assert all(next(v, None) is None for v in it.values()), \
+            "the runs made other calls"
+        out.update({f"{k}_flips": [int(n) for n in v]
+                    for k, v in flips.items()},
+                   relu_calls=len(flips["relu"]))
+
+
 def check_step_against_plain(state, run, msda, loss_tol=1e-3,
                              grad_tol=1e-3, median_grad_tol=None,
                              losses_only=False,
@@ -888,56 +1000,12 @@ def check_step_against_plain(state, run, msda, loss_tol=1e-3,
     alone exceeds 0.15 on a decoder's sampling offsets in some bf16
     training states."""
     from datr_torch.models import cdn as cdn_mod
-    from datr_torch.models import dino as dino_mod
-    from datr_torch.models import layers as layers_mod
-    from datr_torch.models import transformer as transformer_mod
-    from datr_torch.train import criterion as crit_mod
 
     model = state.model
     groups, _ = cdn_mod.cdn_layout(model.dn_number, model.dn_single_pad)
     draws = cdn_mod.draw_cdn_noise(torch.Generator().manual_seed(7), 2,
                                    groups, model.dn_single_pad,
                                    model.num_classes, state.amount.device)
-    topk, match = dino_mod._stable_topk_indices, crit_mod.match_many
-    protos = dino_mod.class_prototypes
-    seen_topk, seen_assign, seen_cls, seen_relu = [], [], [], []
-    cls_flips, relu_flips = [], []
-
-    def rec_topk(x, k):
-        seen_topk.append(topk(x, k))
-        return seen_topk[-1]
-
-    def rec_match(*a, **kw):
-        seen_assign.append(match(*a, **kw))
-        return seen_assign[-1]
-
-    def rec_protos(queries, logits, *a):
-        seen_cls.append(torch.sigmoid(logits).argmax(-1))
-        return protos(queries, logits, *a)
-
-    def replay_protos(queries, logits, *a):
-        # the prototypes read the logits only through this argmax
-        cls = next(replay_cls)
-        cls_flips.append(int((torch.sigmoid(logits).argmax(-1) != cls).sum()))
-        return protos(queries, torch.nn.functional.one_hot(
-            cls, logits.shape[-1]).to(logits.dtype), *a)
-
-    def rec_relu(x):
-        # also called when a checkpointed layer is recomputed in the
-        # backward; both runs make the same calls in the same order
-        seen_relu.append(x > 0)
-        return torch.nn.functional.relu(x)
-
-    def replay_relu(x):
-        held = next(replay_masks)
-        relu_flips.append(((x > 0) != held).sum())
-        return torch.where(held, x, torch.zeros_like(x))
-
-    def relu_held(relu):
-        """torch.nn.functional as the two modules see it, with this relu."""
-        return types.SimpleNamespace(**{**vars(torch.nn.functional),
-                                        "relu": relu})
-
     seen_cells, cell_flips = [], []  # each MSDA call's x0, then its y0
     kernel_msda = msda.ms_deform_attn
 
@@ -957,22 +1025,16 @@ def check_step_against_plain(state, run, msda, loss_tol=1e-3,
             msda._corners(loc.to(torch.float32), shapes)
         return kernel_msda(value, shapes, loc, attn)
 
-    with mock.patch.object(dino_mod, "_stable_topk_indices", rec_topk), \
-            mock.patch.object(crit_mod, "match_many", rec_match), \
-            mock.patch.object(dino_mod, "class_prototypes", rec_protos), \
-            mock.patch.object(layers_mod, "F", relu_held(rec_relu)), \
-            mock.patch.object(transformer_mod, "F", relu_held(rec_relu)), \
+    with held_choices() as seen, \
             mock.patch.object(msda, "ms_deform_attn", rec_cells):
         total_k, losses_k = run(draws)
     grads_k = {n: p.grad.clone() for n, p in model.named_parameters()
                if p.grad is not None}
+    flips = []
 
     def plain_run(ms_fn, points_rotated=False):
         """The step through `ms_fn`, every choice held to the kernel
         run's: (total, losses, grads)."""
-        nonlocal replay_cls, replay_masks
-        replay_topk, replay_assign = iter(seen_topk), iter(seen_assign)
-        replay_cls, replay_masks = iter(seen_cls), iter(seen_relu)
         replay_cells = iter(seen_cells)
 
         def replay_floor(x):
@@ -984,22 +1046,13 @@ def check_step_against_plain(state, run, msda, loss_tol=1e-3,
         state.optimizer.zero_grad()
         with mock.patch.object(msda, "ms_deform_attn", ms_fn), \
                 mock.patch.object(msda, "torch", with_floor(replay_floor)), \
-                mock.patch.object(dino_mod, "_stable_topk_indices",
-                                  lambda x, k: next(replay_topk)), \
-                mock.patch.object(crit_mod, "match_many",
-                                  lambda *a, **kw: next(replay_assign)), \
-                mock.patch.object(dino_mod, "class_prototypes",
-                                  replay_protos), \
-                mock.patch.object(layers_mod, "F", relu_held(replay_relu)), \
-                mock.patch.object(transformer_mod, "F",
-                                  relu_held(replay_relu)):
+                held_choices(held=seen) as replayed:
             total, losses = run(draws)
-        assert next(replay_masks, None) is None, "the runs made other calls"
         assert next(replay_cells, None) is None, "the runs made other calls"
+        flips.append(replayed)
         return total, losses, {n: p.grad.clone() for n, p in
                                model.named_parameters() if p.grad is not None}
 
-    replay_cls = replay_masks = None
     t0 = time.perf_counter()
     total_p, losses_p, grads_p = plain_run(msda.ms_deform_attn_plain)
     if torch.cuda.is_available():
@@ -1035,10 +1088,11 @@ def check_step_against_plain(state, run, msda, loss_tol=1e-3,
                max_grad_rel=max(grad_rel.values()),
                median_grad_rel=float(np.median(list(grad_rel.values()))),
                n_grads=len(grad_rel), plain_step_s=plain_s,
-               topk_calls=len(seen_topk), match_calls=len(seen_assign),
-               prototype_class_flips=list(cls_flips),
-               relu_calls=len(seen_relu),
-               relu_sign_flips=int(torch.stack(relu_flips).sum()),
+               topk_calls=len(seen["topk"]),
+               match_calls=len(seen["match"]),
+               prototype_class_flips=flips[0]["cls_flips"],
+               relu_calls=len(seen["relu"]),
+               relu_sign_flips=sum(flips[0]["relu_flips"]),
                msda_calls=len(seen_cells) // 2,
                cell_flips=int(torch.stack(cell_flips).sum()))
     limit, floor_grad = dict.fromkeys(grad_rel, grad_tol), {}
@@ -1724,10 +1778,19 @@ def run_cli(msda, card, flags=()) -> dict:
             return out
         return f
 
+    step_s = {"burnin": [], "self_training": []}
+
     def counted(name, fn):
         def f(*a, **kw):
             calls[name] += 1
-            return fn(*a, **kw)
+            if name not in step_s:
+                return fn(*a, **kw)
+            torch.cuda.synchronize()  # each step's time, synchronized
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            step_s[name].append(time.perf_counter() - t0)
+            return out
         return f
 
     def keep_state(fn):
@@ -1811,7 +1874,7 @@ def run_cli(msda, card, flags=()) -> dict:
     for ep, ln in zip(epochs, lines):
         ep["log_time_s"] = ln["time"]
     res = dict(dtype=dtype, wall_s=wall_s, epochs=epochs, calls=calls,
-               launches=launches, tensorboard=tb,
+               step_s=step_s, launches=launches, tensorboard=tb,
                launches_derived=want, n_msda=n_msda, peak_memory_gb=peak_gb,
                allocated_before_gb=base_gb, files=files, sizes_gb=sizes,
                log_lines=[{k: v for k, v in ln.items()
@@ -1826,6 +1889,7 @@ def run_cli(msda, card, flags=()) -> dict:
         log(f"  epoch {i}: " + ", ".join(
             f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
             for k, v in ep.items()))
+    log(f"  s per step by kind (each synchronized) {step_s}")
     log(f"  steps and eval batches {calls}; launches {launches}, derived "
         f"{want} ({n_msda} MSDeformAttn, remat x{remat})")
     log(f"  log.txt lines {res['log_lines']}; files {files}")
@@ -2951,17 +3015,20 @@ def _ellipse(h, w, box):
         np.uint8)
 
 
-def write_mask_tree(root, n=8, hw=FRAME_HW, seed=5):
+def write_mask_tree(root, n=8, hw=FRAME_HW, seed=5, fog=0.0,
+                    n_val=MASK_EVAL_IMAGES):
     """<root>/masks/{train,val}/{images, annotations.json}, the
-    single-domain layout: n seeded synthetic frames as PNG (val: the first
-    MASK_EVAL_IMAGES, the same files), each object's segmentation an
-    ellipse in its box as a 24-gon, a compressed RLE or an uncompressed
-    RLE in turn. Returns the decoded frames and the PNG bodies."""
+    single-domain layout: n seeded synthetic frames as PNG (fogged by
+    `fog`; val: the first n_val, the same files), each object's
+    segmentation an ellipse in its box as a 24-gon, a compressed RLE or an
+    uncompressed RLE in turn. Returns the decoded frames and the PNG
+    bodies."""
     from datr_torch.data import png
     from datr_torch.data.synthetic import SyntheticDetectionDataset
     from datr_torch.utils.rle import encode_mask, string_from_counts
 
-    ds = SyntheticDetectionDataset(n, hw, 8, max_objects=8, seed=seed)
+    ds = SyntheticDetectionDataset(n, hw, 8, max_objects=8, seed=seed,
+                                   fog=fog)
     base = root / "masks"
     (base / "train" / "images").mkdir(parents=True)
     (base / "val").mkdir()
@@ -2999,9 +3066,9 @@ def write_mask_tree(root, n=8, hw=FRAME_HW, seed=5):
     cats = [{"id": c, "name": str(c)} for c in range(1, 9)]
     (base / "train" / "annotations.json").write_text(json.dumps(
         {"images": images, "annotations": anns, "categories": cats}))
-    keep = {im["id"] for im in images[:MASK_EVAL_IMAGES]}
+    keep = {im["id"] for im in images[:n_val]}
     (base / "val" / "annotations.json").write_text(json.dumps({
-        "images": images[:MASK_EVAL_IMAGES],
+        "images": images[:n_val],
         "annotations": [a for a in anns if a["image_id"] in keep],
         "categories": cats}))
     return frames, bodies
@@ -3575,6 +3642,653 @@ def run_registry_and_host(msda, card, host_build) -> dict:
 # ---------------------------------------------------------------- main
 
 
+# ---------------------------------------------------------------- phase 13
+
+DIST_WORLD = 2  # ranks sharing the one card over gloo (NCCL refuses that)
+DIST_STEPS = 3  # timed burn-in steps per rank, after a warm-up step
+DIST_ST_STEPS = 2  # self-training steps per rank
+DIST_EVAL_IMAGES, DIST_EVAL_SELECT = 8, 20  # the host mask finish
+DIST_SERVE_REQUESTS = 6
+
+
+def _rank_device() -> torch.device:
+    """The one card, which every rank of phase 13 shares."""
+    return torch.device("cuda", 0)
+
+
+def _dist_entry(rank, world, tmp, task, kwargs):
+    """One rank of phase 13 (spawned): gloo over CUDA tensors on the one
+    card, started by the package's `init_from_env` with torchrun's
+    variables set and a FileStore in `tmp` (one per task), the kernel
+    library the parent built; runs `task` and saves what it returns to
+    `tmp/<task>.rank<r>.pt`."""
+    import faulthandler
+
+    import torch.distributed as dist
+
+    from datr_torch.ops import _build
+    from datr_torch.parallel import dist as pdist
+
+    faulthandler.enable()  # a rank's fatal signal prints its stack
+    os.environ.update(WORLD_SIZE=str(world), RANK=str(rank),
+                      LOCAL_RANK="0")
+    pdist.init_from_env(_rank_device(), backend="gloo", store=dist.FileStore(
+        os.path.join(tmp, f"{task}.store"), world))
+    try:
+        _build.load_library()
+        out = globals()[task](rank, world, tmp, **kwargs)
+        torch.save(out, os.path.join(tmp, f"{task}.rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(task, tmp, world=DIST_WORLD, **kwargs) -> list:
+    """Run `task` on `world` spawned ranks; every rank must end well. Each
+    rank's result, in rank order."""
+    import torch.multiprocessing as mp
+
+    mp.start_processes(_dist_entry, args=(world, tmp, task, kwargs),
+                       nprocs=world, join=True, start_method="spawn")
+    return [torch.load(os.path.join(tmp, f"{task}.rank{r}.pt"),
+                       weights_only=False) for r in range(world)]
+
+
+@contextlib.contextmanager
+def one_process_view():
+    """The package as one process sees it (no all-reduce of counts, sums
+    or metrics), for a rank's run of the whole batch."""
+    from datr_torch.parallel import dist as pdist
+
+    with mock.patch.object(pdist, "process_count", lambda: 1), \
+            mock.patch.object(pdist, "data_parallel", lambda: False):
+        yield
+
+
+def _on(batch, device):
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def _bits(state) -> torch.Tensor:
+    """Two int64 sums of the bit patterns of every parameter and the
+    prototype state (plain and position-weighted): equal on two ranks
+    only if (but for a vanishing chance) the tensors are bitwise equal."""
+    flat = torch.cat([p.detach().reshape(-1) for p in
+                      state.model.parameters()]
+                     + [state.global_proto.reshape(-1), state.amount])
+    b = flat.view(torch.int32).to(torch.int64)
+    w = torch.arange(b.numel(), device=b.device) % 65521 + 1
+    return torch.stack([b.sum(), (b * w).sum()])
+
+
+def _ranks_agree(state) -> bool:
+    import torch.distributed as dist
+
+    mine = _bits(state).cpu()
+    parts = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, mine)
+    return all(torch.equal(p, parts[0]) for p in parts)
+
+
+def _gathered(t: torch.Tensor) -> torch.Tensor:
+    """The whole of a tensor sharded on dim 0 (FSDP's DTensor), by c10d's
+    all_gather of the padded local shards (DTensor.full_tensor's
+    functional all-gather dies of a segmentation fault over gloo with
+    CUDA tensors on the card's torch 2.11); a plain tensor as it is."""
+    import torch.distributed as dist
+
+    if not hasattr(t, "to_local"):
+        return t.detach()
+    local = t.to_local().detach()
+    world = dist.get_world_size()
+    sizes = [len(c) for c in torch.arange(t.shape[0]).chunk(world)]
+    sizes += [0] * (world - len(sizes))
+    assert local.shape[0] == sizes[dist.get_rank()], (t.shape, local.shape)
+    buf = local.new_zeros((max(sizes), *t.shape[1:]))
+    buf[:local.shape[0]] = local
+    parts = [torch.empty_like(buf) for _ in range(world)]
+    dist.all_gather(parts, buf)
+    return torch.cat([p[:n] for p, n in zip(parts, sizes)])
+
+
+def _grads(state) -> dict:
+    return {n: _gathered(p.grad).clone()
+            for n, p in state.model.named_parameters() if p.grad is not None}
+
+
+def _held_to(held, device) -> dict:
+    """A record of held_choices on `device` (each choice a tensor or a list
+    of them)."""
+    def to(v):
+        return v.to(device) if torch.is_tensor(v) else [x.to(device)
+                                                        for x in v]
+    return {k: [to(v) for v in vs] for k, vs in held.items()}
+
+
+def _against(losses, grads, want_losses, want_grads) -> dict:
+    """check_step_against_plain's measures: each loss's relative error,
+    each gradient tensor's error relative to its norm (or 1e-4 of the
+    whole gradient's, where that is larger)."""
+    g_norm = torch.stack([g.norm() for g in want_grads.values()]).norm()
+    loss_rel = {k: abs(losses[k] - want_losses[k])
+                / max(abs(want_losses[k]), 1e-6) for k in want_losses
+                if k.startswith("loss")}
+    grad_rel = {n: ((grads[n] - want_grads[n]).norm() / max(
+        want_grads[n].norm(), 1e-4 * g_norm)).item() for n in want_grads}
+    return dict(max_loss_rel=max(loss_rel.values()),
+                worst_loss=max(loss_rel.items(), key=lambda kv: kv[1]),
+                max_grad_rel=max(grad_rel.values()),
+                median_grad_rel=float(np.median(list(grad_rel.values()))),
+                worst_grad=max(grad_rel.items(), key=lambda kv: kv[1]),
+                n_grads=len(grad_rel))
+
+
+def dist_train(rank, world, tmp):
+    """Phase 13 a, b, d on one rank. a: the C2F burn-in step on the whole
+    global batch (2 + 2 images) in one-process view, its choices recorded
+    (the ranks in turn), then the DDP step on this rank's 1 + 1 with its
+    share of those choices, against it; a warm-up and DIST_STEPS timed
+    burn-in steps and DIST_ST_STEPS self-training steps in DDP, the ranks'
+    state compared after each. b: a fresh state under FSDP, one burn-in
+    step on the warm-up's batch and draws, against DDP's. d: the FSDP
+    state's eval forward of one image, then its sharded save. Before its
+    update, the FSDP step's losses and gradients are held against a's DDP
+    step on the same batch, draws and choices."""
+    import torch.distributed as dist
+
+    from datr_torch.models import cdn as cdn_mod
+    from datr_torch.models.layers import MSDeformAttn
+    from datr_torch.ops import msda
+    from datr_torch.parallel.mesh import (
+        local_bytes,
+        optimizer_local_bytes,
+        shard_batch,
+        shard_train_state,
+    )
+    from datr_torch.train import checkpoint as ckpt
+    from datr_torch.train.steps import (
+        loss_and_grads,
+        train_step_burnin,
+        train_step_self_training,
+    )
+
+    dev = _rank_device()
+    out = {}
+    state, ccfg, wd, cfg = c2f_train_state(DIST_STEPS + 1, seed=0)
+    model = state.model
+    n_msda = sum(isinstance(m, MSDeformAttn) for m in model.modules())
+    remat = 2 if model.use_remat else 1
+    batches = paired_batches(DIST_STEPS + 1, "cpu", seed=2, strong=True)
+    groups, _ = cdn_mod.cdn_layout(model.dn_number, model.dn_single_pad)
+    draws = cdn_mod.draw_cdn_noise(torch.Generator().manual_seed(7), 2,
+                                   groups, model.dn_single_pad,
+                                   model.num_classes, "cpu")
+    lo = rank  # one source and one target image per rank
+    my_draws = cdn_mod.CdnDraws(*(d[lo:lo + 1].to(dev) for d in draws))
+    state.dn_generator.manual_seed(rank)  # the state's seed (0) + rank
+    mine = [_on(shard_batch(b, rank, world), dev) for b in batches]
+
+    # ---- a: the whole batch in one process's view, the ranks in turn
+    want = None
+    for r in range(world):
+        if r == rank:
+            with one_process_view(), held_choices() as rec:
+                total, losses, _ = loss_and_grads(
+                    state, _on({k: v for k, v in batches[0].items()
+                                if k != "images_strong"}, dev),
+                    ccfg, wd, draws._replace(**{
+                        k: getattr(draws, k).to(dev)
+                        for k in draws._fields}))
+            want = dict(losses={k: v.item() for k, v in losses.items()},
+                        grads=_grads(state), held=rec)
+            state.optimizer.zero_grad()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    log(f"  rank {rank}: the whole batch's step recorded")
+    shard_train_state(state)  # DDP
+    held = want.pop("held")
+    with held_choices(rank, world, held) as flips:
+        total, losses, _ = loss_and_grads(state, mine[0], ccfg, wd,
+                                          my_draws)
+    got_losses = {k: v.item() for k, v in losses.items()}
+    # DDP's gradients (the ranks' mean) and this rank's losses, for b
+    ddp_ref = dict(losses=got_losses, grads={n: g.cpu() for n, g in
+                                             _grads(state).items()})
+    held = _held_to(held, "cpu")
+    # the ranks' mean of each loss is the whole batch's
+    lv = torch.tensor([got_losses[k] for k in sorted(got_losses)],
+                      dtype=torch.float64)
+    dist.all_reduce(lv)
+    mean_losses = dict(zip(sorted(got_losses), (lv / world).tolist()))
+    check = _against(mean_losses, ddp_ref["grads"], want["losses"],
+                     {n: g.cpu() for n, g in want["grads"].items()})
+    check.update(relu_calls=flips["relu_calls"],
+                 relu_flips=sum(flips["relu_flips"]),
+                 cls_flips=sum(flips["cls_flips"]), cells_held=False)
+    out["step_check"] = check
+    del want, rec
+    state.optimizer.zero_grad()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- a: the DDP steps, timed; the ranks' state compared after each
+    def step_timed(fn):
+        torch.cuda.synchronize()
+        dist.barrier()
+        msda.msda_fwd.launches = msda.msda_bwd.launches = 0
+        t0 = time.perf_counter()
+        m = fn()
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        return s, m, (msda.msda_fwd.launches, msda.msda_bwd.launches)
+
+    warm = step_timed(lambda: train_step_burnin(
+        state, {k: v for k, v in mine[0].items() if k != "images_strong"},
+        ccfg, wd, dn_draws=my_draws))
+    agree = [_ranks_agree(state)]
+    ddp_after = {n: p.detach().cpu().clone()
+                 for n, p in model.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    burn = []
+    for b in mine[1:]:
+        burn.append(step_timed(lambda: train_step_burnin(
+            state, {k: v for k, v in b.items() if k != "images_strong"},
+            ccfg, wd)))
+        agree.append(_ranks_agree(state))
+    ddp_peak = torch.cuda.max_memory_allocated() / 1e9
+    with torch.no_grad():  # one threshold on every rank: all images
+        thr_t = torch.tensor(pseudo_threshold(
+            state, [_on(b, dev) for b in batches[:DIST_ST_STEPS]]))
+    dist.all_reduce(thr_t, op=dist.ReduceOp.MIN)
+    thr = float(thr_t)
+    thresholds = torch.full((model.num_classes,), thr, device=dev)
+    st = []
+    for b in mine[:DIST_ST_STEPS]:
+        st.append(step_timed(lambda: train_step_self_training(
+            state, b, ccfg, wd, thresholds, TRAIN_CANVAS)))
+        agree.append(_ranks_agree(state))
+    out["ddp"] = dict(
+        warmup_s=warm[0],
+        burnin_s=[s for s, _, _ in burn],
+        burnin_s_per_step=float(np.mean([s for s, _, _ in burn])),
+        self_training_s=[s for s, _, _ in st],
+        self_training_s_per_step=float(np.mean([s for s, _, _ in st])),
+        burnin_launches=[n for _, _, n in burn],
+        self_training_launches=[n for _, _, n in st],
+        num_pseudo=[float(m["num_pseudo"]) for _, m, _ in st],
+        loss=[float(m["loss"]) for _, m, _ in burn + st],
+        peak_memory_gb=ddp_peak, ranks_bitwise_equal=agree,
+        model_bytes=local_bytes(model),
+        ema_bytes=local_bytes(state.ema_teacher),
+        moment_bytes=optimizer_local_bytes(state.optimizer),
+        threshold=thr, n_msda=n_msda, remat=remat)
+    want_burn = (2 * n_msda * remat, 2 * n_msda)
+    want_st = (n_msda + 2 * n_msda * remat, 2 * n_msda)
+    assert all(n == want_burn for n in out["ddp"]["burnin_launches"]), out
+    assert all(n == want_st for n in out["ddp"]["self_training_launches"])
+    assert all(agree), agree
+    assert min(out["ddp"]["num_pseudo"]) > 0, out["ddp"]["num_pseudo"]
+    del state, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"  rank {rank}: DDP steps done")
+    # ---- b: FSDP, one burn-in step from the same weights, batch, draws
+    state, ccfg, wd, cfg = c2f_train_state(DIST_STEPS + 1, seed=0)
+    shard_train_state(state, fsdp=True)
+    # a's step under FSDP, before any update: its losses and its gradients
+    # (reduce-scattered, then gathered) against DDP's
+    with held_choices(rank, world, _held_to(held, dev)):
+        _, f_losses, _ = loss_and_grads(state, mine[0], ccfg, wd, my_draws)
+    fsdp_check = _against({k: v.item() for k, v in f_losses.items()},
+                          {n: g.cpu() for n, g in _grads(state).items()},
+                          ddp_ref["losses"], ddp_ref["grads"])
+    state.optimizer.zero_grad()
+    del held, ddp_ref, f_losses
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    f = step_timed(lambda: train_step_burnin(
+        state, {k: v for k, v in mine[0].items() if k != "images_strong"},
+        ccfg, wd, dn_draws=my_draws))
+    fsdp_after = {n: _gathered(p).cpu()
+                  for n, p in state.model.named_parameters()}
+    lr = {"main": cfg.lr, "backbone": cfg.lr_backbone}
+    from datr_torch.train.optim import param_group
+
+    dev_p = {n: ((fsdp_after[n] - v).abs().max().item(),
+                 2 * lr.get(param_group(n), 0.0) + 1e-6)
+             for n, v in ddp_after.items()}
+    worst = max(dev_p.items(), key=lambda kv: kv[1][0] / kv[1][1])
+    out["fsdp"] = dict(
+        step_s=f[0], launches=f[2],
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        model_bytes=local_bytes(state.model),
+        ema_bytes=local_bytes(state.ema_teacher),
+        moment_bytes=optimizer_local_bytes(state.optimizer),
+        loss=float(f[1]["loss"]), ddp_warmup_loss=float(warm[1]["loss"]),
+        worst_param=(worst[0], *worst[1]),
+        params_within=all(d <= t for d, t in dev_p.values()),
+        against_ddp=fsdp_check)
+    assert (fsdp_check["max_loss_rel"] <= 1e-5
+            and fsdp_check["max_grad_rel"] <= 1e-3), fsdp_check
+    assert out["fsdp"]["params_within"], out["fsdp"]["worst_param"]
+    assert f[2] == want_burn, f[2]
+    del ddp_after, fsdp_after
+
+    log(f"  rank {rank}: FSDP step done")
+    # ---- d: the FSDP state's forward and its student gathered, then its
+    # sharded save
+    b0 = mine[0]
+    with torch.no_grad():
+        fwd = state.model.eval()(b0["images"][:1], b0["pad_mask"][:1])
+    out["forward"] = {k: fwd[k].cpu() for k in ("pred_logits",
+                                                "pred_boxes")}
+    state.model.train()
+    student = {k: _gathered(v).cpu() for k, v in
+               state.model.state_dict().items()}
+    if rank == 0:
+        torch.save(student, os.path.join(tmp, "student.pt"))
+    del student
+    path = os.path.join(tmp, "sharded")
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    ckpt.save_checkpoint_sharded(path, state, 0, {"ranks": world})
+    out["save_s"] = time.perf_counter() - t0
+    out["ckpt_gb"] = sum(os.path.getsize(os.path.join(path, f_))
+                         for f_ in os.listdir(path)) / 1e9
+    out["step"] = state.step
+    out["batch"] = {k: v[:1].cpu() for k, v in b0.items()
+                    if k in ("images", "pad_mask")}
+    return out
+
+
+def gt_from_own_detections(model, root, per_image=3):
+    """Rewrite <root>/masks/val's annotations with the model's own top
+    detections and masks (the first `per_image` whose label is one of the
+    tree's categories 1-8), one process, batch 1: the seeded model finds
+    none of the drawn objects, and its own detections give the evaluations
+    APs above 0, so that a merge that loses or misplaces records shows."""
+    from datr_torch.data.coco import build_dataset
+    from datr_torch.data.loader import make_eval_loader
+    from datr_torch.data.transforms import EvalTransform
+    from datr_torch.models.segmentation import det_mask_rles
+    from datr_torch.train.steps import eval_step
+    from datr_torch.utils.rle import area_of_counts
+
+    ann_path = root / "masks" / "val" / "annotations.json"
+    ann = json.loads(ann_path.read_text())
+    ann["annotations"] = []
+    dev = next(model.parameters()).device
+    model.eval()
+    for b in make_eval_loader(build_dataset("val", "masks", str(root)), 1,
+                              CANVAS, EvalTransform(800, 1333), 100):
+        with torch.no_grad():
+            res = eval_step(model, {k: torch.from_numpy(b[k]).to(dev)
+                                    for k in ("images", "pad_mask",
+                                              "orig_sizes")},
+                            num_select=DIST_EVAL_SELECT, with_masks=True)
+        keep = [j for j, lab in enumerate(res["labels"][0].tolist())
+                if 1 <= lab <= 8][:per_image]
+        oh, ow = (int(v) for v in b["orig_sizes"][0])
+        rles = det_mask_rles(res["mask_logits"][0][keep].float().cpu()
+                             .numpy(), CANVAS, tuple(b["real_sizes"][0]),
+                             (oh, ow))
+        for j, c in zip(keep, rles):
+            x0, y0, x1, y1 = res["boxes"][0][j].tolist()
+            ann["annotations"].append({
+                "id": len(ann["annotations"]) + 1,
+                "image_id": int(b["image_ids"][0]),
+                "bbox": [x0, y0, x1 - x0, y1 - y0], "iscrowd": 0,
+                "category_id": int(res["labels"][0][j]),
+                "area": float(area_of_counts(c)),
+                "segmentation": {"size": [oh, ow], "counts": c.tolist()}})
+    ann_path.write_text(json.dumps(ann))
+    return len(ann["annotations"])
+
+
+def dist_eval(rank, world, tmp, root):
+    """Phase 13 c on one rank: engine.evaluate(segm=True) of phase 11's
+    masks flagship (seeded) over this rank's shard of the val images,
+    batch 2, its detections dumped."""
+    from datr_torch import engine
+    from datr_torch.data.coco import build_dataset
+    from datr_torch.data.loader import make_eval_loader
+    from datr_torch.data.transforms import EvalTransform
+    from datr_torch.ops import msda
+
+    torch.backends.cudnn.allow_tf32 = False  # f32, as the reference's
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = flagship_model(masks=True, mask_query_chunk=MASK_CHUNK)
+    ds = build_dataset("val", "masks", root)
+    loader = make_eval_loader(ds, 2, CANVAS, EvalTransform(800, 1333), 100,
+                              process_index=rank, process_count=world)
+    dump = os.path.join(tmp, f"dets.rank{rank}.npz")
+    msda.msda_fwd.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = engine.evaluate(model, loader, range(1, 9), DIST_EVAL_SELECT,
+                            segm=True, save_results_path=dump)
+    wall = time.perf_counter() - t0
+    return dict(stats={k: np.asarray(v) for k, v in stats.items()},
+                wall_s=wall, images=len(loader.indices),
+                img_s=len(loader.indices) / wall, batches=loader.n_batches,
+                launches=msda.msda_fwd.launches, dump=dump)
+
+
+def _dets_by_image(path) -> dict:
+    return {int(r["image_id"]): r for r in np.load(
+        path, allow_pickle=True)["results"]}
+
+
+def dets_match(got, want, box_tol, score_tol) -> dict:
+    """One image's detections (the top-k of its scores) against another
+    run's, robust to the order of near-tied scores: the sorted scores
+    within score_tol, and each detection a match among the other's of its
+    label whose score is within score_tol, its box within box_tol; a
+    detection within score_tol of the other run's lowest kept score may
+    have no match (a near-tie at the top-k's cut). The largest
+    differences."""
+    gs, ws = np.sort(got["scores"])[::-1], np.sort(want["scores"])[::-1]
+    assert gs.shape == ws.shape, (gs.shape, ws.shape)
+    score_d = float(np.abs(gs - ws).max()) if len(gs) else 0.0
+    box_d, cut = 0.0, (ws.min() if len(ws) else 0.0) + score_tol
+    for b, s, lab in zip(got["boxes"], got["scores"], got["labels"]):
+        near = (want["labels"] == lab) & (np.abs(want["scores"] - s)
+                                          <= score_tol)
+        if not near.any():
+            assert s <= cut, (s, lab)
+            continue
+        box_d = max(box_d, float(np.abs(want["boxes"][near]
+                                        - b).max(-1).min()))
+    assert score_d <= score_tol and box_d <= box_tol, (score_d, box_d)
+    return dict(scores=score_d, boxes=box_d)
+
+
+def run_distributed(msda, card, cli_ref) -> dict:
+    """Phase 13: data-parallel training, evaluation, checkpoints, the CLI
+    and serving across processes or replicas on the one card. Two ranks on
+    one card show the code path, not scaling: they share its time and
+    memory."""
+    import pathlib
+    import tempfile
+
+    from datr_torch import engine
+    from datr_torch.data.coco import build_dataset
+    from datr_torch.data.loader import make_eval_loader
+    from datr_torch.data.transforms import EvalTransform
+    from datr_torch.serve import InferenceServer
+    from datr_torch.train import checkpoint as ckpt
+    from datr_torch.train.optim import Optimizer
+    from datr_torch.train.state import create_train_state
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp) / "data"
+        write_mask_tree(root, n=DIST_EVAL_IMAGES, fog=0.35,
+                        n_val=DIST_EVAL_IMAGES)
+
+        # ---- c, one process: the reference evaluation
+        log("  --- 13c reference: one process")
+        # f32 without TF32 on both sides: cuDNN may pick other algorithms
+        # in the ranks (less free memory), and TF32's would differ by 1e-3
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        model = flagship_model(masks=True, mask_query_chunk=MASK_CHUNK)
+        n_gt = gt_from_own_detections(model, root)
+        ds = build_dataset("val", "masks", str(root))
+        one_dump = os.path.join(tmp, "dets.one.npz")
+        t0 = time.perf_counter()
+        one = engine.evaluate(model, make_eval_loader(
+            ds, 2, CANVAS, EvalTransform(800, 1333), 100), range(1, 9),
+            DIST_EVAL_SELECT, segm=True, save_results_path=one_dump)
+        one_s = time.perf_counter() - t0
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- a, b, d on 2 ranks, then c on 2 ranks
+        log(f"  --- 13a/b/d: C2F on {DIST_WORLD} ranks (gloo, CUDA "
+            f"tensors, one card)")
+        t0 = time.perf_counter()
+        tr = spawn_ranks("dist_train", tmp)
+        out["train_wall_s"] = time.perf_counter() - t0
+        for r, res in enumerate(tr):
+            log(f"  rank {r}: DDP {res['ddp']}")
+            log(f"  rank {r}: FSDP {res['fsdp']}")
+            log(f"  rank {r}: step check {res['step_check']}")
+        for res in tr:
+            c = res["step_check"]
+            assert c["max_loss_rel"] <= 1e-3 and c["max_grad_rel"] <= 1e-3, c
+        out["ranks"] = [{k: res[k] for k in ("ddp", "fsdp", "step_check",
+                                             "save_s", "ckpt_gb")}
+                        for res in tr]
+        log("  --- 13c: evaluate on the ranks")
+        t0 = time.perf_counter()
+        ev = spawn_ranks("dist_eval", tmp, root=str(root))
+        out["eval_wall_s"] = time.perf_counter() - t0
+        for k in ("coco_eval_bbox", "coco_eval_masks"):
+            for res in ev[1:]:
+                assert np.array_equal(res["stats"][k], ev[0]["stats"][k]), k
+            d = np.abs(ev[0]["stats"][k] - np.asarray(one[k])).max()
+            assert d <= 1e-3, (k, d)
+            assert one[k][1] > 0, (k, one[k])  # AP50: the GT was found
+            out.setdefault("eval_stats_diff", {})[k] = float(d)
+        want = _dets_by_image(one_dump)
+        worst = {"boxes": 0.0, "scores": 0.0}
+        for res in ev:
+            for iid, r in _dets_by_image(res["dump"]).items():
+                m = dets_match(r, want[iid], 1e-4 * max(FRAME_HW), 1e-3)
+                worst = {k: max(worst[k], m[k]) for k in worst}
+        out["eval"] = dict(
+            one_process=dict(wall_s=one_s, img_s=len(ds) / one_s,
+                             stats={k: [float(x) for x in one[k]]
+                                    for k in ("coco_eval_bbox",
+                                              "coco_eval_masks")},
+                             gt_boxes=n_gt),
+            ranks=[dict(img_s=r["img_s"], wall_s=r["wall_s"],
+                        images=r["images"], launches=r["launches"])
+                   for r in ev], detections_diff=worst)
+        assert sum(r["images"] for r in ev) == len(ds)
+        log(f"  13c: {out['eval']}, stats diff {out['eval_stats_diff']}")
+
+        # ---- d: the ranks' sharded save into one process
+        log("  --- 13d: the sharded checkpoint into one process")
+        state, _, _, _ = c2f_train_state(DIST_STEPS + 1, seed=5)
+        t0 = time.perf_counter()
+        state, start, meta = ckpt.load_resume(os.path.join(tmp, "sharded"),
+                                              state)
+        load_s = time.perf_counter() - t0
+        # the loaded student's forward against the forward, in this
+        # process, of the student the ranks held (gathered before the save)
+        saved, _, _, _ = c2f_train_state(DIST_STEPS + 1, seed=6)
+        saved.model.load_state_dict(torch.load(
+            os.path.join(tmp, "student.pt"), weights_only=True))
+        b = _on(tr[0]["batch"], _rank_device())
+        with torch.no_grad():
+            fwd = state.model.eval()(b["images"], b["pad_mask"])
+            want = saved.model.eval()(b["images"], b["pad_mask"])
+        keys = ("pred_logits", "pred_boxes")
+        same = {k: torch.equal(fwd[k], want[k]) for k in keys}
+        # and against the FSDP ranks' own forward (other process, other
+        # cuDNN choices): phase 3's tolerances
+        ranks_diff = {k: (fwd[k].cpu() - tr[0]["forward"][k]).abs().max()
+                      .item() for k in keys}
+        out["checkpoint"] = dict(save_s=[r["save_s"] for r in tr],
+                                 load_s=load_s, gb=tr[0]["ckpt_gb"],
+                                 forward_bitwise=same, step=state.step,
+                                 forward_vs_ranks=ranks_diff, meta=meta)
+        log(f"  13d: {out['checkpoint']}")
+        assert all(same.values()) and state.step == tr[0]["step"], same
+        assert ranks_diff["pred_logits"] <= 1e-3, ranks_diff
+        assert ranks_diff["pred_boxes"] <= 1e-4, ranks_diff
+        del saved, want
+        assert meta == {"epoch": 0, "ranks": DIST_WORLD}, meta
+        del state, fwd
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # ---- e: the CLI under torchrun's environment, NCCL, world 1
+    log("  --- 13e: datr_torch.main over NCCL, world 1 (DDP on one card)")
+    import socket
+
+    with socket.socket() as s_:
+        s_.bind(("localhost", 0))
+        port = s_.getsockname()[1]
+    env = dict(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0",
+               MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    with mock.patch.dict(os.environ, env):
+        cl = run_cli(msda, card)
+    assert not torch.distributed.is_initialized()
+    out["cli"] = dict(cl, phase7_step_s=cli_ref["step_s"])
+    log(f"  13e: s per step, DDP at world 1 {cl['step_s']} against phase "
+        f"7's {cli_ref['step_s']} (each epoch's second step is warm) on "
+        f"{card}")
+
+    # ---- f: serving over two replicas on the one card
+    log("  --- 13f: InferenceServer(devices=[cuda:0, cuda:0])")
+    from datr_torch.models.layers import MSDeformAttn
+
+    imgs = request_images()[:DIST_SERVE_REQUESTS]
+    model = flagship_model()
+    n_msda = sum(isinstance(m, MSDeformAttn) for m in model.modules())
+    answers = {}
+    for name, kw in (("one", dict(device="cuda")),
+                     ("two", dict(devices=["cuda:0", "cuda:0"]))):
+        srv = InferenceServer(model, canvas_hw=CANVAS, batch_size=2,
+                              score_threshold=0.0, batch_timeout_s=1.0, **kw)
+        try:
+            srv.warmup()
+            torch.cuda.synchronize()
+            msda.msda_fwd.launches = 0
+            answers[name] = [f.result(timeout=600)
+                             for f in [srv.submit(im) for im in imgs]]
+            st_ = srv.stats()
+            answers[name + "_launches"] = msda.msda_fwd.launches
+            answers[name + "_batches"] = st_["batches"]
+        finally:
+            srv.close()
+    n_rep = 2
+    assert answers["two_launches"] == (n_msda * n_rep
+                                       * answers["two_batches"]), (
+        answers["two_launches"], answers["two_batches"])
+    worst = {"boxes": 0.0, "scores": 0.0}
+    for g, w in zip(answers["two"], answers["one"]):
+        m = dets_match(g, w, DETECT_TOL["boxes"], DETECT_TOL["scores"])
+        worst = {k: max(worst[k], m[k]) for k in worst}
+    out["serving"] = dict(requests=len(imgs), diff=worst,
+                          launches=answers["two_launches"],
+                          batches=answers["two_batches"],
+                          launches_per_replica_batch=answers["two_launches"]
+                          // (n_rep * answers["two_batches"]))
+    log(f"  13f: {out['serving']}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
@@ -3696,6 +4410,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done("7")
 
+    log("phase 13: data parallelism on the one card: DDP and FSDP "
+        "training on 2 ranks, sharded evaluation and checkpoints, the CLI "
+        "over NCCL at world 1, serving over two replicas")
+    dp = run_distributed(msda, card, cl)
+    log("distributed " + json.dumps(dict(dp, card=card), default=str))
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("13")
+
     log("phase 8: bfloat16: the kernels in bf16 against their plain "
         "versions (5 levels and P = 2 in both dtypes), the flagship server "
         "(fast_norm off, on), DINO_5scale and DINO_4scale_fast, C2F burn-in, "
@@ -3788,6 +4511,25 @@ def main() -> int:
                             for t in rh["traffic"].values())}
     rh_bwd = {"shared_heads_training": sh["training"]["launches"][
         "msda_bwd"]}
+    # phase 13: each rank's DDP burn-in and self-training steps and its
+    # FSDP step (counted in the rank's process), the CLI at world 1, the
+    # two-replica server
+    dd = [r["ddp"] for r in dp["ranks"]]
+    dp_fwd = {
+        "ddp_training_ranks": sum(n[0] for d in dd for n in
+                                  d["burnin_launches"]
+                                  + d["self_training_launches"]),
+        "fsdp_training_ranks": sum(r["fsdp"]["launches"][0]
+                                   for r in dp["ranks"]),
+        "cli_nccl_world1": dp["cli"]["launches"]["msda_fwd"],
+        "serving_two_replicas": dp["serving"]["launches"]}
+    dp_bwd = {
+        "ddp_training_ranks": sum(n[1] for d in dd for n in
+                                  d["burnin_launches"]
+                                  + d["self_training_launches"]),
+        "fsdp_training_ranks": sum(r["fsdp"]["launches"][1]
+                                   for r in dp["ranks"]),
+        "cli_nccl_world1": dp["cli"]["launches"]["msda_bwd"]}
     k2, k3 = kg["copy"], kg["fma"]
     kernels = [{
         "name": "msda_fwd",
@@ -3798,14 +4540,18 @@ def main() -> int:
                      + st["launches"]["msda_fwd"] + st["eval"]["launches"]
                      + cl["launches"]["msda_fwd"] + sv["launches"]
                      + sum(bb_fwd.values()) + sum(mk_fwd.values())
-                     + sum(rh_fwd.values())),
+                     + sum(rh_fwd.values()) + sum(dp_fwd.values())),
         "launches_by_path": {"serving": s["launches"],
                              "training": tr["launches"]["msda_fwd"],
                              "self_training": st["launches"]["msda_fwd"],
                              "eval": st["eval"]["launches"],
                              "cli": cl["launches"]["msda_fwd"],
                              "serving_surface": sv["launches"], **bb_fwd,
-                             **mk_fwd, **rh_fwd},
+                             **mk_fwd, **rh_fwd, **dp_fwd},
+        # phase 13: per step on each DDP rank (1 + 1 images), per FSDP step
+        "launches_per_ddp_step_per_rank": dd[0]["burnin_launches"][0][0],
+        "launches_per_ddp_self_training_step_per_rank": dd[0][
+            "self_training_launches"][0][0],
         "launches_per_distillation_step": bb["distillation"][
             "launches_per_step"]["msda_fwd"],
         "launches_per_forward": s["launches"] // s["batches"],
@@ -3857,11 +4603,13 @@ def main() -> int:
         "replaces": "datr_tpu/ops/msda_pallas.py:154",
         "launches": (tr["launches"]["msda_bwd"] + st["launches"]["msda_bwd"]
                      + cl["launches"]["msda_bwd"] + sum(bb_bwd.values())
-                     + sum(mk_bwd.values()) + sum(rh_bwd.values())),
+                     + sum(mk_bwd.values()) + sum(rh_bwd.values())
+                     + sum(dp_bwd.values())),
         "launches_by_path": {"training": tr["launches"]["msda_bwd"],
                              "self_training": st["launches"]["msda_bwd"],
                              "cli": cl["launches"]["msda_bwd"], **bb_bwd,
-                             **mk_bwd, **rh_bwd},
+                             **mk_bwd, **rh_bwd, **dp_bwd},
+        "launches_per_ddp_step_per_rank": dd[0]["burnin_launches"][0][1],
         "launches_per_train_step": tr["launches_per_step"]["msda_bwd"],
         "launches_per_self_training_step": st["launches_per_step"][
             "msda_bwd"],

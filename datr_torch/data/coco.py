@@ -48,7 +48,7 @@ def decode_rgb(data: bytes) -> np.ndarray:
         raise ImportError(
             "decoding an image that is neither a JPEG libjpeg reads nor an "
             "8-bit PNG needs PIL, which this machine lacks (other formats: "
-            f"ROADMAP §A 10){why}") from e
+            f"ROADMAP §A, image formats){why}") from e
     with Image.open(io.BytesIO(data)) as im:
         return np.asarray(im.convert("RGB"), np.uint8)
 

@@ -9,6 +9,13 @@ and the generator delivers them in order. Item j of batch bi draws from
 `random.Random(seed + 7919 * epoch + bi * 1000 + j)`, the shuffle from
 `random.Random(seed + epoch)`, so for one seed both pipelines give the same
 batches. `to_device` moves a batch onto the model's device.
+
+Across processes (`process_index` of `process_count`) each takes datr_tpu's
+share: the training loaders every process_count-th batch of the shuffled
+order (`batches[process_index::process_count]`, numbered from 0 on each
+process, as datr_tpu numbers them), the eval loader every process_count-th
+image, with the batch count rounded up to the same number on every process
+so that the evaluation's all-gathers line up.
 """
 
 from __future__ import annotations
@@ -67,12 +74,14 @@ def da_batch(s, t, ts=None) -> Dict[str, np.ndarray]:
 
 
 def _batch_order(n: int, batch_size: int, seed: int, epoch: int,
-                 shuffle: bool) -> List[List[int]]:
+                 shuffle: bool, process_index: int = 0,
+                 process_count: int = 1) -> List[List[int]]:
     order = list(range(n))
     if shuffle:
         random.Random(seed + epoch).shuffle(order)
-    return [order[i:i + batch_size]
-            for i in range(0, n - batch_size + 1, batch_size)]
+    batches = [order[i:i + batch_size]
+               for i in range(0, n - batch_size + 1, batch_size)]
+    return batches[process_index::process_count]
 
 
 def _threaded_in_order(batches, make_batch: Callable, base_seed: int,
@@ -127,6 +136,8 @@ def make_da_loader(
     num_threads: int = 4,
     epoch: int = 0,
     compute_strong: bool = True,
+    process_index: int = 0,
+    process_count: int = 1,
 ) -> Iterator[Dict[str, np.ndarray]]:
     """Yields batches:
       images        [2b, H, W, 3] f32: b source (weak), then b target (weak)
@@ -161,7 +172,8 @@ def make_da_loader(
         s, t, ts = zip(*[load_one(idx, seed_i) for idx, seed_i in items])
         return da_batch(s, t, ts if compute_strong else None)
 
-    batches = _batch_order(len(dataset), batch_size, seed, epoch, shuffle)
+    batches = _batch_order(len(dataset), batch_size, seed, epoch, shuffle,
+                           process_index, process_count)
     return _threaded_in_order(batches, make_batch, seed + 7919 * epoch,
                               num_threads)
 
@@ -176,6 +188,8 @@ def make_single_loader(
     shuffle: bool = True,
     num_threads: int = 4,
     epoch: int = 0,
+    process_index: int = 0,
+    process_count: int = 1,
 ) -> Iterator[Dict[str, np.ndarray]]:
     """Single-domain supervised batches:
       images [b, H, W, 3], pad_mask [b, H, W],
@@ -195,7 +209,8 @@ def make_single_loader(
                 "pad_mask": _stack(out, "pad_mask"),
                 **{k: _stack(out, k) for k in keys}}
 
-    batches = _batch_order(len(dataset), batch_size, seed, epoch, shuffle)
+    batches = _batch_order(len(dataset), batch_size, seed, epoch, shuffle,
+                           process_index, process_count)
     return _threaded_in_order(batches, make_batch, seed + 7919 * epoch,
                               num_threads)
 
@@ -204,19 +219,24 @@ class EvalLoader:
     """Eval batches with image ids and original sizes. The tail batch is
     padded by repeating the last image; `batch_valid` marks real entries.
     Re-iterable, and carries `.dataset` so engine.evaluate can fetch the
-    raw GT (crowd and annotation areas)."""
+    raw GT (crowd and annotation areas). With `process_count` > 1 the
+    process evaluates images process_index::process_count, in as many
+    batches as every other process."""
 
     def __init__(self, dataset, batch_size: int, canvas_hw,
                  transform: EvalTransform, max_boxes: int = 100,
-                 num_threads: int = 4):
+                 num_threads: int = 4, process_index: int = 0,
+                 process_count: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.canvas_hw = canvas_hw
         self.transform = transform
         self.max_boxes = max_boxes
-        self.indices = list(range(len(dataset)))
+        self.indices = list(range(len(dataset)))[process_index::process_count]
         self.num_threads = max(1, num_threads)
+        # equal batch counts on every process: the merges' all-gathers
         self.n_batches = -(-max(len(dataset), 1) // batch_size)
+        self.n_batches = -(-self.n_batches // max(process_count, 1))
 
     def _make_batch(self, b: int) -> Dict[str, np.ndarray]:
         bs = self.batch_size
@@ -268,6 +288,9 @@ def make_eval_loader(
     transform: EvalTransform,
     max_boxes: int = 100,
     num_threads: int = 4,
+    process_index: int = 0,
+    process_count: int = 1,
 ) -> EvalLoader:
     return EvalLoader(dataset, batch_size, canvas_hw, transform, max_boxes,
-                      num_threads=num_threads)
+                      num_threads=num_threads, process_index=process_index,
+                      process_count=process_count)

@@ -27,7 +27,7 @@ SIGNATURE = b"\x89PNG\r\n\x1a\n"
 CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 FILTERS = (0, 1, 2, 3, 4)  # None, Sub, Up, Average, Paeth
 _UNPORTED = ("is not read by the port's PNG decoder (8-bit, non-interlaced "
-             "colour types 0, 2, 3, 4, 6 only; ROADMAP §A 10)")
+             "colour types 0, 2, 3, 4, 6 only; ROADMAP §A, image formats)")
 _SIG = {"png_unfilter": ([ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
                           ctypes.c_int, ctypes.c_void_p], ctypes.c_int)}
 

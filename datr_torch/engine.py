@@ -7,7 +7,10 @@ without blocking. The training loops average the scalar metrics in a
 MetricLogger and stop on a non-finite loss (reference engine.py:81-84). The
 metrics stay on the device between drains: every DRAIN_EVERY steps one copy
 brings them to the host, so the loop does not wait for the card each step.
-Evaluation is single-process: bbox, and with `segm` mask AP too.
+Evaluation gives bbox AP, and with `segm` mask AP too. Across processes
+each evaluates its own images (the eval loader's shard) and the detections
+are all-gathered before the summary, so every process computes the same
+global stats (datr_tpu/engine.py:383, 448).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 from .data.loader import to_device
 from .eval.coco_eval import CocoEvaluator
 from .models.segmentation import det_mask_rles
+from .parallel import dist as pdist
 from .train.criterion import CriterionCfg
 from .train.ema import cosine_decay, ema_update, ramped_decay
 from .train.state import TrainState
@@ -205,9 +209,13 @@ def evaluate(model, loader: Iterable, categories: Sequence[int],
     if segm and raw_gt is None:
         raise ValueError("segm eval needs dataset.eval_annotations")
     dumped = [] if save_results_path else None
+    # per-image records for the merge, kept only when one will run
+    multi = pdist.process_count() > 1
+    det_records, segm_records, max_boxes = [], [], None
     for res, gt in _eval_batches(model, loader, num_select,
                                  float(nms_iou_threshold), logger=logger,
                                  with_masks=segm):
+        max_boxes = gt["boxes"].shape[1]
         for i, image_id in enumerate(gt["image_ids"]):
             if not gt["batch_valid"][i]:
                 continue
@@ -223,11 +231,21 @@ def evaluate(model, loader: Iterable, categories: Sequence[int],
                              gt_areas=ann["areas"])
             else:
                 gv = gt["valid"][i]
-                gt_kw = dict(
-                    gt_boxes=_gt_xyxy(gt["boxes"][i], gt["orig_sizes"][i])[gv],
-                    gt_labels=gt["labels"][i][gv])
+                gt_xyxy = _gt_xyxy(gt["boxes"][i], gt["orig_sizes"][i])
+                gt_kw = dict(gt_boxes=gt_xyxy[gv],
+                             gt_labels=gt["labels"][i][gv])
             evaluator.add_image(int(image_id), det_boxes=db, det_scores=ds,
                                 det_labels=dl, **gt_kw)
+            if multi:
+                rec = dict(image_id=int(image_id), boxes=res["boxes"][i],
+                           scores=(res["scores"][i] if "valid" not in res
+                                   else np.where(res["valid"][i],
+                                                 res["scores"][i], -1.0)),
+                           labels=res["labels"][i])
+                if raw_gt is None:  # no shared annotations: GT travels
+                    rec.update(gt_boxes=gt_xyxy, gt_labels=gt["labels"][i],
+                               gt_valid=gv)
+                det_records.append(rec)
             if evaluator_m is not None:
                 if "masks" not in ann:
                     raise ValueError("segm eval needs GT mask RLEs from "
@@ -242,12 +260,23 @@ def evaluate(model, loader: Iterable, categories: Sequence[int],
                     int(image_id), det_boxes=db, det_scores=ds, det_labels=dl,
                     gt_masks=ann["masks"], det_masks=rles,
                     mask_size=ann["mask_size"], **gt_kw)
+                if multi:
+                    segm_records.append(dict(image_id=int(image_id),
+                                             boxes=db, scores=ds, labels=dl,
+                                             rles=rles))
             if dumped is not None:
                 dumped.append(dict(image_id=int(image_id), boxes=db,
                                    scores=ds, labels=dl, **gt_kw))
     if dumped is not None:
         np.savez_compressed(save_results_path,
                             results=np.array(dumped, dtype=object))
+    if multi:
+        # the payloads' shapes are config constants (num_select, the
+        # loader's max_boxes), equal on every process
+        merge_across_processes(evaluator, det_records, raw_gt, num_select,
+                               max_boxes or 1)
+        if evaluator_m is not None:
+            merge_segm_across_processes(evaluator_m, segm_records, raw_gt)
     stats = evaluator.summarize()
     if logger:
         logger.info("COCO stats: AP=%.4f AP50=%.4f AP75=%.4f"
@@ -261,14 +290,118 @@ def evaluate(model, loader: Iterable, categories: Sequence[int],
     return out
 
 
+def merge_across_processes(evaluator: CocoEvaluator, det_records: List[dict],
+                           raw_gt, num_select: int, max_boxes: int):
+    """Add every other process's detections to `evaluator`
+    (datr_tpu/engine.py:383 `_merge_across_processes`; reference
+    CocoEvaluator.synchronize_between_processes): fixed-shape arrays, padded
+    to the largest image count and all-gathered; an NMS-dropped detection
+    carries score -1. GT travels only without raw annotations (`raw_gt`
+    None); with them each process looks the other's images up."""
+    n_max = int(pdist.all_gather_numpy(np.array(len(det_records))).max())
+    ids = np.full((n_max,), -1, np.int64)
+    boxes = np.zeros((n_max, num_select, 4), np.float32)
+    scores = np.full((n_max, num_select), -1.0, np.float32)
+    labels = np.zeros((n_max, num_select), np.int32)
+    gt_boxes = np.zeros((n_max, max_boxes, 4), np.float64)
+    gt_labels = np.zeros((n_max, max_boxes), np.int32)
+    gt_valid = np.zeros((n_max, max_boxes), bool)
+    for i, r in enumerate(det_records):
+        ids[i] = r["image_id"]
+        boxes[i], scores[i], labels[i] = r["boxes"], r["scores"], r["labels"]
+        if raw_gt is None:
+            gt_boxes[i] = r["gt_boxes"]
+            gt_labels[i] = r["gt_labels"]
+            gt_valid[i] = r["gt_valid"]
+    g_ids, g_boxes, g_scores, g_labels, g_gtb, g_gtl, g_gtv = \
+        pdist.all_gather_numpy((ids, boxes, scores, labels, gt_boxes,
+                                gt_labels, gt_valid))
+    me = pdist.process_index()
+    for p in range(pdist.process_count()):
+        if p == me:
+            continue
+        for i in range(n_max):
+            iid = int(g_ids[p, i])
+            if iid < 0:
+                continue
+            keep = g_scores[p, i] >= 0  # NMS-dropped entries carry -1
+            if raw_gt is not None:
+                ann = raw_gt(iid)
+                gt_kw = dict(gt_boxes=ann["boxes"], gt_labels=ann["labels"],
+                             gt_iscrowd=ann["iscrowd"],
+                             gt_areas=ann["areas"])
+            else:
+                gv = g_gtv[p, i]
+                gt_kw = dict(gt_boxes=g_gtb[p, i][gv],
+                             gt_labels=g_gtl[p, i][gv])
+            evaluator.add_image(iid, det_boxes=g_boxes[p, i][keep],
+                                det_scores=g_scores[p, i][keep],
+                                det_labels=g_labels[p, i][keep], **gt_kw)
+
+
+def merge_segm_across_processes(evaluator_m: CocoEvaluator,
+                                segm_records: List[dict], raw_gt):
+    """Add every other process's mask detections to `evaluator_m`
+    (datr_tpu/engine.py:448 `_merge_segm_across_processes`). The RLEs are
+    ragged, so each process's travel as one flat int64 buffer, per image
+    [image_id, D] then per detection [label, len(counts), counts...], with
+    a parallel [N_det, 5] f64 buffer of (score, xyxy box), both padded to
+    the largest process's length. The GT masks come from the annotations."""
+    ints: List[int] = []
+    floats: List[List[float]] = []
+    for r in segm_records:
+        ints += [r["image_id"], len(r["scores"])]
+        for j in range(len(r["scores"])):
+            c = np.asarray(r["rles"][j], np.int64)
+            ints += [int(r["labels"][j]), len(c), *c.tolist()]
+            floats.append([float(r["scores"][j]), *map(float, r["boxes"][j])])
+    ibuf = np.asarray(ints, np.int64)
+    fbuf = (np.asarray(floats, np.float64).reshape(-1, 5) if floats
+            else np.zeros((0, 5)))
+    lens = pdist.all_gather_numpy(
+        np.array([ibuf.size, fbuf.shape[0]], np.int64))  # [P, 2]
+    pad_i = np.zeros((int(lens[:, 0].max()),), np.int64)
+    pad_i[:ibuf.size] = ibuf
+    pad_f = np.zeros((int(lens[:, 1].max()), 5), np.float64)
+    pad_f[:fbuf.shape[0]] = fbuf
+    g_i, g_f = pdist.all_gather_numpy((pad_i, pad_f))
+    me = pdist.process_index()
+    for p in range(pdist.process_count()):
+        if p == me:
+            continue
+        buf, fl = g_i[p][:int(lens[p, 0])], g_f[p][:int(lens[p, 1])]
+        pos = det = 0
+        while pos < buf.size:
+            iid, n_det = int(buf[pos]), int(buf[pos + 1])
+            pos += 2
+            labels, rles = [], []
+            for _ in range(n_det):
+                lab, n = int(buf[pos]), int(buf[pos + 1])
+                pos += 2
+                rles.append(buf[pos:pos + n].copy())
+                pos += n
+                labels.append(lab)
+            f = fl[det:det + n_det]
+            det += n_det
+            ann = raw_gt(iid, with_masks=True)
+            evaluator_m.add_image(
+                iid, det_boxes=f[:, 1:5].reshape(-1, 4), det_scores=f[:, 0],
+                det_labels=np.asarray(labels, np.int64),
+                gt_boxes=ann["boxes"], gt_labels=ann["labels"],
+                gt_iscrowd=ann["iscrowd"], gt_areas=ann["areas"],
+                gt_masks=ann["masks"], det_masks=rles,
+                mask_size=ann["mask_size"])
+
+
 def test(model, loader: Iterable, output_dir: Optional[str],
          num_select: int = 300, nms_iou_threshold: float = -1.0,
          logger=None) -> List[dict]:
     """--test mode (reference engine.py:527-597): every detection as a
     COCO-format record, boxes cxcywh in original-image pixels, written to
-    `<output_dir>/results0.json`. With eval NMS, the survivors only: NMS
-    runs on xyxy boxes and the kept ones are converted back (the reference
-    would run it on the cxcywh tensors)."""
+    `<output_dir>/results{rank}.json` (each process its own images). With
+    eval NMS, the survivors only: NMS runs on xyxy boxes and the kept ones
+    are converted back (the reference would run it on the cxcywh
+    tensors)."""
     use_nms = nms_iou_threshold > 0
     final_res = []
     for res, gt in _eval_batches(model, loader, num_select,
@@ -292,7 +425,8 @@ def test(model, loader: Iterable, output_dir: Optional[str],
                                   "bbox": [float(x) for x in b],
                                   "score": float(sc)})
     if output_dir:
-        path = os.path.join(output_dir, "results0.json")
+        path = os.path.join(output_dir,
+                            f"results{pdist.process_index()}.json")
         with open(path, "w") as f:
             json.dump(final_res, f)
         if logger:

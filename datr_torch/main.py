@@ -4,8 +4,19 @@ Config load + CLI overrides, model / criterion build, datasets, the burn-in
 -> self-training epoch schedule, per-epoch evaluation of the student, the
 EMA teacher and (after burn-in) the best-EMA model, the best-checkpoint
 families keyed on AP50, auto-resume, and one JSON line per epoch in
-`<output_dir>/log.txt`. One process on one device: the CUDA card unless
-`--device cpu` is passed.
+`<output_dir>/log.txt`. It runs on the CUDA card unless `--device cpu` is
+passed.
+
+Across processes, as the reference's DDP runs: started by torchrun, each
+process joins the process group from torchrun's environment
+(`parallel/dist.py`: NCCL on `cuda:LOCAL_RANK`, gloo with `--device cpu`),
+loads its shard of every epoch's batches and of the evaluation images,
+and trains the student wrapped in DistributedDataParallel; `batch_size` is
+per process. The evaluations merge every process's detections, so each
+computes the global stats. Rank 0 alone writes checkpoints, the best
+families, `log.txt`'s epoch lines and TensorBoard; rank i > 0 logs to
+`log.txt.rank{i}`. `--resume` and auto-resume read a checkpoint of either
+kind (`train/checkpoint.py`: one file, or a sharded directory).
 
 Usage:
   python -m datr_torch.main -c configs/DA/Cityscapes2FoggyCityscapes/\\
@@ -13,6 +24,8 @@ DINO_4scale_C2F.py --data_root /data --output_dir runs/c2f \\
       [--options lr=2e-4 ...] [--eval [--ema]] [--test] [--resume path] \\
       [--synthetic] [--device cpu] [--amp] \\
       [--distill_teacher_ckpt ckpt [--distill_teacher_config cfg]]
+  torchrun --nproc_per_node N -m datr_torch.main -c ... (one process per
+      card; with --device cpu, N processes on gloo)
 
 `--amp` (or `--options amp_dtype=bfloat16`) runs the model in bfloat16 with
 f32 parameters, optimizer moments and EMA tracks, as datr_tpu's does;
@@ -56,6 +69,8 @@ from .engine import (
     update_emas_per_epoch,
 )
 from .models import build_model
+from .parallel import dist as pdist
+from .parallel.mesh import shard_train_state
 from .train.checkpoint import (
     BestTracker,
     load_pretrain_params,
@@ -127,7 +142,8 @@ def _refuse_unported(cfg):
     if amp_dtype not in ("float32", "bfloat16"):
         raise NotImplementedError(
             f"datr_torch does not port amp_dtype={amp_dtype!r} yet (float32 "
-            "and bfloat16 are ported; float64: ROADMAP §A 7)")
+            "and bfloat16 are ported; float64: ROADMAP §A, "
+            "amp_dtype=\"float64\")")
 
 
 def _load_into_all(state, params):
@@ -138,6 +154,22 @@ def _load_into_all(state, params):
 
 
 def main(args):
+    """The CLI's run. Under torchrun it starts the process group from the
+    environment and ends it on the way out."""
+    started = not pdist.is_initialized()
+    dev = pdist.init_from_env(args.device)
+    if dev is not None:
+        args.device = str(dev)
+    try:
+        return _run(args)
+    finally:
+        if started:
+            pdist.destroy()
+
+
+def _run(args):
+    rank, world = pdist.process_index(), pdist.process_count()
+    is_main = rank == 0
     cfg = load_config(args.config_file)
     cfg = apply_overrides(cfg, args.options)
     if args.dataset_file:
@@ -146,7 +178,7 @@ def main(args):
         cfg["amp_dtype"] = "bfloat16"
     _refuse_unported(cfg)
     os.makedirs(args.output_dir, exist_ok=True)
-    logger = setup_logger(args.output_dir)
+    logger = setup_logger(args.output_dir, process_index=rank)
     try:  # git sha for reproducibility
         sha = subprocess.run(
             ["git", "rev-parse", "HEAD"], capture_output=True, text=True,
@@ -156,9 +188,12 @@ def main(args):
     except Exception:
         pass
     logger.info(f"config: {json.dumps(dict(cfg), default=str)}")
-    with open(os.path.join(args.output_dir, "config_args_all.json"),
-              "w") as f:
-        json.dump({**dict(cfg), **vars(args)}, f, default=str, indent=1)
+    if world > 1:
+        logger.info(f"process {rank} of {world} on {args.device}")
+    if is_main:
+        with open(os.path.join(args.output_dir, "config_args_all.json"),
+                  "w") as f:
+            json.dump({**dict(cfg), **vars(args)}, f, default=str, indent=1)
 
     model, ccfg, weight_dict = build_model(cfg, args.device, seed=args.seed)
     canvas_hw = (cfg.get("canvas_h", 800), cfg.get("canvas_w", 1344))
@@ -215,7 +250,8 @@ def main(args):
     # --- state ---
     n_params = sum(p.numel() for p in model.parameters())
     logger.info(f"params: {n_params / 1e6:.2f}M")
-    steps_per_epoch = max(len(train_ds) // cfg.batch_size, 1)
+    # optimizer updates per epoch: each process takes every world-th batch
+    steps_per_epoch = max(len(train_ds) // cfg.batch_size // world, 1)
     lr_drop_step = (int(cfg.lr_drop) * steps_per_epoch
                     if cfg.get("lr_drop") else None)
     schedule_type = "step"
@@ -231,7 +267,8 @@ def main(args):
                        for e in cfg.get("lr_drop_list", [])],
         total_steps=cfg.epochs * steps_per_epoch,
     )
-    state = create_train_state(model, optimizer, seed=args.seed)
+    # each process draws its own CDN noise: seed + rank (reference)
+    state = create_train_state(model, optimizer, seed=args.seed + rank)
 
     if args.pretrain_model_path:
         loaded = load_pretrain_params(args.pretrain_model_path, state.model)
@@ -251,9 +288,17 @@ def main(args):
             args.output_dir, state)
     if args.start_epoch:
         start_epoch = args.start_epoch
+    if world > 1 and state.step:
+        # a restored state holds rank 0's CDN stream (rank 0 alone writes
+        # it): each rank draws its own again, seeded by (seed + rank, step)
+        state.dn_generator.manual_seed(int(np.random.SeedSequence(
+            [args.seed + rank, state.step]).generate_state(1)[0]))
+    if pdist.is_initialized():  # under torchrun: DDP, after every load
+        shard_train_state(state)
 
     val_loader = make_eval_loader(val_ds, cfg.batch_size, canvas_hw, eval_tf,
-                                  max_boxes, num_threads=args.num_workers)
+                                  max_boxes, num_threads=args.num_workers,
+                                  process_index=rank, process_count=world)
     nms_thr = float(cfg.get("nms_iou_threshold") or -1.0)
     # masks add the segm-AP evaluation; the synthetic sets carry no masks
     segm_eval = bool(cfg.get("masks")) and not args.synthetic
@@ -268,12 +313,16 @@ def main(args):
             state.model_ema if args.ema else state.model, val_loader,
             categories, cfg.num_select, nms_iou_threshold=nms_thr,
             logger=logger, segm=segm_eval,
-            save_results_path=os.path.join(args.output_dir, "results.npz")
+            # each process dumps the images it evaluated
+            save_results_path=os.path.join(
+                args.output_dir,
+                "results.npz" if is_main else f"results.rank{rank}.npz")
             if args.save_results else None)
         logger.info(json.dumps(stats))
         return stats
 
-    best = BestTracker(args.output_dir, initial_best=resume_meta.get("best"))
+    best = BestTracker(args.output_dir, initial_best=resume_meta.get("best"),
+                       write_enabled=is_main)
     burn_epochs = cfg.get("burn_epochs", cfg.epochs)
     thresholds = np.full((cfg.num_classes,),
                          cfg.get("pseudo_label_threshold", 0.3), np.float32)
@@ -286,7 +335,8 @@ def main(args):
     # the log.txt scalars mirrored to <output_dir>/tb (datr_tpu/main.py:
     # 350-355); a no-op where use_tensorboard is off or no backend imports
     tb = ScalarWriter(os.path.join(args.output_dir, "tb"),
-                      enabled=bool(cfg.get("use_tensorboard")))
+                      enabled=is_main and bool(cfg.get("use_tensorboard")))
+    shard = dict(process_index=rank, process_count=world)
     try:
         for epoch in range(start_epoch, cfg.epochs):
             t0 = time.time()
@@ -302,13 +352,16 @@ def main(args):
             if single_domain:
                 loader = make_single_loader(
                     train_ds, cfg.batch_size, canvas_hw, train_tf, max_boxes,
-                    seed=args.seed, epoch=epoch, num_threads=args.num_workers)
+                    seed=args.seed, epoch=epoch, num_threads=args.num_workers,
+                    **shard)
             else:
                 loader = make_da_loader(
                     train_ds, cfg.batch_size, canvas_hw, train_tf, max_boxes,
                     seed=args.seed, epoch=epoch, num_threads=args.num_workers,
                     # burn-in steps never read the strong views
-                    compute_strong=(epoch >= burn_epochs))
+                    compute_strong=(epoch >= burn_epochs), **shard)
+            if world > 1:  # equal step counts: the ranks step together
+                loader = itertools.islice(loader, steps_per_epoch)
             if args.debug:
                 loader = itertools.islice(loader, 4)
             # the use_ema per-step ModelEma, from ema_epoch on
@@ -328,9 +381,10 @@ def main(args):
                     teacher=teacher, **kw)
             update_emas_per_epoch(state, epoch, cfg)
 
-            save_checkpoint(os.path.join(args.output_dir, "checkpoint"), state,
-                            epoch, extra={"best": best.best})
-            if cfg.get("save_checkpoint_interval", 1) and (
+            if is_main:
+                save_checkpoint(os.path.join(args.output_dir, "checkpoint"),
+                                state, epoch, extra={"best": best.best})
+            if is_main and cfg.get("save_checkpoint_interval", 1) and (
                     (epoch + 1) % cfg.save_checkpoint_interval == 0):
                 save_checkpoint(
                     os.path.join(args.output_dir, f"checkpoint{epoch:04d}"),
@@ -364,13 +418,15 @@ def main(args):
                 best.update("best_ema_model", b_stats["ap50"], state.best_ema,
                             epoch)
                 log_line["ap50_best_ema"] = b_stats["ap50"]
-            # the best families as they stand after this epoch's evaluations,
-            # in the resumable checkpoint
-            update_checkpoint_meta(os.path.join(args.output_dir, "checkpoint"),
-                                   {"best": best.best})
-            with open(os.path.join(args.output_dir, "log.txt"), "a") as f:
-                f.write(json.dumps(log_line) + "\n")
-            tb.write(epoch, log_line)
+            if is_main:
+                # the best families as they stand after this epoch's
+                # evaluations, in the resumable checkpoint
+                update_checkpoint_meta(
+                    os.path.join(args.output_dir, "checkpoint"),
+                    {"best": best.best})
+                with open(os.path.join(args.output_dir, "log.txt"), "a") as f:
+                    f.write(json.dumps(log_line) + "\n")
+                tb.write(epoch, log_line)
             logger.info(json.dumps(log_line))
     finally:
         tb.close()

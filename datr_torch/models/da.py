@@ -6,6 +6,14 @@ queries' dtype, as datr_tpu does (da.py:80-83): a count above 256 is
 rounded to bf16 there (the sum is taken in f32 and rounded once, in both),
 and the port rounds it in the same place. The running state
 (`global_proto`, `amount`) stays f32.
+
+Across ranks (DDP, FSDP) the class counts and the per-class sums of the
+queries are all-reduced before the division, so the prototypes are the
+global batch's and `global_proto` / `amount` stay equal on every rank
+(datr_tpu takes them over the whole batch, datr_tpu/models/da.py:66-91).
+The sums' all-reduce is differentiable: its backward sums the ranks'
+gradients, W times the global one, which the ranks' gradient mean divides
+by W again. Both are taken in f32 and rounded to the queries' dtype once.
 """
 
 from __future__ import annotations
@@ -16,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import dist as pdist
 from .layers import Conv2d
 
 
@@ -71,10 +80,17 @@ def class_prototypes(queries: torch.Tensor, logits: torch.Tensor,
     q = queries.reshape(B * N, C)
     pred = torch.sigmoid(logits).argmax(-1).reshape(B * N)
     onehot = F.one_hot(pred, K).to(q.dtype)  # [BN, K]
-    class_count = onehot.sum(0)
+    if pdist.data_parallel():
+        class_count = pdist.all_reduce_sum(
+            onehot.float().sum(0)).to(q.dtype)
+        sums = pdist.all_reduce_sum_autograd(
+            onehot.float().T @ q.float()).to(q.dtype)
+    else:
+        class_count = onehot.sum(0)
+        sums = onehot.T @ q
     valid = (class_count != 0).to(q.dtype)
     denom = torch.where(class_count == 0, 1.0, class_count)
-    protos = (onehot.T @ q) / denom[:, None]
+    protos = sums / denom[:, None]
     with torch.no_grad():
         weight = class_count / (class_count + amount)
         weight = torch.where(class_count == 0, 0.0, weight)[:, None]

@@ -582,8 +582,8 @@ def build_dino_from_config(cfg, device=None, seed: int = 0) -> DINO:
     "bfloat16"), `fast_norm` and `two_stage_bbox_embed_share` (the encoder's
     proposal heads are the decoder's) included, and refuses any other
     amp_dtype (datr_tpu's "float64" is its x64 debugging mode: ROADMAP
-    §A 7). `masks` builds the mask head, `mask_query_chunk` bounds its live
-    (image, query) pairs."""
+    §A, `amp_dtype="float64"`). `masks` builds the mask head,
+    `mask_query_chunk` bounds its live (image, query) pairs."""
     get = cfg.get if hasattr(cfg, "get") else lambda k, d=None: getattr(
         cfg, k, d)
     dev = resolve_device(device)
@@ -591,7 +591,8 @@ def build_dino_from_config(cfg, device=None, seed: int = 0) -> DINO:
     if amp_dtype not in AMP_DTYPES:
         raise NotImplementedError(
             f"datr_torch does not implement amp_dtype={amp_dtype!r} "
-            f"(it runs {sorted(AMP_DTYPES)}; float64: ROADMAP §A 7)")
+            f"(it runs {sorted(AMP_DTYPES)}; float64: ROADMAP §A, "
+            "amp_dtype=\"float64\")")
     num_classes = get("num_classes", 91)
     model = DINO(
         num_classes=num_classes,

@@ -11,7 +11,9 @@ Threads as in datr_tpu: a batcher assembles batches, dispatchers upload and
 enqueue the forward (CUDA work is asynchronous, so a dispatcher returns while
 the card still runs), collectors copy results to the host (the copy waits for
 the card) and resolve futures. A semaphore bounds the live batches on the
-device (`max_in_flight`). One device. A model with masks also answers each
+device (`max_in_flight`). Over `devices` (the data axis of datr_tpu's mesh
+serving) the server holds one replica of the model per device and splits
+each micro-batch over them in order. A model with masks also answers each
 detection's instance mask (the top `mask_top_k`), finished on the host.
 
 Components:
@@ -23,6 +25,7 @@ Components:
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import queue
 import threading
@@ -120,7 +123,15 @@ class InferenceServer:
     batch (submit blocks beyond it), `dispatcher_threads` upload and
     enqueue, `collector_threads` copy results back, and `wire_format`
     ('u8' or 'yuv420', which needs an even canvas) is the upload's
-    layout. Mesh serving is not ported (ROADMAP §A 8).
+    layout.
+
+    `devices` (in place of `device`) serves over the data axis, as
+    datr_tpu's `mesh` does with its 'data' axis (datr_tpu/serve.py:
+    168-191): one replica of the model per entry (the same device may
+    repeat), each micro-batch split over them in order, `batch_size` a
+    multiple of their count. Answers come back in request order, equal to
+    one device's. The tensor-parallel half of mesh serving is not ported
+    (ROADMAP §A, the model axes).
 
     A model with masks (`with_masks`) copies the f16 stride-4 mask logits
     of each image's top `mask_top_k` detections (datr_tpu/serve.py:195-233)
@@ -145,6 +156,7 @@ class InferenceServer:
         wire_format: str = "u8",
         device=None,
         mask_top_k: int = 50,
+        devices=None,
     ):
         if wire_format not in WIRE_FORMATS:
             raise ValueError(f"unknown wire_format {wire_format!r}")
@@ -152,13 +164,26 @@ class InferenceServer:
             raise ValueError(
                 f"yuv420 wire format needs an even canvas, got {canvas_hw}")
         self.wire_format = wire_format
-        self.device = resolve_device(device)
-        if self.device.type == "cuda":
+        if devices is not None and device is not None:
+            raise ValueError("pass device or devices, not both")
+        self.devices = [resolve_device(d) for d in (
+            devices if devices is not None else [device])]
+        if not self.devices:
+            raise ValueError("devices is empty")
+        self.batch_size = int(batch_size)
+        if self.batch_size % len(self.devices):
+            raise ValueError(
+                f"batch_size {self.batch_size} not divisible by the mesh "
+                f"data axis ({len(self.devices)})")
+        self.device = self.devices[0]
+        if any(d.type == "cuda" for d in self.devices):
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
         self.model = model.to(self.device).eval()
+        # one replica per entry of `devices`, the first the model itself
+        self.replicas = [self.model] + [
+            copy.deepcopy(self.model).to(d).eval() for d in self.devices[1:]]
         self.canvas_hw = tuple(canvas_hw)
-        self.batch_size = int(batch_size)
         self.num_select = int(num_select)
         self.score_threshold = float(score_threshold)
         self.resize_short = int(resize_short)
@@ -204,16 +229,26 @@ class InferenceServer:
         postprocess. Returns the packed [B, num_select, 6] (score, label,
         xyxy) results on the device, and for a model with masks also the
         f16 mask logits [B, mask_top_k, h4, w4] of the best detections;
-        reading them waits for the card."""
+        reading them waits for the card. Over several devices: a list of
+        each replica's results for its share of the batch, in order."""
+        if len(self.replicas) == 1:
+            return self._replica_step(self.model, self.device, wire, sizes)
+        n = len(wire) // len(self.replicas)
+        return [self._replica_step(m, d, wire[i * n:(i + 1) * n],
+                                   sizes[i * n:(i + 1) * n])
+                for i, (m, d) in enumerate(zip(self.replicas,
+                                               self.devices))]
+
+    def _replica_step(self, model, device, wire, sizes):
         with torch.inference_mode():
-            images = torch.from_numpy(wire).to(self.device)
-            real_hw = torch.from_numpy(sizes).to(self.device)
+            images = torch.from_numpy(wire).to(device)
+            real_hw = torch.from_numpy(sizes).to(device)
             x, pad_mask = wire_decode(images, real_hw, self.canvas_hw,
                                       self.wire_format)
-            out = self.model(x, pad_mask)
+            out = model(x, pad_mask)
             # target size (1, 1): boxes relative to the real extent, scaled
             # to original pixels per request on the host
-            ones = torch.ones((x.shape[0], 2), device=self.device)
+            ones = torch.ones((x.shape[0], 2), device=device)
             res = postprocess(out["pred_logits"], out["pred_boxes"], ones,
                               num_select=self.num_select)
             packed = torch.cat([res["scores"].to(torch.float32)[..., None],
@@ -231,11 +266,24 @@ class InferenceServer:
         """One full batch outside the serving path (kernel build, cuDNN
         algorithm choice, allocator growth)."""
         H, W = self.canvas_hw
-        res = self._step(
+        self._to_host(self._step(
             np.zeros((self.batch_size, *self._wire_shape()), np.uint8),
-            np.tile(np.int32([H, W]), (self.batch_size, 1)))
-        for t in (res if isinstance(res, tuple) else (res,)):
-            t.cpu()
+            np.tile(np.int32([H, W]), (self.batch_size, 1))))
+
+    @staticmethod
+    def _to_host(res_d):
+        """A step's results on the host: (packed, mask logits or None),
+        the replicas' shares concatenated in order."""
+        parts = res_d if isinstance(res_d, list) else [res_d]
+        packed, masks = [], []
+        for r in parts:
+            if isinstance(r, tuple):
+                packed.append(r[0].cpu().numpy())
+                masks.append(r[1].cpu().numpy())
+            else:
+                packed.append(r.cpu().numpy())
+        return (np.concatenate(packed),
+                np.concatenate(masks) if masks else None)
 
     def submit(self, img_u8: np.ndarray,
                timeout: Optional[float] = None) -> Future:
@@ -408,11 +456,7 @@ class InferenceServer:
                 break
             res_d, items = got
             try:
-                if isinstance(res_d, tuple):
-                    packed = res_d[0].cpu().numpy()
-                    pred_masks = res_d[1].cpu().numpy()
-                else:
-                    packed, pred_masks = res_d.cpu().numpy(), None
+                packed, pred_masks = self._to_host(res_d)
             except Exception as e:  # a fault during the device run
                 del res_d
                 self._dev_slots.release()
@@ -616,9 +660,11 @@ def get_args_parser():
     ap.add_argument("--wire", default="u8", choices=list(WIRE_FORMATS),
                     help="host->device wire format: yuv420 halves the "
                          "upload bytes again (1.5/px)")
-    ap.add_argument("--device", default=None,
+    ap.add_argument("--device", default=None, nargs="+",
                     help="torch device (default: the CUDA card; 'cpu' runs "
-                         "the kernels' plain versions)")
+                         "the kernels' plain versions); several devices "
+                         "serve one replica each, every batch split over "
+                         "them (e.g. --device cuda:0 cuda:1)")
     return ap
 
 
@@ -629,7 +675,8 @@ def main(argv: Optional[List[str]] = None):
     from .inference import load_model
 
     cfg = apply_overrides(load_config(args.config_file), args.options)
-    model = load_model(cfg, args.ckpt, ema=args.ema, device=args.device)
+    devices = args.device or [None]
+    model = load_model(cfg, args.ckpt, ema=args.ema, device=devices[0])
     canvas = (cfg.get("canvas_h", 800), cfg.get("canvas_w", 1344))
 
     srv = InferenceServer(
@@ -638,7 +685,7 @@ def main(argv: Optional[List[str]] = None):
         batch_timeout_s=args.batch_timeout_ms / 1e3,
         max_in_flight=args.in_flight, collector_threads=args.collectors,
         dispatcher_threads=args.dispatchers, wire_format=args.wire,
-        device=args.device,
+        devices=devices,
     )
     print(json.dumps({"serve": "warmup (kernel build + first batch)"}),
           flush=True)

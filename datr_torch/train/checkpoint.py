@@ -7,9 +7,19 @@ A checkpoint is one `torch.save` file plus `<path>.meta.json` (the epoch
 and whatever the caller adds). The file holds either a whole TrainState
 (model, optimizer, the three EMA tracks, prototype state, counters, the CDN
 generator) or one model's state_dict (a best family). datr_tpu's orbax
-checkpoints are not read here: the card's machine has no orbax. The file
-is written under a temporary name and renamed, then the meta: a crash
-leaves either the old pair or the new checkpoint beside the old meta.
+checkpoints are not read here (the card's machine has no orbax):
+`tools/orbax_to_torch.py`, run where JAX is installed, writes them in this
+format. The file is written under a temporary name and renamed, then the
+meta: a crash leaves either the old pair or the new checkpoint beside the
+old meta. Across processes only rank 0 writes such a file.
+
+A sharded checkpoint (`save_checkpoint_sharded`, datr_tpu/train/
+checkpoint.py:87-115) is a torch.distributed.checkpoint directory: every
+rank writes only its own shards of the student, the optimizer and the EMA
+tracks (FSDP), rank 0 the whole tensors and the meta. It loads into any
+layout (FSDP on other ranks, DDP, one process) and back, as datr_tpu's
+restores across mesh layouts. `load_resume` and `maybe_auto_resume` read
+both kinds.
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ import torch
 from torch import nn
 
 from ..convert import DA_HEADS
+from ..parallel import dist as pdist
 from .state import EMA_TRACKS, TrainState
 
 
@@ -76,6 +87,66 @@ def update_checkpoint_meta(path: str, extra: dict):
     meta.update(extra)
     with open(path + ".meta.json", "w") as f:
         json.dump(meta, f)
+
+
+def _dcp_payload(state: TrainState) -> dict:
+    """The state as torch.distributed.checkpoint's state_dict functions
+    lay it out: the student and its optimizer by parameter name, each EMA
+    track, the prototype state and the counters."""
+    from torch.distributed.checkpoint.state_dict import (
+        get_model_state_dict,
+        get_state_dict,
+    )
+
+    model_sd, optim_sd = get_state_dict(state.model, state.optimizer.opt)
+    return {"model": model_sd, "optimizer": optim_sd,
+            **{n: get_model_state_dict(getattr(state, n))
+               for n in EMA_TRACKS},
+            "global_proto": state.global_proto, "amount": state.amount,
+            "counters": torch.tensor([state.step, state.ema_updates]),
+            "dn_generator": state.dn_generator.get_state()}
+
+
+def save_checkpoint_sharded(path: str, state: TrainState, epoch: int,
+                            extra: Optional[dict] = None):
+    """Save a state, sharded or whole, as a torch.distributed.checkpoint
+    directory at `path` without gathering it: each rank writes its own
+    shards (every rank calls this). Rank 0 writes `path + '.meta.json'`."""
+    import torch.distributed.checkpoint as dcp
+
+    path = os.path.abspath(path)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    dcp.save(_dcp_payload(state), checkpoint_id=path)
+    if pdist.is_main():
+        with open(path + ".meta.json", "w") as f:
+            json.dump({"epoch": epoch, **(extra or {})}, f)
+    pdist.barrier()
+
+
+def load_checkpoint_sharded(path: str, state: TrainState
+                            ) -> Tuple[TrainState, dict]:
+    """Restore a sharded checkpoint into `state` in place, laid out as
+    `state` is (its shards, or whole tensors in one process). Returns
+    (state, meta)."""
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.checkpoint.state_dict import (
+        set_model_state_dict,
+        set_state_dict,
+    )
+
+    path = os.path.abspath(path)
+    payload = _dcp_payload(state)
+    dcp.load(payload, checkpoint_id=path)
+    set_state_dict(state.model, state.optimizer.opt,
+                   model_state_dict=payload["model"],
+                   optim_state_dict=payload["optimizer"])
+    for n in EMA_TRACKS:
+        set_model_state_dict(getattr(state, n), payload[n])
+    state.global_proto = payload["global_proto"]
+    state.amount = payload["amount"]
+    state.step, state.ema_updates = (int(v) for v in payload["counters"])
+    state.dn_generator.set_state(payload["dn_generator"])
+    return state, _read_meta(path)
 
 
 def _restore_state(state: TrainState, payload) -> TrainState:
@@ -150,7 +221,9 @@ def maybe_auto_resume(output_dir: str, state: TrainState
     `best` so a resumed run keeps its best families."""
     path = os.path.join(output_dir, "checkpoint")
     if os.path.exists(path):
-        state, meta = load_checkpoint(path, state)
+        load = (load_checkpoint_sharded if os.path.isdir(path)
+                else load_checkpoint)
+        state, meta = load(path, state)
         return state, int(meta.get("epoch", -1)) + 1, meta
     return state, 0, {}
 
@@ -162,9 +235,12 @@ def load_resume(path: str, state: TrainState
     family, e.g. best_ema_teacher for --eval --ema) loads its weights into
     the model and every EMA track and does not advance the epoch: the
     reference sets start_epoch only when optimizer, schedule and epoch are
-    all in the checkpoint (main.py:239-245). Returns (state, start_epoch,
-    meta)."""
+    all in the checkpoint (main.py:239-245); so does a sharded one (a
+    directory). Returns (state, start_epoch, meta)."""
     path = os.path.abspath(path)
+    if os.path.isdir(path):
+        state, meta = load_checkpoint_sharded(path, state)
+        return state, int(meta.get("epoch", -1)) + 1, meta
     meta = _read_meta(path)
     payload = _load(path)
     if _is_state(payload):
@@ -180,11 +256,15 @@ class BestTracker:
     """The best AP50 of each family, saved on improvement (util/utils.py
     BestMetricHolder :398-470 + main.py's best families). `best` persists
     across restarts through the main checkpoint's meta (pass the resumed
-    dict as `initial_best`)."""
+    dict as `initial_best`). With `write_enabled=False` (a rank other than
+    0) it tracks, so every rank agrees on what is best, and writes no
+    file."""
 
-    def __init__(self, output_dir: str, initial_best: Optional[dict] = None):
+    def __init__(self, output_dir: str, initial_best: Optional[dict] = None,
+                 write_enabled: bool = True):
         self.output_dir = output_dir
         self.best: dict = dict(initial_best or {})
+        self.write_enabled = write_enabled
 
     def update(self, family: str, ap50: float, tree, epoch: int) -> bool:
         """Save `tree` (a module or a state_dict) as `family` and log it to
@@ -193,6 +273,8 @@ class BestTracker:
         if not ap50 > self.best.get(family, -1.0):  # a NaN never improves
             return False
         self.best[family] = float(ap50)
+        if not self.write_enabled:
+            return True
         save_checkpoint(os.path.join(self.output_dir, family), tree, epoch,
                         {"ap50": float(ap50)})
         with open(os.path.join(self.output_dir, "log_best.txt"), "a") as f:

@@ -13,7 +13,10 @@ the final layer's assignment (datr_tpu/train/criterion.py:274-313; the
 reference skips the aux and encoder layers' masks).
 
 Targets have static shapes: boxes [B, T, 4] normalized cxcywh, labels [B, T]
-int, valid [B, T] bool. `num_boxes` is the valid-target count. The
+int, valid [B, T] bool. `num_boxes` is the valid-target count of the global
+batch, clipped at 1 (datr_tpu/train/criterion.py:289): across ranks the
+count is all-reduced, clipped, then divided by the number of ranks, so that
+the ranks' gradients averaged (DDP, FSDP) are the global batch's. The
 assignments of every decoder layer and of the encoder output are solved
 together (`ops.matcher.match_many`: one device-to-host copy of the costs per
 call of `criterion`; a self-training step makes two calls, source and
@@ -27,8 +30,9 @@ from typing import Dict, List, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from ..ops.focal import sigmoid_ce, sigmoid_focal_loss
 from ..models.segmentation import loss_masks
+from ..ops.focal import sigmoid_ce, sigmoid_focal_loss
+from ..parallel import dist as pdist
 from ..ops.matcher import detr_matching_cost, match_many, minsum_match
 from ..utils.boxes import box_cxcywh_to_xyxy, generalized_box_iou_elementwise
 
@@ -209,6 +213,13 @@ def da_contrast_loss(query_source, query_target, class_map_source,
         query_target, class_map_target)
 
 
+def global_num_boxes(gt_valid: torch.Tensor) -> torch.Tensor:
+    """The valid-target count of the global batch clipped at 1, divided
+    by the number of ranks (a rank's share of the normaliser)."""
+    n = pdist.all_reduce_sum(gt_valid.sum().to(torch.float32))
+    return n.clamp(min=1.0) / pdist.process_count()
+
+
 def criterion(outputs: Dict[str, torch.Tensor], gt_labels: torch.Tensor,
               gt_boxes: torch.Tensor, gt_valid: torch.Tensor,
               cfg: CriterionCfg,
@@ -229,7 +240,7 @@ def criterion(outputs: Dict[str, torch.Tensor], gt_labels: torch.Tensor,
     if img_mask is not None:
         gt_valid = gt_valid & (img_mask > 0)[:, None]
     if num_boxes is None:
-        num_boxes = gt_valid.sum().to(torch.float32).clamp(min=1.0)
+        num_boxes = global_num_boxes(gt_valid)
     aux_logits = outputs["aux_logits" + sfx]
     aux_boxes = outputs["aux_boxes" + sfx]
     n_aux = aux_logits.shape[0]

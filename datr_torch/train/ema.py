@@ -6,7 +6,9 @@ models/dino/EMA.py):
 
 `ema_update` covers the parameters and the buffers: the frozen batch-norm
 statistics are buffers here and parameters in datr_tpu's tree (they never
-change, so the update leaves them as they are up to rounding).
+change, so the update leaves them as they are up to rounding). Under FSDP
+the track and its source are sharded alike (parallel/mesh.py:
+shard_train_state), and each rank updates its own shards.
 """
 
 from __future__ import annotations
@@ -19,8 +21,14 @@ from torch import nn
 
 
 def _tensors(m: nn.Module) -> List[torch.Tensor]:
-    return [t.data for t in (*m.parameters(), *m.buffers())
-            if t.is_floating_point()]
+    """Every floating-point parameter and buffer, this rank's shard of a
+    sharded one."""
+    out = []
+    for t in (*m.parameters(), *m.buffers()):
+        if t.is_floating_point():
+            t = t.data
+            out.append(t.to_local() if hasattr(t, "to_local") else t)
+    return out
 
 
 @torch.no_grad()
@@ -31,7 +39,7 @@ def ema_update(ema: nn.Module, src: nn.Module,
     1 - decay in f32, as datr_tpu's traced decays; a Python float gives it
     in double, rounded once, as datr_tpu's static one."""
     e, p = _tensors(ema), _tensors(src)
-    if len(e) != len(p):
+    if [t.shape for t in e] != [t.shape for t in p]:
         raise ValueError("the EMA track and its source differ in structure")
     if isinstance(decay, torch.Tensor):
         d = decay.to(device=e[0].device, dtype=torch.float32)

@@ -8,7 +8,9 @@ Groups, by the flax path datr_tpu labels (`_label_for_path`):
 - main:     everything else -> lr.
 Both trainable groups use AdamW with the config's weight decay. The gradient
 is clipped to a global norm over the trainable parameters only, as optax's
-clip_by_global_norm does after datr_tpu zeroes the frozen group.
+clip_by_global_norm does after datr_tpu zeroes the frozen group. Under FSDP
+(`fully_shard`) each rank holds a shard of every gradient: the norm is the
+square root of the all-reduced sum of the shards' squares.
 """
 
 from __future__ import annotations
@@ -18,6 +20,13 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 from torch import nn
+
+from ..parallel import dist as pdist
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of a sharded (DTensor) tensor, else `t`."""
+    return t.to_local() if hasattr(t, "to_local") else t
 
 
 def param_group(name: str) -> str:
@@ -93,20 +102,48 @@ class Optimizer:
                  total_steps: Optional[int] = None):
         if schedule_type not in ("step", "multistep", "onecycle"):
             raise ValueError(f"unknown schedule_type {schedule_type!r}")
-        groups = freeze_and_group(model)
         self.base_lr = {"main": lr, "backbone": lr_backbone}
+        self.weight_decay = weight_decay
         self.clip_max_norm = clip_max_norm
         self.lr_drop_factor = lr_drop_factor
         self.lr_drop_step = lr_drop_step
         self.schedule_type = schedule_type
         self.lr_drop_steps = list(lr_drop_steps or [])
         self.total_steps = total_steps
+        self._build(model)
+
+    def _build(self, model: nn.Module):
+        groups = freeze_and_group(model)
         self.params = groups["main"] + groups["backbone"]
         # optax.adamw defaults: b1 0.9, b2 0.999, eps 1e-8, decoupled decay
         self.opt = torch.optim.AdamW(
             [{"params": groups[g], "lr": self.base_lr[g], "name": g}
              for g in ("main", "backbone")],
-            betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
+            betas=(0.9, 0.999), eps=1e-8, weight_decay=self.weight_decay)
+        self._sharded = any(hasattr(p, "to_local") for p in self.params)
+
+    def rebind(self, model: nn.Module):
+        """Rebuild over `model`'s parameters as they are now (after
+        `fully_shard` replaced them by sharded ones), parameter for
+        parameter in the same order; moments already taken are carried over,
+        laid out as their new parameter."""
+        old_params, old_state = self.params, self.opt.state
+        self._build(model)
+        if len(old_params) != len(self.params):
+            raise ValueError("rebind: the model's parameters changed")
+        for old, new in zip(old_params, self.params):
+            if old not in old_state:
+                continue
+            st = {}
+            for k, v in old_state[old].items():
+                if (torch.is_tensor(v) and hasattr(new, "device_mesh")
+                        and v.shape == new.shape):
+                    from torch.distributed.tensor import distribute_tensor
+
+                    v = distribute_tensor(v.to(new.device),
+                                          new.device_mesh, new.placements)
+                st[k] = v
+            self.opt.state[new] = st
 
     def lr_at(self, step: int, group: str = "main") -> float:
         """The group's learning rate for update number `step` (0-based)."""
@@ -123,10 +160,16 @@ class Optimizer:
         return base
 
     def grad_norm(self) -> torch.Tensor:
-        """Global norm of the trainable gradients (missing ones count 0)."""
-        grads = [p.grad for p in self.params if p.grad is not None]
-        return torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        """Global norm of the trainable gradients (missing ones count 0);
+        over every rank's shard when the parameters are sharded."""
+        grads = [_local(p.grad) for p in self.params if p.grad is not None]
+        if not self._sharded:
+            return torch.linalg.vector_norm(
+                torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        # each shard's norm, squared and summed in f64 over the ranks
+        sq = torch.stack([torch.linalg.vector_norm(g) for g in grads]
+                         ).double().pow(2).sum()
+        return pdist.all_reduce_sum(sq).sqrt().to(torch.float32)
 
     def step(self, step: int) -> torch.Tensor:
         """Clip, then one AdamW update at the schedule's lr for update
@@ -140,7 +183,8 @@ class Optimizer:
             scale = torch.where(norm < self.clip_max_norm,
                                 torch.ones_like(norm),
                                 self.clip_max_norm / norm)
-            torch._foreach_mul_([p.grad for p in self.params], scale)
+            torch._foreach_mul_([_local(p.grad) for p in self.params],
+                                scale)
         for group in self.opt.param_groups:
             group["lr"] = self.lr_at(step, group["name"])
         self.opt.step()

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import copy
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 from torch import nn
@@ -42,6 +43,9 @@ class TrainState:
     step: int
     ema_updates: int  # per-epoch teacher updates, for the ramped decay
     dn_generator: torch.Generator  # CPU generator of the CDN noise
+    # the student as the training steps call it: its DistributedDataParallel
+    # wrapper across ranks (parallel/mesh.py:shard_train_state), else None
+    wrapped: Optional[nn.Module] = None
 
 
 def create_train_state(model: nn.Module, optimizer: Optimizer,

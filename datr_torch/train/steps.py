@@ -14,6 +14,13 @@ Single-domain training (`train_step_plain`) supervises the whole batch:
 boxes / labels / valid are [B, T, ...] and there is no DA branch. A batch's
 `masks` [B, T, h4, w4] (instance masks, single-domain) reach the criterion
 as its mask targets.
+
+Across ranks each rank runs the step on its share of the global batch: the
+student is called through its DDP wrapper (`state.wrapped`) or is itself
+sharded (FSDP), the criterion and the prototypes reduce their counts and
+sums (train/criterion.py, models/da.py), the teacher labels the rank's own
+target images, and the returned metrics are global: the mean over the
+ranks, the sum for `num_pseudo` (the reference's reduce_dict).
 """
 
 from __future__ import annotations
@@ -24,16 +31,22 @@ import torch
 
 from ..models.cdn import CdnDraws
 from ..models.postprocess import postprocess, postprocess_with_nms
+from ..parallel.dist import reduce_metrics
 from .criterion import CriterionCfg, criterion, weighted_total
 from .ema import ema_update
 from .pseudo import pseudo_labels_from_outputs
 from .state import TrainState
 
 
+def _student(state: TrainState):
+    """The student as the step calls it: its DDP wrapper across ranks."""
+    state.model.train()
+    return state.model if state.wrapped is None else state.wrapped
+
+
 def _student_forward(state: TrainState, images, batch, dn_draws,
                      self_training: bool = False):
-    model = state.model
-    model.train()
+    model = _student(state)
     state.optimizer.zero_grad()
     return model(images, batch["pad_mask"],
                  targets={k: batch[k] for k in ("boxes", "labels", "valid")},
@@ -82,9 +95,9 @@ def train_step_burnin(state: TrainState, batch: Dict[str, torch.Tensor],
     total, losses, out = loss_and_grads(state, batch, ccfg, weight_dict,
                                         dn_draws)
     grad_norm = _update(state, out, ema_decay)
-    return {"loss": total.detach(),
-            **{k: v.detach() for k, v in losses.items()},
-            "grad_norm": grad_norm.detach()}
+    return reduce_metrics({"loss": total.detach(),
+                           **{k: v.detach() for k, v in losses.items()},
+                           "grad_norm": grad_norm.detach()})
 
 
 def plain_loss_and_grads(state: TrainState, batch: Dict[str, torch.Tensor],
@@ -93,8 +106,7 @@ def plain_loss_and_grads(state: TrainState, batch: Dict[str, torch.Tensor],
     """The single-domain forward (the whole batch supervised, no DA
     branch), losses and backward; the gradients are left in `.grad`.
     Returns (total, losses, outputs)."""
-    model = state.model
-    model.train()
+    model = _student(state)
     state.optimizer.zero_grad()
     out = model(batch["images"], batch["pad_mask"],
                 targets={k: batch[k] for k in ("boxes", "labels", "valid")},
@@ -118,9 +130,9 @@ def train_step_plain(state: TrainState, batch: Dict[str, torch.Tensor],
     total, losses, out = plain_loss_and_grads(state, batch, ccfg,
                                               weight_dict, dn_draws)
     grad_norm = _update(state, out, ema_decay)
-    return {"loss": total.detach(),
-            **{k: v.detach() for k, v in losses.items()},
-            "grad_norm": grad_norm.detach()}
+    return reduce_metrics({"loss": total.detach(),
+                           **{k: v.detach() for k, v in losses.items()},
+                           "grad_norm": grad_norm.detach()})
 
 
 @torch.no_grad()
@@ -188,10 +200,11 @@ def train_step_self_training(state: TrainState,
     total, src, tgt, out = self_training_loss_and_grads(
         state, batch, ccfg, weight_dict, pseudo, dn_draws)
     grad_norm = _update(state, out, ema_decay)
-    return {"loss": total.detach(), "num_pseudo": pseudo[2].sum(),
-            "grad_norm": grad_norm.detach(),
-            **{k: v.detach() for k, v in src.items()},
-            **{f"{k}_target": v.detach() for k, v in tgt.items()}}
+    return reduce_metrics({
+        "loss": total.detach(), "num_pseudo": pseudo[2].sum(),
+        "grad_norm": grad_norm.detach(),
+        **{k: v.detach() for k, v in src.items()},
+        **{f"{k}_target": v.detach() for k, v in tgt.items()}})
 
 
 @torch.no_grad()

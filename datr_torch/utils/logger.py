@@ -1,7 +1,9 @@
 """Logging and training meters (port of datr_tpu/utils/logger.py; reference
 util/logger.py:setup_logger :31-92, util/misc.py SmoothedValue /
-MetricLogger :32-262): the window smoothing and the log_every cadence. One
-process, so the meters need no cross-rank sync.
+MetricLogger :32-262): the window smoothing and the log_every cadence. The
+meters need no cross-rank sync: the training steps return global metrics
+(train/steps.py). Across processes rank 0 logs to stdout and `log.txt`,
+rank i > 0 to `log.txt.rank{i}` only (datr_tpu/utils/logger.py:19-44).
 """
 
 from __future__ import annotations
@@ -16,9 +18,11 @@ from typing import Dict, Iterable, Optional
 
 def setup_logger(
     output: Optional[str] = None, name: str = "datr_torch",
+    process_index: int = 0,
 ) -> logging.Logger:
     """The named logger, to stdout and to `output` (a .txt/.log file, or
-    `<output>/log.txt`). Once it has handlers it is returned as it is."""
+    `<output>/log.txt`); for `process_index` > 0 to `<file>.rank{i}` and
+    not to stdout. Once it has handlers it is returned as it is."""
     logger = logging.getLogger(name)
     if logger.handlers:
         return logger
@@ -28,16 +32,19 @@ def setup_logger(
         "[%(asctime)s.%(msecs)03d] %(name)s %(levelname)s: %(message)s",
         datefmt="%m/%d %H:%M:%S",
     )
-    ch = logging.StreamHandler(stream=sys.stdout)
-    ch.setLevel(logging.DEBUG)
-    ch.setFormatter(fmt)
-    logger.addHandler(ch)
+    if process_index == 0:
+        ch = logging.StreamHandler(stream=sys.stdout)
+        ch.setLevel(logging.DEBUG)
+        ch.setFormatter(fmt)
+        logger.addHandler(ch)
     if output:
         if output.endswith(".txt") or output.endswith(".log"):
             filename = output
         else:
             os.makedirs(output, exist_ok=True)
             filename = os.path.join(output, "log.txt")
+        if process_index > 0:
+            filename = f"{filename}.rank{process_index}"
         fh = logging.FileHandler(filename)
         fh.setLevel(logging.DEBUG)
         fh.setFormatter(fmt)

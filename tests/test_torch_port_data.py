@@ -371,15 +371,52 @@ def test_eval_loader_equals_datr_tpu(data_root, num_threads):
     assert got.dataset.eval_annotations is not None
 
 
+@pytest.mark.parametrize("index,count", [(0, 2), (1, 2), (2, 3)])
+def test_loader_shards_equal_datr_tpu(data_root, index, count):
+    """Process `index` of `count`: the paired, single-domain and eval
+    loaders (EvalLoader itself and make_eval_loader) take datr_tpu's share
+    of the batches and images, np.array_equal, with the eval batch count
+    rounded up alike on every process."""
+    shard = dict(process_index=index, process_count=count)
+    kw = dict(max_boxes=8, seed=2, epoch=1, num_threads=2, **shard)
+    assert_batches_equal(
+        tloader.make_da_loader(tsynth.synthetic_da_pair(6, num_classes=4), 1,
+                               CANVAS, ttf.DATrainTransform(**AUG), **kw),
+        jloader.make_da_loader(jsynth.synthetic_da_pair(6, num_classes=4), 1,
+                               CANVAS, jtf.DATrainTransform(**AUG), **kw))
+    assert_batches_equal(
+        tloader.make_single_loader(
+            tcoco.build_dataset("train", "single", data_root), 1, CANVAS,
+            ttf.SingleDomainTrainTransform(**AUG), **kw),
+        jloader.make_single_loader(
+            jcoco.build_dataset("train", "single", data_root), 1, CANVAS,
+            jtf.SingleDomainTrainTransform(**AUG), **kw))
+    eval_kw = dict(num_threads=1, **shard)
+    args = (2, CANVAS)
+    got = tloader.EvalLoader(tcoco.build_dataset("val", "c2f", data_root),
+                             *args, ttf.EvalTransform(80, 120), 8, **eval_kw)
+    want = jloader.EvalLoader(jcoco.build_dataset("val", "c2f", data_root),
+                              *args, jtf.EvalTransform(80, 120), 8, **eval_kw)
+    assert got.n_batches == want.n_batches == 1
+    assert_batches_equal(got, want)
+    assert_batches_equal(
+        tloader.make_eval_loader(
+            tcoco.build_dataset("val", "c2f", data_root), *args,
+            ttf.EvalTransform(80, 120), 8, **eval_kw),
+        jloader.make_eval_loader(
+            jcoco.build_dataset("val", "c2f", data_root), *args,
+            jtf.EvalTransform(80, 120), 8, **eval_kw))
+
+
 def test_open_rgb_without_pil_raises(data_root, tmp_path, monkeypatch):
     """Without PIL the port still reads the PNG folders (its own decoder,
     the images equal to datr_tpu's through PIL); a file that is neither
-    JPEG nor PNG (BMP here) needs PIL and raises, naming ROADMAP §A 10."""
+    JPEG nor PNG (BMP here) needs PIL and raises, naming its ROADMAP item."""
     ds = tcoco.build_dataset("val", "c2f", data_root)
     want = np.asarray(jcoco.build_dataset("val", "c2f", data_root).load(0)[0])
     bmp = tmp_path / "frame.bmp"
     pil(rgb(9, 20, 30)).save(bmp)
     monkeypatch.setitem(__import__("sys").modules, "PIL", None)
     np.testing.assert_array_equal(ds.load(0)[0], want)
-    with pytest.raises(ImportError, match="needs PIL.*§A 10"):
+    with pytest.raises(ImportError, match="needs PIL.*§A, image formats"):
         tcoco.open_rgb(str(bmp))

@@ -124,7 +124,7 @@ def test_png_refuses_what_it_does_not_read():
     assert png.decode_png_rgb(b"not a png") is None
     assert png.decode_png_rgb(b"") is None
     for kw in ({"depth": 16}, {"depth": 4}, {"interlace": 1}):
-        with pytest.raises(NotImplementedError, match="§A 10"):
+        with pytest.raises(NotImplementedError, match="§A, image formats"):
             png.decode_png_rgb(_with_ihdr(good, **kw))
     buf = io.BytesIO()  # a 16-bit gray file as Pillow writes it
     Image.fromarray(np.arange(48, dtype=np.uint16).reshape(6, 8) * 999

@@ -762,3 +762,77 @@ def test_shared_heads_forward_through_kernels(cuda):
             torch.testing.assert_close(got[key].cpu(), w, rtol=0, atol=1e-3)
         elif key.endswith("boxes"):
             torch.testing.assert_close(got[key].cpu(), w, rtol=0, atol=1e-4)
+
+
+def test_two_ranks_ddp_step_on_the_card(cuda, tmp_path, monkeypatch):
+    """Two ranks on the one card over gloo (CUDA tensors), the student in
+    DDP, each on its share of a global batch of 2 + 2 images: every loss
+    and grad_norm of the burn-in and self-training steps within rtol 1e-4
+    of the one-process step on the whole batch (this process, same card),
+    each gradient within 1e-3 of its norm (+ 1e-7 of the whole
+    gradient's), the ranks' parameters and prototype state bitwise equal,
+    and the MSDA kernels launched on each rank."""
+    import os
+    import sys
+
+    import numpy as np
+
+    from datr_torch.models import cdn as tcdn
+    from datr_torch.models import dino as tdino
+    from datr_torch.train.criterion import build_weight_dict
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    import torch_port_dist_worker as worker
+
+    _build.build()  # once, before the ranks load the library
+    stages = (1, 1, 1, 1)
+    monkeypatch.setitem(tdino.RESNET_STAGES, "resnet50", stages)
+    kw = dict(num_classes=4, num_queries=12, hidden_dim=32, nheads=4,
+              enc_layers=1, dec_layers=2, dim_feedforward=64, dn_number=4,
+              dn_single_pad=2, dn_labelbook_size=4)
+    model = DINO(**kw)
+    model.init_params(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(11)
+    images = rng.standard_normal((4, 64, 96, 3)).astype(np.float32)
+    pad = np.zeros((4, 64, 96), bool)
+    pad[:, 56:] = True
+    pad[1, :, 48:] = True
+    images[pad] = 0.0
+    boxes = np.concatenate([rng.random((2, 3, 2)) * 0.5 + 0.25,
+                            rng.random((2, 3, 2)) * 0.3 + 0.1], -1)
+    batch = {k: torch.from_numpy(np.asarray(v)) for k, v in dict(
+        images=images, images_strong=images, pad_mask=pad,
+        boxes=boxes.astype(np.float32),
+        labels=rng.integers(0, 4, (2, 3)).astype(np.int32),
+        valid=np.ones((2, 3), bool)).items()}
+    groups, _ = tcdn.cdn_layout(4, 2)
+    draws = tcdn.draw_cdn_noise(torch.Generator().manual_seed(1), 2, groups,
+                                2, 4, "cpu")
+    common = dict(stages=stages, kw=kw, sd=model.state_dict(), batch=batch,
+                  ccfg=dict(num_classes=4, dn_single_pad=2, dn_groups=2),
+                  wd=build_weight_dict(dec_layers=2), burnin_draws=draws,
+                  st_draws=draws, thr=torch.full((4,), 0.1),
+                  canvas=(64, 96), lr=1e-4, lr_backbone=1e-5, device="cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = worker.spawn([("steps", common)], 2, tmp_path)
+    try:
+        one = worker.steps(0, 1, **common)
+    finally:
+        worker.join(ctx)
+    r0, r1 = worker.results(tmp_path, "steps", 2)
+    for name in ("burnin", "self_training"):
+        a, b, want = r0[name], r1[name], one[name]
+        assert a["metrics"] == b["metrics"]
+        for k, v in want["metrics"].items():
+            if not k.startswith(("class_error", "cardinality_error")):
+                assert abs(a["metrics"][k] - v) <= 1e-4 * abs(v) + 1e-5, k
+        total = torch.stack([g.norm() for g in want["grads"].values()]).norm()
+        for n, g in a["grads"].items():
+            err = (g - want["grads"][n]).norm()
+            assert err <= 1e-3 * want["grads"][n].norm() + 1e-7 * total, n
+        for k, v in a["after"]["model"].items():
+            assert torch.equal(v, b["after"]["model"][k]), k
+        assert torch.equal(a["after"]["global_proto"],
+                           b["after"]["global_proto"])
+        assert a["launches"][0] > 0 and a["launches"][0] == b["launches"][0]

@@ -202,3 +202,38 @@ def test_default_device_raises_without_a_card(models, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         tserve.InferenceServer(tm, device=None, **_server_kw())
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_server_over_two_devices_answers_as_one(models):
+    """devices=["cpu", "cpu"]: a replica per entry, each micro-batch of 2
+    split one image to each, the answers in request order: the labels
+    equal one device's, scores and boxes within the forward tolerances
+    (each replica runs a batch of 1). A batch size the devices do not
+    divide raises datr_tpu's ValueError; device and devices together
+    raise."""
+    _, _, tm = models
+    rng = np.random.default_rng(12)
+    imgs = [rng.integers(0, 256, (h, w, 3)).astype(np.uint8)
+            for h, w in ((80, 110), (120, 60), (50, 200), (33, 47),
+                         (96, 128))]
+    answers = []
+    for kw in (dict(device="cpu"), dict(devices=["cpu", "cpu"])):
+        with tserve.InferenceServer(tm, **kw, **_server_kw()) as srv:
+            answers.append([f.result(timeout=120)
+                            for f in [srv.submit(i) for i in imgs]])
+            n_replicas = len(srv.replicas)
+    assert n_replicas == 2
+    for img, g, w in zip(imgs, answers[1], answers[0]):
+        h0, w0 = img.shape[:2]
+        np.testing.assert_array_equal(g["labels"], w["labels"])
+        np.testing.assert_allclose(g["scores"], w["scores"], rtol=0,
+                                   atol=LOGIT_ATOL)
+        np.testing.assert_allclose(g["boxes"], w["boxes"], rtol=0,
+                                   atol=BOX_ATOL * max(h0, w0))
+    kw = dict(_server_kw(), batch_size=3)
+    with pytest.raises(ValueError, match="batch_size 3 not divisible by "
+                       "the mesh data axis \\(2\\)"):
+        tserve.InferenceServer(tm, devices=["cpu", "cpu"], **kw)
+    with pytest.raises(ValueError, match="device or devices"):
+        tserve.InferenceServer(tm, device="cpu", devices=["cpu"],
+                               **_server_kw())
