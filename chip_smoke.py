@@ -281,12 +281,14 @@ def msda_inputs(gen, lq, dtype=torch.float32, d=D, case="random",
 def value_rows_touched(msda, loc, shapes=SHAPES) -> int:
     """Distinct (b, h, token) rows of value that carry a nonzero bilinear
     weight for these sampling locations: the rows the function must read."""
-    s_tok = sum(h * w for h, w in shapes)
+    s_tok, heads = sum(h * w for h, w in shapes), loc.shape[2]
     indices, weights = msda._corner_gather_indices(loc, shapes)
-    bh = (torch.arange(B, device=loc.device)[:, None, None, None, None] * H
-          + torch.arange(H, device=loc.device)[None, None, :, None, None]
+    bh = (torch.arange(B, device=loc.device)[:, None, None, None, None]
+          * heads
+          + torch.arange(heads, device=loc.device)[None, None, :, None, None]
           ) * s_tok
-    touched = torch.zeros(B * H * s_tok, dtype=torch.bool, device=loc.device)
+    touched = torch.zeros(B * heads * s_tok, dtype=torch.bool,
+                          device=loc.device)
     for idx, w in zip(indices, weights):
         touched[(bh + idx)[w != 0]] = True
     return int(touched.sum().item())
@@ -319,11 +321,11 @@ def msda_bound(msda, loc, elt=4, d=D, shapes=SHAPES):
     inputs: the value rows they touch, loc and attn each read once and the
     output written once, against the f32 operations (a multiply-add per
     gathered element)."""
-    lq, n_l, n_p = loc.shape[1], loc.shape[3], loc.shape[4]
+    lq, heads, n_l, n_p = loc.shape[1:5]  # heads: H, or a TP rank's share
     rows = value_rows_touched(msda, loc, shapes)
-    n_samples = B * lq * H * n_l * n_p
+    n_samples = B * lq * heads * n_l * n_p
     n_bytes = (rows * d * elt + n_samples * 2 * 4 + n_samples * 4
-               + B * lq * H * d * elt)
+               + B * lq * heads * d * elt)
     flops = n_samples * 4 * d * 2
     return (*roofline(n_bytes, flops), rows)
 
@@ -337,11 +339,11 @@ def msda_bwd_bound(msda, loc, d=D, shapes=SHAPES, elt=4):
     grad_loc / grad_attn written in f32; 4 f32 operations per gathered
     element (the dot product's multiply-add and the scattered
     multiply-add)."""
-    lq, n_l, n_p = loc.shape[1], loc.shape[3], loc.shape[4]
+    lq, heads, n_l, n_p = loc.shape[1:5]
     s_tok = sum(h * w for h, w in shapes)
     rows = value_rows_touched(msda, loc, shapes)
-    n_samples = B * lq * H * n_l * n_p
-    n_bytes = ((rows + B * s_tok * H + B * lq * H) * d * elt
+    n_samples = B * lq * heads * n_l * n_p
+    n_bytes = ((rows + B * s_tok * heads + B * lq * heads) * d * elt
                + n_samples * 2 * 4 * 2 + n_samples * 4 * 2)
     flops = n_samples * 4 * d * 4
     return (*roofline(n_bytes, flops), rows)
@@ -456,19 +458,21 @@ def check_model_locations(msda, calls, parts, shapes, backward) -> dict:
         gen = torch.Generator(device=value.device).manual_seed(2)
         dt = dtype_name(value)
         assert sh == tuple(shapes), (sh, lq)
-        assert value.shape == (B, sum(h * w for h, w in sh), H, D)
+        # H heads, or a tensor-parallel rank's share of them
+        heads = value.shape[2]
+        assert value.shape == (B, sum(h * w for h, w in sh), heads, D)
         err = {"fwd": check_fwd(msda, f"{part} at the model's locations",
                                 value, sh, loc, attn)}
         # an encoder launch (every token a query) is timed over fewer calls
         iters, p_iters = (10, 2) if lq == value.shape[1] else (50, 5)
-        t = dict(lq=lq, dtype=dt)
+        t = dict(lq=lq, dtype=dt, heads=heads)
         f = time_fwd(msda, value, sh, loc, attn, iters, p_iters)
         if not backward:
             t.update(f, max_abs_err=err["fwd"])
             log(f"  msda_fwd {part} Lq={lq} {dt}, the model's locations: "
                 f"max_abs_err {err['fwd']:.3g}; {describe(f)}")
         else:
-            g = torch.randn(B, lq, H * D, device=value.device,
+            g = torch.randn(B, lq, heads * D, device=value.device,
                             generator=gen).to(value.dtype)
             err.update(check_bwd(msda, f"{part} at the model's locations",
                                  value, sh, loc, attn, g))
@@ -880,31 +884,42 @@ def paired_batches(n, device, seed, strong=False):
             device=device, strong=strong), range(n)))
 
 
-def _share(held, like, rank, world):
+def _share(held, like, rank, world, inner=None):
     """Rank's share of a choice `held` from the whole batch's run, for a
-    rank-local tensor of shape `like`: the slice of the first axis on
-    which they differ (whole-batch size = world x local), or `held` when
-    the shapes agree (a choice without a batch axis)."""
+    rank-local tensor of shape `like`: on each axis where they differ
+    (whole size = ranks x local) the rank's slice, by `inner` = (a model
+    axis's coordinate, its size, the axis it splits: tensor parallelism's
+    features -1, sequence parallelism's tokens 1) on that axis and by
+    (rank, world) on any other (the batch); `held` itself when the shapes
+    agree (a choice without a batch axis)."""
     like = tuple(like)
     if tuple(held.shape) == like:
         return held
+    out = held
+    split = inner[2] % len(like) if inner else None
     for d, (g, n) in enumerate(zip(held.shape, like)):
-        if g != n:
-            assert g == world * n, (tuple(held.shape), like)
-            return held.narrow(d, rank * n, n)
-    raise AssertionError((tuple(held.shape), like))
+        if g == n:
+            continue
+        r, w = inner[:2] if d == split else (rank, world)
+        # sequence parallelism's last shard may be shorter
+        assert g == w * n or (d == split and -(-g // w) * r + n == g), (
+            tuple(held.shape), like)
+        out = out.narrow(d, r * -(-g // w), n)
+    return out
 
 
 @contextlib.contextmanager
-def held_choices(rank=0, world=1, held=None):
+def held_choices(rank=0, world=1, held=None, inner=None, relu=True):
     """Record (held=None) or replay the discrete choices of a training
     step, as check_step_against_plain holds them: the two-stage top-k of
     both passes, the matcher's assignments, the prototypes' class of each
     query and the sign under every ReLU of the transformer and its heads.
     A replay takes rank's share of each choice of the whole batch's run
-    (all of it for one process). Yields the record (dict of lists), or a
-    dict that holds, after the block, the replay's flips per call
-    (`cls_flips`, `relu_flips`) and `relu_calls`."""
+    (all of it for one process; `inner`: a model axis's coordinate, size
+    and split axis, `_share`); `relu=False` replays the others and leaves the ReLUs
+    alone (a pipeline calls them in another order). Yields the record
+    (dict of lists), or a dict that holds, after the block, the replay's
+    flips per call (`cls_flips`, `relu_flips`) and `relu_calls`."""
     import torch.nn.functional as F
 
     from datr_torch.models import dino as dino_mod
@@ -933,7 +948,7 @@ def held_choices(rank=0, world=1, held=None):
             out["relu"].append(x > 0)
             return F.relu(x)
     else:
-        it = {k: iter(v) for k, v in held.items()}
+        it = {k: iter(v) for k, v in held.items() if relu or k != "relu"}
         flips = dict(cls=[], relu=[])  # device counts: no sync per call
         out = {}
 
@@ -946,18 +961,19 @@ def held_choices(rank=0, world=1, held=None):
                     for h in next(it["match"])]
 
         def f_protos(q, logits, *a):
-            cls = _share(next(it["cls"]), q.shape[:2], rank, world)
+            cls = _share(next(it["cls"]), q.shape[:2], rank, world, inner)
             flips["cls"].append((torch.sigmoid(logits).argmax(-1)
                                  != cls).sum())
             return protos(q, F.one_hot(cls, logits.shape[-1]).to(
                 logits.dtype), *a)
 
         def f_relu(x):
-            h = _share(next(it["relu"]), x.shape, rank, world)
+            h = _share(next(it["relu"]), x.shape, rank, world, inner)
             flips["relu"].append(((x > 0) != h).sum())
             return torch.where(h, x, torch.zeros_like(x))
 
-    fns = types.SimpleNamespace(**{**vars(F), "relu": f_relu})
+    fns = types.SimpleNamespace(**{**vars(F), "relu": f_relu if relu
+                                   else F.relu})
     with mock.patch.object(dino_mod, "_stable_topk_indices", f_topk), \
             mock.patch.object(crit_mod, "match_many", f_match), \
             mock.patch.object(dino_mod, "class_prototypes", f_protos), \
@@ -3699,7 +3715,7 @@ def one_process_view():
     or metrics), for a rank's run of the whole batch."""
     from datr_torch.parallel import dist as pdist
 
-    with mock.patch.object(pdist, "process_count", lambda: 1), \
+    with mock.patch.object(pdist, "process_count", lambda *a: 1), \
             mock.patch.object(pdist, "data_parallel", lambda: False):
         yield
 
@@ -3708,16 +3724,20 @@ def _on(batch, device):
     return {k: v.to(device) for k, v in batch.items()}
 
 
-def _bits(state) -> torch.Tensor:
-    """Two int64 sums of the bit patterns of every parameter and the
-    prototype state (plain and position-weighted): equal on two ranks
-    only if (but for a vanishing chance) the tensors are bitwise equal."""
-    flat = torch.cat([p.detach().reshape(-1) for p in
-                      state.model.parameters()]
-                     + [state.global_proto.reshape(-1), state.amount])
+def _bits_of(tensors) -> torch.Tensor:
+    """Two int64 sums of the bit patterns of f32 tensors (plain and
+    position-weighted): equal on two ranks only if (but for a vanishing
+    chance) the tensors are bitwise equal."""
+    flat = torch.cat([t.detach().reshape(-1) for t in tensors])
     b = flat.view(torch.int32).to(torch.int64)
     w = torch.arange(b.numel(), device=b.device) % 65521 + 1
     return torch.stack([b.sum(), (b * w).sum()])
+
+
+def _bits(state) -> torch.Tensor:
+    """`_bits_of` every parameter and the prototype state."""
+    return _bits_of([*state.model.parameters(), state.global_proto,
+                     state.amount])
 
 
 def _ranks_agree(state) -> bool:
@@ -3729,24 +3749,31 @@ def _ranks_agree(state) -> bool:
     return all(torch.equal(p, parts[0]) for p in parts)
 
 
-def _gathered(t: torch.Tensor) -> torch.Tensor:
-    """The whole of a tensor sharded on dim 0 (FSDP's DTensor), by c10d's
-    all_gather of the padded local shards (DTensor.full_tensor's
-    functional all-gather dies of a segmentation fault over gloo with
-    CUDA tensors on the card's torch 2.11); a plain tensor as it is."""
+def _gathered(t: torch.Tensor, axis=None) -> torch.Tensor:
+    """The whole of a tensor sharded on dim 0 (FSDP's DTensor) over the
+    world or the mesh axis `axis`, by c10d's all_gather of the padded
+    local shards (DTensor.full_tensor's functional all-gather dies of a
+    segmentation fault over gloo with CUDA tensors on the card's torch
+    2.11); a plain tensor as it is."""
     import torch.distributed as dist
+
+    from datr_torch.parallel import dist as pdist
 
     if not hasattr(t, "to_local"):
         return t.detach()
     local = t.to_local().detach()
-    world = dist.get_world_size()
+    if axis is None:
+        world, me, group = dist.get_world_size(), dist.get_rank(), None
+    else:
+        world, me = pdist.process_count(axis), pdist.process_index(axis)
+        group = pdist.axis_group(axis)
     sizes = [len(c) for c in torch.arange(t.shape[0]).chunk(world)]
     sizes += [0] * (world - len(sizes))
-    assert local.shape[0] == sizes[dist.get_rank()], (t.shape, local.shape)
+    assert local.shape[0] == sizes[me], (t.shape, local.shape)
     buf = local.new_zeros((max(sizes), *t.shape[1:]))
     buf[:local.shape[0]] = local
     parts = [torch.empty_like(buf) for _ in range(world)]
-    dist.all_gather(parts, buf)
+    dist.all_gather(parts, buf, group=group)
     return torch.cat([p[:n] for p, n in zip(parts, sizes)])
 
 
@@ -4289,6 +4316,599 @@ def run_distributed(msda, card, cli_ref) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 14
+
+AXES_STEPS = 1  # timed tensor-parallel burn-in steps (the held step warms)
+AXES_SERVE_REQUESTS = 4
+
+
+def _burnin(b) -> dict:
+    return {k: v for k, v in b.items() if k != "images_strong"}
+
+
+def _axes_batches():
+    """Phase 14's paired C2F batches (2 + 2 images at 1216x2048, strong
+    views), on the host; the first is the step every part is held to."""
+    return paired_batches(AXES_STEPS + 1, "cpu", seed=3, strong=True)
+
+
+def _axes_draws(model, device):
+    """The CDN draws of that step (2 source images)."""
+    from datr_torch.models import cdn as cdn_mod
+
+    groups, _ = cdn_mod.cdn_layout(model.dn_number, model.dn_single_pad)
+    draws = cdn_mod.draw_cdn_noise(torch.Generator().manual_seed(7), 2,
+                                   groups, model.dn_single_pad,
+                                   model.num_classes, "cpu")
+    return cdn_mod.CdnDraws(*(d.to(device) for d in draws))
+
+
+def _pack_held(held) -> dict:
+    """A record of held_choices on the host, its ReLU masks as bits."""
+    out = {k: [[x.cpu() for x in v] if isinstance(v, list) else v.cpu()
+               for v in vs] for k, vs in held.items() if k != "relu"}
+    out["relu"] = [(tuple(m.shape), torch.from_numpy(np.packbits(
+        m.cpu().numpy().reshape(-1)))) for m in held["relu"]]
+    return out
+
+
+def _unpack_held(saved, device) -> dict:
+    held = _held_to({k: v for k, v in saved.items() if k != "relu"}, device)
+    held["relu"] = [torch.from_numpy(np.unpackbits(p.numpy())[
+        :int(np.prod(shape))].astype(bool).reshape(shape)).to(device)
+        for shape, p in saved["relu"]]
+    return held
+
+
+def axes_reference(tmp) -> dict:
+    """The one-process C2F burn-in step on the whole batch through the
+    kernels, its choices recorded (the top-k, assignments, prototype
+    classes and ReLU signs): what every part of phase 14 is held to.
+    Saved to tmp/axes_ref.pt."""
+    from datr_torch.train.steps import loss_and_grads
+
+    dev = _rank_device()
+    state, ccfg, wd, _ = c2f_train_state(AXES_STEPS + 1, seed=0)
+    b0 = _on(_burnin(_axes_batches()[0]), dev)
+    t0 = time.perf_counter()
+    with held_choices() as rec:
+        _, losses, _ = loss_and_grads(state, b0, ccfg, wd,
+                                      _axes_draws(state.model, dev))
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    ref = dict(losses={k: v.item() for k, v in losses.items()},
+               grads={n: p.grad.detach().cpu() for n, p in
+                      state.model.named_parameters() if p.grad is not None},
+               grad_norm=state.optimizer.grad_norm().item(),
+               held=_pack_held(rec))
+    torch.save(ref, os.path.join(tmp, "axes_ref.pt"))
+    return dict(step_s=step_s, grad_norm=ref["grad_norm"],
+                loss=sum(ref["losses"][k] * w for k, w in wd.items()
+                         if k in ref["losses"]))
+
+
+def _fresh_state(pristine, cfg):
+    """A training state around a copy of the untouched seeded model (the
+    seeded init on the host takes seconds; a copy on the card does not)."""
+    import copy
+
+    from datr_torch.train.optim import Optimizer
+    from datr_torch.train.state import create_train_state
+
+    model = copy.deepcopy(pristine)
+    opt = Optimizer(model, lr=cfg.lr, lr_backbone=cfg.lr_backbone,
+                    weight_decay=cfg.weight_decay,
+                    clip_max_norm=cfg.clip_max_norm,
+                    lr_drop_step=cfg.lr_drop * (AXES_STEPS + 1))
+    return create_train_state(model, opt, seed=0)
+
+
+def _tp_whole(model, name, t):
+    """The whole of tensor `t` of parameter `name` of a tensor-parallel
+    model (gathered over 'model'); `t` itself for a whole one."""
+    from datr_torch.parallel.mesh import whole_tensor
+
+    split = getattr(model, "tp_plan", {}).get(name)
+    return t if split is None else whole_tensor(t, split)
+
+
+def _axes_grads(state) -> dict:
+    """Every gradient whole on the host: FSDP's shards gathered over
+    'data', tensor parallelism's over 'model'."""
+    return {n: _tp_whole(state.model, n, _gathered(p.grad, "data")).cpu()
+            for n, p in state.model.named_parameters() if p.grad is not None}
+
+
+def _axes_check(name, losses, grads, ref, flips=None, norm=None) -> dict:
+    """A step's losses and whole gradients against the reference (phase
+    13's measures), within phase 5's 1e-3."""
+    c = _against(losses, grads, ref["losses"],
+                 {n: ref["grads"][n] for n in grads})
+    assert grads.keys() == ref["grads"].keys(), name
+    if flips is not None:
+        c.update(relu_calls=flips.get("relu_calls", 0),
+                 relu_flips=sum(flips.get("relu_flips", [])),
+                 cls_flips=sum(flips["cls_flips"]))
+    if norm is not None:
+        c.update(grad_norm=norm, grad_norm_rel=abs(norm - ref["grad_norm"])
+                 / ref["grad_norm"])
+        assert c["grad_norm_rel"] <= 1e-3, (name, c)
+    log(f"  {name} against the one-process step: {c}")
+    assert c["max_loss_rel"] <= 1e-3 and c["max_grad_rel"] <= 1e-3, (name, c)
+    return c
+
+
+@contextlib.contextmanager
+def _match_digests():
+    """Two int64 sums of every assignment of the matcher in the block,
+    per call (ranks holding the same data must agree on them)."""
+    from datr_torch.train import criterion as crit_mod
+
+    out, match = [], crit_mod.match_many
+
+    def rec(*a, **kw):
+        res = match(*a, **kw)
+        for t in res:
+            v = t.reshape(-1).to(torch.int64)
+            w = torch.arange(v.numel(), device=v.device) % 65521 + 1
+            out.append(torch.stack([v.sum(), (v * w).sum()]))
+        return res
+
+    with mock.patch.object(crit_mod, "match_many", rec):
+        yield out
+
+
+def _agree_over(t: torch.Tensor, axis: str) -> bool:
+    import torch.distributed as dist
+
+    from datr_torch.parallel import dist as pdist
+
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(pdist.process_count(axis))]
+    dist.all_gather(parts, t, group=pdist.axis_group(axis))
+    return all(torch.equal(p, parts[0]) for p in parts)
+
+
+def _step_timed(fn, msda):
+    import torch.distributed as dist
+
+    torch.cuda.synchronize()
+    dist.barrier()
+    msda.msda_fwd.launches = msda.msda_bwd.launches = 0
+    t0 = time.perf_counter()
+    m = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0, m,
+            (msda.msda_fwd.launches, msda.msda_bwd.launches))
+
+
+def _free():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def axes_two(rank, world, tmp):
+    """Phase 14 a, b, c and e's save on two ranks (gloo, CUDA tensors, the
+    one card). a: the C2F burn-in step split by tensor parallelism (tp =
+    2) against the reference, choices held (it warms the ranks up);
+    AXES_STEPS timed burn-in steps and one self-training step, the
+    matcher's assignments and the whole (replicated) parameters compared
+    between the ranks; one encoder and one decoder call of 4
+    heads through check_model_locations. e: that state's forward, its
+    whole student written by rank 0, its sharded save. b: sequence
+    parallelism (sp = 2): the flagship's eval forward at 800x1344 on
+    uneven shards against the one-process forward of the same model on
+    the same rank, its encoder call of Lq = S / 2 through
+    check_model_locations, then the C2F burn-in step against the
+    reference. c: the pipelined encoder (2 stages of 3 layers, 2
+    microbatches): the C2F burn-in step against the reference."""
+    import copy
+
+    from datr_torch.models.layers import MSDeformAttn
+    from datr_torch.ops import msda
+    from datr_torch.parallel import dist as pdist
+    from datr_torch.parallel.mesh import (
+        local_bytes,
+        make_mesh,
+        optimizer_local_bytes,
+        shard_train_state,
+    )
+    from datr_torch.parallel.pipeline import make_pipe_mesh
+    from datr_torch.train import checkpoint as ckpt
+    from datr_torch.train.steps import (
+        loss_and_grads,
+        train_step_burnin,
+        train_step_self_training,
+    )
+
+    dev = _rank_device()
+    ref = torch.load(os.path.join(tmp, "axes_ref.pt"), weights_only=False)
+    held = _unpack_held(ref.pop("held"), dev)
+    batches = _axes_batches()
+    b0 = _on(_burnin(batches[0]), dev)
+    out = {}
+
+    # ---- a: tensor parallelism
+    t_part = time.perf_counter()
+    make_mesh(dev.type, tp=world)
+    me = pdist.process_index("model")
+    state, ccfg, wd, cfg = c2f_train_state(AXES_STEPS + 1, seed=0)
+    model = state.model
+    pristine = copy.deepcopy(model)  # parts b and c start from it
+    n_msda = sum(isinstance(m, MSDeformAttn) for m in model.modules())
+    remat = 2 if model.use_remat else 1
+    whole_bytes = local_bytes(model)
+    shard_train_state(state)
+    draws = _axes_draws(model, dev)
+    with held_choices(0, 1, held, inner=(me, world, -1)) as flips:
+        _, losses, _ = loss_and_grads(state, b0, ccfg, wd, draws)
+    norm = state.optimizer.grad_norm().item()
+    check = _axes_check("14a tp=2", {k: v.item() for k, v in losses.items()},
+                        _axes_grads(state), ref, flips, norm)
+    state.optimizer.zero_grad()
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    with _match_digests() as digests:
+        burn = [_step_timed(lambda b=b: train_step_burnin(
+            state, _on(_burnin(b), dev), ccfg, wd), msda)
+            for b in batches[1:]]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    matches_agree = _agree_over(torch.stack(digests), "model")
+    # the tensors every tp rank holds whole stay bitwise equal
+    whole_agree = _agree_over(_bits_of(
+        [p for n, p in model.named_parameters()
+         if n not in model.tp_plan]), "model")
+    with torch.no_grad():
+        thr = pseudo_threshold(state, [_on(batches[0], dev)])
+    st = _step_timed(lambda: train_step_self_training(
+        state, _on(batches[0], dev), ccfg, wd,
+        torch.full((model.num_classes,), thr, device=dev), TRAIN_CANVAS),
+        msda)
+    want_burn = (2 * n_msda * remat, 2 * n_msda)
+    want_st = (n_msda + 2 * n_msda * remat, 2 * n_msda)
+    assert all(n == want_burn for _, _, n in burn), burn
+    assert st[2] == want_st, st[2]
+    assert matches_agree, "the tp ranks' assignments differ"
+    assert whole_agree, "the tp ranks' whole parameters differ"
+    assert float(st[1]["num_pseudo"]) > 0 and all(
+        np.isfinite(float(m["loss"])) for _, m, _ in [*burn, st])
+    calls = training_msda_calls(msda, state, b0)  # both ranks: TP's reduces
+    at_model = None
+    if rank == 0:
+        at_model = check_model_locations(
+            msda, calls, dict(encoder=TRAIN_S, decoder_src=TRAIN_DEC_LQ[0]),
+            TRAIN_SHAPES, backward=True)
+    del calls
+    _free()
+    out["tp"] = dict(
+        step_check=check, burnin_s=[s for s, _, _ in burn],
+        burnin_s_per_step=float(np.mean([s for s, _, _ in burn])),
+        self_training_s=st[0], num_pseudo=float(st[1]["num_pseudo"]),
+        threshold=thr, peak_memory_gb=peak,
+        model_bytes=local_bytes(model), whole_model_bytes=whole_bytes,
+        ema_bytes=local_bytes(state.ema_teacher),
+        moment_bytes=optimizer_local_bytes(state.optimizer),
+        burnin_launches=[n for _, _, n in burn],
+        self_training_launches=st[2], want_burnin=want_burn,
+        want_self_training=want_st, matches_agree=matches_agree,
+        whole_params_agree=whole_agree,
+        match_calls=len(digests), model_locations=at_model,
+        loss=[float(m["loss"]) for _, m, _ in [*burn, st]])
+    log(f"  rank {rank}: 14a tp {out['tp']}")
+
+    # ---- e: the split state's forward, whole student, sharded save
+    with torch.no_grad():
+        fwd = model.eval()(b0["images"][:1], b0["pad_mask"][:1])
+    out["forward"] = {k: fwd[k].cpu() for k in ("pred_logits", "pred_boxes",
+                                                 "topk_idx")}
+    model.train()
+    ckpt.save_checkpoint(os.path.join(tmp, "axes_student.pt"), model, 0)
+    torch.cuda.synchronize()
+    pdist.barrier()
+    t0 = time.perf_counter()
+    ckpt.save_checkpoint_sharded(os.path.join(tmp, "axes_sharded"), state,
+                                 0, {"tp": world})
+    out["save_s"] = time.perf_counter() - t0
+    out["step"] = state.step
+    out["batch"] = {k: v[:1].cpu() for k, v in b0.items()
+                    if k in ("images", "pad_mask")}
+    del state, model, fwd
+    _free()
+    out["tp"]["wall_s"] = time.perf_counter() - t_part
+
+    # ---- b: sequence parallelism
+    t_part = time.perf_counter()
+    make_mesh(dev.type, sp=world)
+    me = pdist.process_index("seq")
+    flag = flagship_model()
+    gen = torch.Generator().manual_seed(4)
+    images = torch.randn(B, *CANVAS, 3, generator=gen)
+    pad = torch.zeros(B, *CANVAS, dtype=torch.bool)
+    pad[1, :, 1100:] = True
+    pad[1, 700:] = True
+    images[pad] = 0.0
+    images, pad = images.to(dev), pad.to(dev)
+    with torch.no_grad():
+        one = flag(images, pad)
+        flag.sp_axis = "seq"
+        msda.msda_fwd.launches = 0
+        sp_out = flag(images, pad)
+        sp_launches = msda.msda_fwd.launches
+    calls = capture_msda_calls(msda, lambda: flag(images, pad))
+    lq = pdist.shard_sizes(S, world)[me]  # this rank's encoder queries
+    sp_diff = {k: (sp_out[k] - one[k]).abs().max().item()
+               for k in ("pred_logits", "pred_boxes")}
+    for k in ("pred_logits", "pred_boxes"):
+        torch.testing.assert_close(sp_out[k], one[k], **TOL["f32"])
+    sp_model = None
+    if rank == 0:
+        sp_model = check_model_locations(msda, {lq: calls[lq]},
+                                         dict(encoder_sp=lq), SHAPES,
+                                         backward=False)
+    del flag, one, sp_out, calls
+    _free()
+    state = _fresh_state(pristine, cfg)
+    for m in (state.model, state.ema_teacher):
+        m.sp_axis = "seq"
+    shard_train_state(state)
+    msda.msda_fwd.launches = msda.msda_bwd.launches = 0
+    with held_choices(0, 1, held, inner=(me, world, 1)) as flips:
+        _, losses, _ = loss_and_grads(state, b0, ccfg, wd,
+                                      _axes_draws(state.model, dev))
+    sp_step_launches = (msda.msda_fwd.launches, msda.msda_bwd.launches)
+    assert sp_step_launches == want_burn, sp_step_launches
+    sp_check = _axes_check("14b sp=2",
+                           {k: v.item() for k, v in losses.items()},
+                           _axes_grads(state), ref, flips,
+                           state.optimizer.grad_norm().item())
+    del state
+    _free()
+    out["sp"] = dict(serving_diff=sp_diff, encoder_lq=lq,
+                     serving_launches=sp_launches, model_locations=sp_model,
+                     step_check=sp_check, step_launches=sp_step_launches,
+                     wall_s=time.perf_counter() - t_part)
+    log(f"  rank {rank}: 14b sp {out['sp']}")
+
+    # ---- c: the pipelined encoder
+    t_part = time.perf_counter()
+    mesh = make_pipe_mesh(dev.type, world)
+    state = _fresh_state(pristine, cfg)
+    del pristine
+    shard_train_state(state)
+    model = state.model
+    n_micro, per_stage = 2, model.enc_layers // world
+    ticks = n_micro + world - 1
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    msda.msda_fwd.launches = msda.msda_bwd.launches = 0
+    with held_choices(0, 1, held, relu=False) as flips:
+        _, losses, _ = loss_and_grads(state, b0, ccfg, wd,
+                                      _axes_draws(model, dev), pp_mesh=mesh,
+                                      pp_n_micro=n_micro)
+    torch.cuda.synchronize()
+    pp_s = time.perf_counter() - t0
+    pp_launches = (msda.msda_fwd.launches, msda.msda_bwd.launches)
+    # per pass: every tick runs the stage's layers (warm-up and overrun
+    # ticks too), recomputed under remat; the decoder's 6 as usual
+    want_pp = (2 * (ticks * per_stage + model.dec_layers) * remat,
+               2 * (ticks * per_stage + model.dec_layers))
+    assert pp_launches == want_pp, (pp_launches, want_pp)
+    pp_check = _axes_check(f"14c pp {world} stages x {per_stage} layers",
+                           {k: v.item() for k, v in losses.items()},
+                           _axes_grads(state), ref, flips,
+                           state.optimizer.grad_norm().item())
+    out["pp"] = dict(step_check=pp_check, step_s=pp_s, launches=pp_launches,
+                     want_launches=want_pp, n_micro=n_micro, stages=world,
+                     peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                     wall_s=time.perf_counter() - t_part)
+    log(f"  rank {rank}: 14c pp {out['pp']}")
+    del state, model, held
+    _free()
+    return out
+
+
+def axes_four(rank, world, tmp):
+    """Phase 14 d on four ranks: data 2 x model 2 with FSDP over 'data'
+    (each data shard 1 + 1 images): the burn-in step against the
+    reference (its losses the data shards' mean, its gradients gathered
+    whole), then one timed step."""
+    import torch.distributed as dist
+
+    from datr_torch.models.cdn import CdnDraws
+    from datr_torch.models.layers import MSDeformAttn
+    from datr_torch.ops import msda
+    from datr_torch.parallel import dist as pdist
+    from datr_torch.parallel.mesh import (
+        local_bytes,
+        make_mesh,
+        optimizer_local_bytes,
+        shard_batch,
+        shard_train_state,
+    )
+    from datr_torch.train.steps import loss_and_grads, train_step_burnin
+
+    t_part = time.perf_counter()
+    dev = _rank_device()
+    ref = torch.load(os.path.join(tmp, "axes_ref.pt"), weights_only=False)
+    held = _unpack_held(ref.pop("held"), dev)
+    make_mesh(dev.type, tp=2)
+    d, n, me = (pdist.process_index(), pdist.process_count(),
+                pdist.process_index("model"))
+    state, ccfg, wd, _ = c2f_train_state(AXES_STEPS + 1, seed=0)
+    model = state.model
+    n_msda = sum(isinstance(m, MSDeformAttn) for m in model.modules())
+    remat = 2 if model.use_remat else 1
+    shard_train_state(state, fsdp=True)
+    mine = _on(shard_batch(_burnin(_axes_batches()[0]), d, n), dev)
+    draws = CdnDraws(*(t[d:d + 1] for t in _axes_draws(model, dev)))
+    with held_choices(d, n, held, inner=(me, 2, -1)) as flips:
+        _, losses, _ = loss_and_grads(state, mine, ccfg, wd, draws)
+    keys = sorted(losses)
+    lv = torch.stack([losses[k].detach().double() for k in keys])
+    dist.all_reduce(lv, group=pdist.axis_group("data"))
+    check = _axes_check("14d dp 2 x tp 2, FSDP",
+                        dict(zip(keys, (lv / n).tolist())),
+                        _axes_grads(state), ref, flips,
+                        state.optimizer.grad_norm().item())
+    state.optimizer.zero_grad()
+    del held
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    f = _step_timed(lambda: train_step_burnin(state, mine, ccfg, wd,
+                                              dn_draws=draws), msda)
+    want = (2 * n_msda * remat, 2 * n_msda)
+    assert f[2] == want, f[2]
+    out = dict(step_check=check, step_s=f[0], launches=f[2],
+               loss=float(f[1]["loss"]),
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               model_bytes=local_bytes(model),
+               ema_bytes=local_bytes(state.ema_teacher),
+               moment_bytes=optimizer_local_bytes(state.optimizer),
+               wall_s=time.perf_counter() - t_part)
+    log(f"  rank {rank}: 14d {out}")
+    return out
+
+
+def run_model_axes(msda, card) -> dict:
+    """Phase 14: datr_tpu's model axes on the one card: tensor, sequence
+    and pipeline parallelism across ranks (gloo, CUDA tensors), data x
+    tensor parallelism with FSDP on four ranks, a tensor-parallel sharded
+    checkpoint loaded into one process, and serving with tp = 2. Ranks on
+    one card show the code path, not scaling."""
+    import tempfile
+
+    from datr_torch.models.layers import MSDeformAttn
+    from datr_torch.serve import InferenceServer
+    from datr_torch.train import checkpoint as ckpt
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        log("  --- 14: the one-process reference step (2 + 2 images)")
+        t0 = time.perf_counter()
+        out["reference"] = axes_reference(tmp)
+        out["reference"]["wall_s"] = time.perf_counter() - t0
+        _free()
+        log("  --- 14a/e/b/c: tp = 2, its save, sp = 2, pp 2 stages on 2 "
+            "ranks (gloo, CUDA tensors, one card)")
+        t0 = time.perf_counter()
+        two = spawn_ranks("axes_two", tmp, world=2)
+        out["two_wall_s"] = time.perf_counter() - t0
+        log("  --- 14d: dp 2 x tp 2 with FSDP on 4 ranks")
+        t0 = time.perf_counter()
+        four = spawn_ranks("axes_four", tmp, world=4)
+        out["four_wall_s"] = time.perf_counter() - t0
+        out["ranks"] = [{k: r[k] for k in ("tp", "sp", "pp", "save_s")}
+                        for r in two]
+        out["dp_tp"] = four
+
+        log("  --- 14e: the tensor-parallel sharded save into one process")
+        state, _, _, cfg = c2f_train_state(AXES_STEPS + 1, seed=5)
+        saved = _fresh_state(state.model, cfg)  # before the load
+        t0 = time.perf_counter()
+        state, meta = ckpt.load_checkpoint_sharded(
+            os.path.join(tmp, "axes_sharded"), state)
+        load_s = time.perf_counter() - t0
+        saved.model.load_state_dict(torch.load(
+            os.path.join(tmp, "axes_student.pt"), weights_only=True))
+        b = _on(two[0]["batch"], _rank_device())
+        keys = ("pred_logits", "pred_boxes")
+        with torch.no_grad():
+            fwd = state.model.eval()(b["images"], b["pad_mask"])
+            want = saved.model.eval()(b["images"], b["pad_mask"])
+        same = {k: torch.equal(fwd[k], want[k]) for k in keys}
+        # against the ranks' split forward (row-split sums add in another
+        # order), the two-stage top-k held to theirs: a near-tie among the
+        # seeded model's encoder scores may pick other queries
+        from datr_torch.models import dino as dino_mod
+
+        ranks_topk = two[0]["forward"]["topk_idx"].to(fwd["topk_idx"].device)
+        topk_differ = int((fwd["topk_idx"] != ranks_topk).sum())
+        with torch.no_grad(), mock.patch.object(
+                dino_mod, "_stable_topk_indices", lambda x, k: ranks_topk):
+            held = state.model(b["images"], b["pad_mask"])
+        ranks_diff = {k: (held[k].cpu() - two[0]["forward"][k]).abs().max()
+                      .item() for k in keys}
+        # where the loaded state and the whole save differ, if they do
+        sd, sd_w = state.model.state_dict(), saved.model.state_dict()
+        differ = sorted(((sd[k] - sd_w[k]).abs().max().item(), k)
+                        for k in sd if not torch.equal(sd[k], sd_w[k]))
+        out["checkpoint"] = dict(save_s=[r["save_s"] for r in two],
+                                 load_s=load_s, forward_bitwise=same,
+                                 forward_vs_ranks=ranks_diff, meta=meta,
+                                 step=state.step, topk_differ=topk_differ,
+                                 tensors_differ=len(differ),
+                                 worst_differ=differ[-8:])
+        log(f"  14e: {out['checkpoint']}")
+        assert all(same.values()) and state.step == two[0]["step"], same
+        assert ranks_diff["pred_logits"] <= 1e-3, ranks_diff
+        assert ranks_diff["pred_boxes"] <= 1e-4, ranks_diff
+        assert meta == {"epoch": 0, "tp": 2}, meta
+        del state, saved, fwd, want, held
+        _free()
+
+    log("  --- 14f: InferenceServer(devices=[cuda:0, cuda:0], tp=2)")
+    import threading
+
+    from datr_torch.models import dino as dino_mod
+
+    t0 = time.perf_counter()
+    imgs = request_images()[:AXES_SERVE_REQUESTS]
+    model = flagship_model()
+    n_msda = sum(isinstance(m, MSDeformAttn) for m in model.modules())
+    # the two-stage top-k of each one-device batch, recorded and held in
+    # the tp run (both shards of a replica take the batch's): a near-tie
+    # among the seeded model's encoder scores may pick other queries
+    topk, seen, flips, lock, calls = (dino_mod._stable_topk_indices, [], [],
+                                      threading.Lock(), [0])
+
+    def record(x, k):
+        seen.append(topk(x, k))
+        return seen[-1]
+
+    def replay(x, k):
+        with lock:
+            i = calls[0] // 2
+            calls[0] += 1
+        flips.append(int((topk(x, k) != seen[i]).sum()))
+        return seen[i]
+
+    answers = {}
+    for name, kw, fn in (("one", dict(device="cuda"), record),
+                         ("tp", dict(devices=["cuda:0", "cuda:0"], tp=2),
+                          replay)):
+        # one batch at a time, so the batches meet the top-k in order
+        srv = InferenceServer(model, canvas_hw=CANVAS, batch_size=2,
+                              score_threshold=0.0, batch_timeout_s=1.0,
+                              dispatcher_threads=1, max_in_flight=1, **kw)
+        try:
+            with mock.patch.object(dino_mod, "_stable_topk_indices", fn):
+                srv.warmup()
+                torch.cuda.synchronize()
+                msda.msda_fwd.launches = 0
+                answers[name] = [f.result(timeout=600)
+                                 for f in [srv.submit(im) for im in imgs]]
+                answers[name + "_launches"] = msda.msda_fwd.launches
+                answers[name + "_batches"] = srv.stats()["batches"]
+        finally:
+            srv.close()
+    assert calls[0] == 2 * len(seen), (calls, len(seen))
+    assert answers["tp_launches"] == 2 * n_msda * answers["tp_batches"], (
+        answers["tp_launches"], answers["tp_batches"])
+    worst = {"boxes": 0.0, "scores": 0.0}
+    for g, w in zip(answers["tp"], answers["one"]):
+        m = dets_match(g, w, DETECT_TOL["boxes"], DETECT_TOL["scores"])
+        worst = {k: max(worst[k], m[k]) for k in worst}
+    out["serving"] = dict(requests=len(imgs), diff=worst,
+                          topk_flips=flips,
+                          launches=answers["tp_launches"],
+                          batches=answers["tp_batches"],
+                          wall_s=time.perf_counter() - t0)
+    log(f"  14f: {out['serving']}")
+    del model
+    _free()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
@@ -4419,6 +5039,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done("13")
 
+    log("phase 14: the model axes on the one card: tensor parallelism "
+        "(tp = 2), encoder sequence parallelism (sp = 2), the GPipe "
+        "encoder (2 stages), data x tensor parallelism with FSDP on 4 "
+        "ranks, a tensor-parallel sharded checkpoint into one process, "
+        "serving with tp = 2")
+    ax = run_model_axes(msda, card)
+    log("model_axes " + json.dumps(dict(ax, card=card), default=str))
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("14")
+
     log("phase 8: bfloat16: the kernels in bf16 against their plain "
         "versions (5 levels and P = 2 in both dtypes), the flagship server "
         "(fast_norm off, on), DINO_5scale and DINO_4scale_fast, C2F burn-in, "
@@ -4530,6 +5161,29 @@ def main() -> int:
         "fsdp_training_ranks": sum(r["fsdp"]["launches"][1]
                                    for r in dp["ranks"]),
         "cli_nccl_world1": dp["cli"]["launches"]["msda_bwd"]}
+    # phase 14: each rank's launches (its process's counts) on the tp, sp
+    # and pp paths, the dp x tp ranks', the tp server's
+    ar = ax["ranks"]
+    ax_fwd = {
+        "tp_training_ranks": sum(n[0] for r in ar for n in
+                                 r["tp"]["burnin_launches"]
+                                 + [r["tp"]["self_training_launches"]]),
+        "sp_ranks": sum(r["sp"]["serving_launches"]
+                        + r["sp"]["step_launches"][0] for r in ar),
+        "pp_ranks": sum(r["pp"]["launches"][0] for r in ar),
+        "dp_tp_fsdp_ranks": sum(r["launches"][0] for r in ax["dp_tp"]),
+        "serving_tp2": ax["serving"]["launches"]}
+    ax_bwd = {
+        "tp_training_ranks": sum(n[1] for r in ar for n in
+                                 r["tp"]["burnin_launches"]
+                                 + [r["tp"]["self_training_launches"]]),
+        "sp_ranks": sum(r["sp"]["step_launches"][1] for r in ar),
+        "pp_ranks": sum(r["pp"]["launches"][1] for r in ar),
+        "dp_tp_fsdp_ranks": sum(r["launches"][1] for r in ax["dp_tp"])}
+    # the kernels at the model axes' shapes: a tp rank's encoder and
+    # decoder calls (4 heads), an sp rank's encoder call (Lq = S / 2)
+    ax_tp = ar[0]["tp"]["model_locations"]
+    ax_sp = ar[0]["sp"]["model_locations"]["encoder_sp"]
     k2, k3 = kg["copy"], kg["fma"]
     kernels = [{
         "name": "msda_fwd",
@@ -4540,14 +5194,28 @@ def main() -> int:
                      + st["launches"]["msda_fwd"] + st["eval"]["launches"]
                      + cl["launches"]["msda_fwd"] + sv["launches"]
                      + sum(bb_fwd.values()) + sum(mk_fwd.values())
-                     + sum(rh_fwd.values()) + sum(dp_fwd.values())),
+                     + sum(rh_fwd.values()) + sum(dp_fwd.values())
+                     + sum(ax_fwd.values())),
         "launches_by_path": {"serving": s["launches"],
                              "training": tr["launches"]["msda_fwd"],
                              "self_training": st["launches"]["msda_fwd"],
                              "eval": st["eval"]["launches"],
                              "cli": cl["launches"]["msda_fwd"],
                              "serving_surface": sv["launches"], **bb_fwd,
-                             **mk_fwd, **rh_fwd, **dp_fwd},
+                             **mk_fwd, **rh_fwd, **dp_fwd, **ax_fwd},
+        # phase 14: per step on each tp rank (2 + 2 images, 4 heads)
+        "launches_per_tp_step_per_rank": ar[0]["tp"]["burnin_launches"][0][0],
+        "launches_per_pp_step_per_rank": ar[0]["pp"]["launches"][0],
+        "model_axes": {
+            "tp_h4_encoder": {k: ax_tp["encoder"][k] for k in (
+                "lq", "heads", "fwd_ms", "fwd_plain_ms", "fwd_bound_ms",
+                "fwd_bound_by", "max_abs_err")},
+            "tp_h4_decoder": {k: ax_tp["decoder_src"][k] for k in (
+                "lq", "heads", "fwd_ms", "fwd_plain_ms", "fwd_bound_ms",
+                "fwd_bound_by", "max_abs_err")},
+            "sp_half_encoder": {k: ax_sp[k] for k in (
+                "lq", "heads", "ms", "plain_ms", "bound_ms", "bound_by",
+                "max_abs_err")}},
         # phase 13: per step on each DDP rank (1 + 1 images), per FSDP step
         "launches_per_ddp_step_per_rank": dd[0]["burnin_launches"][0][0],
         "launches_per_ddp_self_training_step_per_rank": dd[0][
@@ -4604,11 +5272,18 @@ def main() -> int:
         "launches": (tr["launches"]["msda_bwd"] + st["launches"]["msda_bwd"]
                      + cl["launches"]["msda_bwd"] + sum(bb_bwd.values())
                      + sum(mk_bwd.values()) + sum(rh_bwd.values())
-                     + sum(dp_bwd.values())),
+                     + sum(dp_bwd.values()) + sum(ax_bwd.values())),
         "launches_by_path": {"training": tr["launches"]["msda_bwd"],
                              "self_training": st["launches"]["msda_bwd"],
                              "cli": cl["launches"]["msda_bwd"], **bb_bwd,
-                             **mk_bwd, **rh_bwd, **dp_bwd},
+                             **mk_bwd, **rh_bwd, **dp_bwd, **ax_bwd},
+        "model_axes": {
+            "tp_h4_encoder": {k: ax_tp["encoder"][k] for k in (
+                "lq", "heads", "bwd_ms", "bwd_plain_ms", "bwd_bound_ms",
+                "bwd_bound_by", "max_abs_err")},
+            "tp_h4_decoder": {k: ax_tp["decoder_src"][k] for k in (
+                "lq", "heads", "bwd_ms", "bwd_plain_ms", "bwd_bound_ms",
+                "bwd_bound_by", "max_abs_err")}},
         "launches_per_ddp_step_per_rank": dd[0]["burnin_launches"][0][1],
         "launches_per_train_step": tr["launches_per_step"]["msda_bwd"],
         "launches_per_self_training_step": st["launches_per_step"][

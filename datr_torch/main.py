@@ -267,8 +267,10 @@ def _run(args):
                        for e in cfg.get("lr_drop_list", [])],
         total_steps=cfg.epochs * steps_per_epoch,
     )
-    # each process draws its own CDN noise: seed + rank (reference)
-    state = create_train_state(model, optimizer, seed=args.seed + rank)
+    # each data shard draws its own CDN noise: seed + its data coordinate
+    # (the reference's seed + rank; ranks of one data shard draw alike)
+    state = create_train_state(model, optimizer,
+                               seed=args.seed + pdist.process_index())
 
     if args.pretrain_model_path:
         loaded = load_pretrain_params(args.pretrain_model_path, state.model)

@@ -29,19 +29,33 @@ frozen BN returns f32; the box refinement adds bf16 deltas to f32
 `inverse_sigmoid` references, so references, boxes and the sampling
 locations stay f32 while logits and hidden states are bf16. `fast_norm`
 picks the fast bf16 norms (models/norms.py).
+
+Model axes (datr_tpu/models/dino.py:351-367, 409-429): `encoder_fn`
+replaces the in-module encoder stack (the pipelined encoder of
+parallel/pipeline.py `make_pp_encoder_fn`). With `sp_axis` naming a mesh
+axis of more than one rank (parallel/mesh.py, 'seq'), each rank runs every
+encoder layer for its share of the S query tokens (its queries, positions
+and reference points; the shares may be uneven), each layer's value table
+the whole sequence gathered over the axis, with the whole padding mask;
+the memory is gathered once after the encoder and every rank runs the
+two-stage selection and the decoder on all of it. The encoder layers'
+parameter gradients, each rank's part, are summed over the axis.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
+from ..parallel import dist as pdist
 from ..utils.misc import inverse_sigmoid, sine_embed_for_position
 from .cdn import (
     CdnDraws,
@@ -134,9 +148,11 @@ class DINO(nn.Module):
         with_masks: bool = False,
         mask_query_chunk: int = 0,
         two_stage_share_heads: bool = False,
+        sp_axis: str = "",
     ):
         super().__init__()
         C = hidden_dim
+        self.sp_axis = sp_axis
         self.dtype, self.fast_norm = dtype, fast_norm
         self.num_classes = num_classes
         self.num_queries = num_queries
@@ -359,20 +375,54 @@ class DINO(nn.Module):
             return checkpoint(layer, *args, use_reentrant=False)
         return layer(*args)
 
+    def _sp_layer(self, layer, *args):
+        """`layer` with its parameters entering the 'seq' region: each
+        rank's part of their gradient is summed over the axis."""
+        params = {n: pdist.copy_to(p, self.sp_axis)
+                  for n, p in layer.named_parameters()}
+        return functional_call(layer, params, args)
+
+    def _sp_encoder(self, src, pos, ref, spatial_shapes, mask):
+        """The encoder stack under sequence parallelism: this rank's rows
+        of the queries through every layer, each layer's value the whole
+        sequence (gathered; its gradient summed over the axis), the memory
+        gathered once at the end (datr_tpu's `_sp_constraint`,
+        dino.py:359-367)."""
+        ax, S = self.sp_axis, src.shape[1]
+        x = pdist.split(src, 1, ax)
+        pos, ref = pdist.split(pos, 1, ax), pdist.split(ref, 1, ax)
+        value = pdist.copy_to(src, ax)  # whole already: layer 0's value
+        for i in range(self.enc_layers):
+            if i:
+                value = pdist.gather_sum(x, 1, S, ax)
+            x = self._layer(functools.partial(
+                self._sp_layer, getattr(self, f"enc_layer{i}")),
+                x, pos, ref, spatial_shapes, mask, value)
+        return pdist.gather_replicated(x, 1, S, ax)
+
     def _transformer_pass(self, src_flat, mask_flat, pos_flat, valid_ratios,
                           spatial_shapes, dn_embed=None, dn_bbox_unsig=None,
-                          self_attn_mask=None):
+                          self_attn_mask=None, encoder_fn=None):
         """Encoder, two-stage selection and the decoder, with the DN queries
         in front of the matching queries when given
-        (datr_tpu/models/dino.py:335-407). Returns the decoder's hidden
-        states and references, the two-stage outputs, the top-k indices
-        and the encoder memory."""
+        (datr_tpu/models/dino.py:335-407). `encoder_fn(src, pos, ref, mask,
+        spatial_shapes)` replaces the encoder stack. Returns the decoder's
+        hidden states and references, the two-stage outputs, the top-k
+        indices and the encoder memory."""
         B = src_flat.shape[0]
         enc_ref = encoder_reference_points(spatial_shapes, valid_ratios)
-        memory = src_flat
-        for i in range(self.enc_layers):
-            memory = self._layer(getattr(self, f"enc_layer{i}"), memory,
-                                 pos_flat, enc_ref, spatial_shapes, mask_flat)
+        if encoder_fn is not None:
+            memory = encoder_fn(src_flat, pos_flat, enc_ref, mask_flat,
+                                spatial_shapes)
+        elif self.sp_axis and pdist.process_count(self.sp_axis) > 1:
+            memory = self._sp_encoder(src_flat, pos_flat, enc_ref,
+                                      spatial_shapes, mask_flat)
+        else:
+            memory = src_flat
+            for i in range(self.enc_layers):
+                memory = self._layer(getattr(self, f"enc_layer{i}"), memory,
+                                     pos_flat, enc_ref, spatial_shapes,
+                                     mask_flat)
 
         ref_unsig_undetach, tgt_undetach, init_box_proposal, topk_idx = (
             self._two_stage_select(memory, mask_flat, spatial_shapes))
@@ -431,7 +481,8 @@ class DINO(nn.Module):
                 dn_generator: Optional[torch.Generator] = None,
                 dn_draws: Optional[CdnDraws] = None,
                 self_training: bool = False,
-                domain_adapt: bool = True) -> Dict[str, torch.Tensor]:
+                domain_adapt: bool = True,
+                encoder_fn=None) -> Dict[str, torch.Tensor]:
         """images [B, H, W, 3] f32 normalized, pad_mask [B, H, W] True = pad.
 
         Eval (`train=False`): the eval outputs of datr_tpu's DINO (pred_*,
@@ -447,7 +498,9 @@ class DINO(nn.Module):
         new_amount; with `self_training` also pred_/aux_/interm_*_target)
         plus `topk_idx` / `topk_idx_target`. With `domain_adapt=False` the
         whole batch is supervised (single-domain training): `targets`
-        covers every image, and the outputs stop before the DA branch."""
+        covers every image, and the outputs stop before the DA branch.
+        `encoder_fn` replaces the encoder stack in every pass (the
+        pipelined encoder, parallel/pipeline.py)."""
         srcs, masks, poss, stage_feats = self._extract_features(images,
                                                                 pad_mask)
         src_flat, mask_flat, pos_flat, spatial_shapes = self._flatten_levels(
@@ -456,7 +509,8 @@ class DINO(nn.Module):
         if not train:
             (hs, refs, tgt_undetach, ref_unsig, init_box_proposal, topk_idx,
              memory) = self._transformer_pass(src_flat, mask_flat, pos_flat,
-                                              valid_ratios, spatial_shapes)
+                                              valid_ratios, spatial_shapes,
+                                              encoder_fn=encoder_fn)
             logits, coords = self._head_outputs(hs, refs)
             out = {
                 "pred_logits": logits[-1],
@@ -476,12 +530,12 @@ class DINO(nn.Module):
                                    mask_flat, pos_flat, valid_ratios,
                                    spatial_shapes, targets, global_proto,
                                    amount, dn_generator, dn_draws,
-                                   self_training, domain_adapt)
+                                   self_training, domain_adapt, encoder_fn)
 
     def _train_forward(self, srcs, masks, stage_feats, src_flat, mask_flat,
                        pos_flat, valid_ratios, spatial_shapes, targets,
                        global_proto, amount, dn_generator, dn_draws,
-                       self_training, domain_adapt=True):
+                       self_training, domain_adapt=True, encoder_fn=None):
         B = src_flat.shape[0]
         if domain_adapt and B % 2:
             raise ValueError("paired DA batches must have an even batch size")
@@ -517,7 +571,7 @@ class DINO(nn.Module):
             self._transformer_pass(src_flat[:half], mask_flat[:half],
                                    pos_flat[:half], valid_ratios[:half],
                                    spatial_shapes, dn_embed, dn_bbox,
-                                   attn_mask))
+                                   attn_mask, encoder_fn))
         logits_all, coords_all = self._head_outputs(hs, refs)
         if cdn is not None:
             out["dn_logits"] = logits_all[:, :, :pad_size]
@@ -550,7 +604,7 @@ class DINO(nn.Module):
         hs_t, refs_t, tgt_undetach_t, ref_unsig_t, _, topk_idx_t, _ = (
             self._transformer_pass(src_flat[half:], mask_flat[half:],
                                    pos_flat[half:], valid_ratios[half:],
-                                   spatial_shapes))
+                                   spatial_shapes, encoder_fn=encoder_fn))
         proto_tgt = class_prototypes(hs_t[-1], self.class_head(hs_t[-1]),
                                      proto_src.new_global_proto,
                                      proto_src.new_amount)
@@ -583,7 +637,9 @@ def build_dino_from_config(cfg, device=None, seed: int = 0) -> DINO:
     proposal heads are the decoder's) included, and refuses any other
     amp_dtype (datr_tpu's "float64" is its x64 debugging mode: ROADMAP
     §A, `amp_dtype="float64"`). `masks` builds the mask head,
-    `mask_query_chunk` bounds its live (image, query) pairs."""
+    `mask_query_chunk` bounds its live (image, query) pairs. `sp_axis`
+    names the mesh axis of encoder sequence parallelism (datr_tpu's key,
+    dino.py:669; "" or an axis of one rank: none)."""
     get = cfg.get if hasattr(cfg, "get") else lambda k, d=None: getattr(
         cfg, k, d)
     dev = resolve_device(device)
@@ -620,6 +676,7 @@ def build_dino_from_config(cfg, device=None, seed: int = 0) -> DINO:
         with_masks=bool(get("masks", False)),
         mask_query_chunk=int(get("mask_query_chunk", 0) or 0),
         two_stage_share_heads=bool(get("two_stage_bbox_embed_share", False)),
+        sp_axis=get("sp_axis", "") or "",
     )
     model.init_params(torch.Generator().manual_seed(seed))
     return model.to(dev).eval()

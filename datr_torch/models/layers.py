@@ -39,15 +39,29 @@ def linear(x: torch.Tensor, weight: torch.Tensor,
 
 
 class Linear(nn.Linear):
-    """flax Dense(dtype=dtype): f32 parameters, computed in `dtype`."""
+    """flax Dense(dtype=dtype): f32 parameters, computed in `dtype`.
+
+    Under tensor parallelism (parallel/mesh.py `apply_tp`, `tp` the axis's
+    collectives) a "column" layer holds its rank's output features and
+    enters the TP region (`tp.copy`: its input's gradient is summed over
+    the ranks); a "row" layer holds its rank's input features, sums the
+    ranks' partial products (`tp.reduce`) and then adds its whole bias
+    once."""
 
     def __init__(self, in_features: int, out_features: int,
                  bias: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__(in_features, out_features, bias)
         self.dtype = dtype
+        self.tp, self.tp_mode = None, None
 
     def forward(self, x):
-        return linear(x, self.weight, self.bias, self.dtype)
+        if self.tp is None:
+            return linear(x, self.weight, self.bias, self.dtype)
+        if self.tp_mode == "column":
+            return linear(self.tp.copy(x), self.weight, self.bias,
+                          self.dtype)
+        y = self.tp.reduce(linear(x, self.weight, None, self.dtype))
+        return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
 class Conv2d(nn.Conv2d):
@@ -166,7 +180,12 @@ class MSDeformAttn(nn.Module):
     """Multi-scale deformable attention over flattened multi-level tokens.
     In bf16 the value, offsets and attention logits are bf16 (the softmax
     too), the sampling locations f32: value bf16 and loc / attn f32 reach
-    the MSDA op (datr_tpu/models/layers.py:85,131-134)."""
+    the MSDA op (datr_tpu/models/layers.py:85,131-134).
+
+    Split over `tp_size` ranks (parallel/mesh.py `apply_tp`) a rank holds
+    n_heads / tp_size heads: its value [B, S, H/tp, D], offsets and
+    weights go through the same MSDA op, and `output_proj` sums the
+    ranks' parts."""
 
     def __init__(self, d_model: int = 256, n_levels: int = 4,
                  n_heads: int = 8, n_points: int = 4,
@@ -174,6 +193,7 @@ class MSDeformAttn(nn.Module):
         super().__init__()
         self.d_model, self.n_levels = d_model, n_levels
         self.n_heads, self.n_points = n_heads, n_points
+        self.tp_size = 1
         hlp = n_heads * n_levels * n_points
         self.value_proj = Linear(d_model, d_model, dtype=dtype)
         self.sampling_offsets = Linear(d_model, hlp * 2, dtype=dtype)
@@ -197,8 +217,8 @@ class MSDeformAttn(nn.Module):
         spatial_shapes: Tuple[Tuple[int, int], ...],
         padding_mask: Optional[torch.Tensor] = None,  # [B, S] True = pad
     ) -> torch.Tensor:
-        H, L, P = self.n_heads, self.n_levels, self.n_points
-        D = self.d_model // H
+        H, L, P = self.n_heads // self.tp_size, self.n_levels, self.n_points
+        D = self.d_model // self.n_heads
         B, Lq, _ = query.shape
         S = value_src.shape[1]
 

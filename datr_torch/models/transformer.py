@@ -71,12 +71,18 @@ class MultiheadAttention(nn.Module):
     (datr_tpu/models/transformer.py:141-145, flax/linen/attention.py): the
     query divided by sqrt(depth) in bf16, the logits and jax's softmax in
     bf16, each rounded where flax rounds it. In f32 it takes
-    scaled_dot_product_attention, which differs by f32 roundings."""
+    scaled_dot_product_attention, which differs by f32 roundings.
+
+    Split over `tp_size` ranks (parallel/mesh.py `apply_tp`) a rank holds
+    n_heads / tp_size heads: its rows of each of the q / k / v chunks of
+    `in_proj_weight`, the inputs entering the TP region (`tp.copy`), and
+    `out_proj` sums the ranks' parts."""
 
     def __init__(self, d_model: int, n_heads: int,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_heads, self.dtype = n_heads, dtype
+        self.tp, self.tp_size = None, 1
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * d_model))
         self.out_proj = Linear(d_model, d_model, dtype=dtype)
@@ -85,10 +91,13 @@ class MultiheadAttention(nn.Module):
         """q, k, v [B, N, C]; attn_mask [N, N] bool, True = may attend."""
         B, N, C = q.shape
         depth = C // self.n_heads
+        H = self.n_heads // self.tp_size
+        if self.tp is not None:
+            q, k, v = (self.tp.copy(x) for x in (q, k, v))
 
         def heads(x, w, b):
             return linear(x, w, b, self.dtype).reshape(
-                B, -1, self.n_heads, depth).transpose(1, 2)
+                B, -1, H, depth).transpose(1, 2)
 
         q, k, v = (heads(x, w, b) for x, w, b in zip(
             (q, k, v), self.in_proj_weight.chunk(3),
@@ -103,7 +112,7 @@ class MultiheadAttention(nn.Module):
                 logits = logits.masked_fill(~attn_mask,
                                             torch.finfo(self.dtype).min)
             o = softmax(logits) @ v
-        return self.out_proj(o.transpose(1, 2).reshape(B, N, C))
+        return self.out_proj(o.transpose(1, 2).reshape(B, N, H * depth))
 
 
 class DeformableEncoderLayer(nn.Module):
@@ -123,9 +132,15 @@ class DeformableEncoderLayer(nn.Module):
         reference_points: torch.Tensor,  # [B, S, L, 2]
         spatial_shapes: Tuple[Tuple[int, int], ...],
         padding_mask: Optional[torch.Tensor] = None,  # [B, S]
+        value_src: Optional[torch.Tensor] = None,  # [B, S_all, C]
     ):
-        attn_out = self.self_attn(src + pos, reference_points, src,
-                                  spatial_shapes, padding_mask)
+        """`value_src`: the whole sequence the attention samples, when
+        `src` is this rank's share of it (sequence parallelism; the
+        padding mask is then the whole sequence's)."""
+        attn_out = self.self_attn(
+            src + pos, reference_points,
+            src if value_src is None else value_src, spatial_shapes,
+            padding_mask)
         return self.ffn(self.norm1(src + attn_out))
 
 

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import functools
 import json
 import queue
 import threading
@@ -46,6 +47,7 @@ from .data.transforms import (
 )
 from .models.postprocess import postprocess
 from .models.segmentation import det_mask_rles
+from .parallel.mesh import LocalTP, local_tp_shards
 from .train.steps import gather_masks
 
 WIRE_FORMATS = ("u8", "yuv420")
@@ -125,13 +127,18 @@ class InferenceServer:
     ('u8' or 'yuv420', which needs an even canvas) is the upload's
     layout.
 
-    `devices` (in place of `device`) serves over the data axis, as
-    datr_tpu's `mesh` does with its 'data' axis (datr_tpu/serve.py:
-    168-191): one replica of the model per entry (the same device may
-    repeat), each micro-batch split over them in order, `batch_size` a
-    multiple of their count. Answers come back in request order, equal to
-    one device's. The tensor-parallel half of mesh serving is not ported
-    (ROADMAP §A, the model axes).
+    `devices` (in place of `device`) serves over a mesh, as datr_tpu's
+    `mesh` does (datr_tpu/serve.py:168-191): each replica is `tp`
+    consecutive entries of `devices` (the same device may repeat), each
+    micro-batch split over the replicas in order, `batch_size` a multiple
+    of their count. With `tp` > 1 a replica holds the model split by the
+    tensor-parallel plan (parallel/mesh.py `tp_plan`, datr_tpu's
+    `param_sharding_tree` with a 'model' axis), one shard per entry, run
+    in lockstep by one thread each; the partial sums of its row-split
+    layers are brought to its first device and added there
+    (parallel/mesh.py `LocalTP`), and its detections are read there.
+    Answers come back in request order, equal to one device's within
+    float rounding.
 
     A model with masks (`with_masks`) copies the f16 stride-4 mask logits
     of each image's top `mask_top_k` detections (datr_tpu/serve.py:195-233)
@@ -157,6 +164,7 @@ class InferenceServer:
         device=None,
         mask_top_k: int = 50,
         devices=None,
+        tp: int = 1,
     ):
         if wire_format not in WIRE_FORMATS:
             raise ValueError(f"unknown wire_format {wire_format!r}")
@@ -170,19 +178,32 @@ class InferenceServer:
             devices if devices is not None else [device])]
         if not self.devices:
             raise ValueError("devices is empty")
+        self.tp = int(tp)
+        if self.tp < 1 or len(self.devices) % self.tp:
+            raise ValueError(f"{len(self.devices)} devices do not make "
+                             f"replicas of tp={self.tp}")
+        n_rep = len(self.devices) // self.tp
         self.batch_size = int(batch_size)
-        if self.batch_size % len(self.devices):
+        if self.batch_size % n_rep:
             raise ValueError(
                 f"batch_size {self.batch_size} not divisible by the mesh "
-                f"data axis ({len(self.devices)})")
+                f"data axis ({n_rep})")
         self.device = self.devices[0]
         if any(d.type == "cuda" for d in self.devices):
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
         self.model = model.to(self.device).eval()
-        # one replica per entry of `devices`, the first the model itself
-        self.replicas = [self.model] + [
-            copy.deepcopy(self.model).to(d).eval() for d in self.devices[1:]]
+        # each replica's first device (where its batch share lands), and
+        # the replica: the model, a copy, or (tp > 1) its shards
+        self.replica_devices = self.devices[::self.tp]
+        if self.tp > 1:
+            self.replicas = [
+                local_tp_shards(self.model, self.devices[i:i + self.tp])
+                for i in range(0, len(self.devices), self.tp)]
+        else:
+            self.replicas = [self.model] + [
+                copy.deepcopy(self.model).to(d).eval()
+                for d in self.devices[1:]]
         self.canvas_hw = tuple(canvas_hw)
         self.num_select = int(num_select)
         self.score_threshold = float(score_threshold)
@@ -232,12 +253,28 @@ class InferenceServer:
         reading them waits for the card. Over several devices: a list of
         each replica's results for its share of the batch, in order."""
         if len(self.replicas) == 1:
-            return self._replica_step(self.model, self.device, wire, sizes)
+            return self._replica_step(self.replicas[0], self.device, wire,
+                                      sizes)
         n = len(wire) // len(self.replicas)
         return [self._replica_step(m, d, wire[i * n:(i + 1) * n],
                                    sizes[i * n:(i + 1) * n])
                 for i, (m, d) in enumerate(zip(self.replicas,
-                                               self.devices))]
+                                               self.replica_devices))]
+
+    @staticmethod
+    def _forward(model, x, pad_mask):
+        """The replica's forward: a module's, or its TP shards' in
+        lockstep (the first shard's outputs)."""
+        if not isinstance(model, list):
+            return model(x, pad_mask)
+
+        def shard(m):
+            dev = next(m.parameters()).device
+            with torch.inference_mode():  # per thread
+                return m(x.to(dev), pad_mask.to(dev))
+
+        return LocalTP.run_shards(
+            [functools.partial(shard, m) for m in model])[0]
 
     def _replica_step(self, model, device, wire, sizes):
         with torch.inference_mode():
@@ -245,7 +282,7 @@ class InferenceServer:
             real_hw = torch.from_numpy(sizes).to(device)
             x, pad_mask = wire_decode(images, real_hw, self.canvas_hw,
                                       self.wire_format)
-            out = model(x, pad_mask)
+            out = self._forward(model, x, pad_mask)
             # target size (1, 1): boxes relative to the real extent, scaled
             # to original pixels per request on the host
             ones = torch.ones((x.shape[0], 2), device=device)

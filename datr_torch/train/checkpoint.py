@@ -20,6 +20,19 @@ tracks (FSDP), rank 0 the whole tensors and the meta. It loads into any
 layout (FSDP on other ranks, DDP, one process) and back, as datr_tpu's
 restores across mesh layouts. `load_resume` and `maybe_auto_resume` read
 both kinds.
+
+Tensor parallelism (parallel/mesh.py `apply_tp`): a sharded checkpoint
+gives torch.distributed.checkpoint each split tensor (parameter, AdamW
+moment, EMA track) as a DTensor over the 'model' sub-mesh, its shard at
+its place in the whole tensor, so the planner reshards on load: a
+checkpoint saved on dp 2 x tp 2 restores on dp 1 x tp 4 or into one
+process, as datr_tpu's "save on dp4xtp2, restore on dp2xtp4". The MHA's
+[q; k; v] rows, split per chunk, are stored as [3, d, d] (and [3, d]) in
+every sharded checkpoint. `save_checkpoint` of a split state gathers the
+whole tensors over 'model' (every rank calls it) and rank 0 writes them;
+`load_checkpoint` / `load_resume` cut whole tensors to a split state's
+shards. A state both split and sharded by FSDP has no sharded checkpoint
+here (NotImplementedError).
 """
 
 from __future__ import annotations
@@ -33,15 +46,60 @@ from torch import nn
 
 from ..convert import DA_HEADS
 from ..parallel import dist as pdist
+from ..parallel.mesh import chunk_view, shard_tensor, tp_plan, whole_tensor
 from .state import EMA_TRACKS, TrainState
+
+
+def _tp(module: nn.Module):
+    """(plan, axis) of a module split over processes, else (None, None)."""
+    plan, tp = getattr(module, "tp_plan", None), getattr(module, "tp", None)
+    if plan and getattr(tp, "axis", None) and tp.size > 1:
+        return plan, tp.axis
+    return None, None
+
+
+def _map_tp(sd: dict, plan, fn) -> dict:
+    return {k: fn(v, plan[k]) if k in plan else v for k, v in sd.items()}
+
+
+def _map_tp_opt(osd: dict, names, plan, fn) -> dict:
+    """`fn` over the moments of the split parameters of an optimizer's
+    state_dict (keyed by index)."""
+    state = {i: {k: fn(v, plan[names[i]]) if names[i] in plan
+                 and torch.is_tensor(v) and v.dim() else v
+                 for k, v in st.items()} for i, st in osd["state"].items()}
+    return {**osd, "state": state}
+
+
+def _whole_sd(module: nn.Module, sd: dict) -> dict:
+    plan, axis = _tp(module)
+    if plan is None:
+        return sd
+    return _map_tp(sd, plan, lambda v, s: whole_tensor(v, s, axis))
+
+
+def _local_sd(module: nn.Module, sd: dict) -> dict:
+    """Whole tensors cut to `module`'s shards (a split module)."""
+    plan, axis = _tp(module)
+    if plan is None:
+        return sd
+    r, n = pdist.process_index(axis), pdist.process_count(axis)
+    return _map_tp(sd, plan, lambda v, s: shard_tensor(v, s, r, n))
 
 
 def _payload(obj: Union[TrainState, nn.Module, Dict[str, torch.Tensor]]):
     if isinstance(obj, TrainState):
+        osd = obj.optimizer.opt.state_dict()
+        plan, axis = _tp(obj.model)
+        if plan is not None:
+            osd = _map_tp_opt(osd, obj.optimizer.names, plan,
+                              lambda v, s: whole_tensor(v, s, axis))
         return {
-            "model": obj.model.state_dict(),
-            "optimizer": obj.optimizer.opt.state_dict(),
-            **{name: getattr(obj, name).state_dict() for name in EMA_TRACKS},
+            "model": _whole_sd(obj.model, obj.model.state_dict()),
+            "optimizer": osd,
+            **{name: _whole_sd(getattr(obj, name),
+                               getattr(obj, name).state_dict())
+               for name in EMA_TRACKS},
             "global_proto": obj.global_proto,
             "amount": obj.amount,
             "step": obj.step,
@@ -49,8 +107,13 @@ def _payload(obj: Union[TrainState, nn.Module, Dict[str, torch.Tensor]]):
             "dn_generator": obj.dn_generator.get_state(),
         }
     if isinstance(obj, nn.Module):
-        return obj.state_dict()
+        return _whole_sd(obj, obj.state_dict())
     return dict(obj)
+
+
+def _split(obj) -> bool:
+    model = obj.model if isinstance(obj, TrainState) else obj
+    return isinstance(model, nn.Module) and _tp(model)[0] is not None
 
 
 def _is_state(payload) -> bool:
@@ -67,11 +130,16 @@ def _read_meta(path: str) -> dict:
 def save_checkpoint(path: str, obj, epoch: int,
                     extra: Optional[dict] = None):
     """Save a TrainState, a module (its state_dict) or a state_dict at
-    `path`, and `{"epoch": epoch, **extra}` at `path + '.meta.json'`."""
+    `path`, and `{"epoch": epoch, **extra}` at `path + '.meta.json'`. A
+    tensor-parallel state or module is gathered whole over 'model' (every
+    rank calls this) and rank 0 writes it."""
     path = os.path.abspath(path)
+    payload = _payload(obj)
+    if _split(obj) and not pdist.is_main():
+        return
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = path + ".tmp"
-    torch.save(_payload(obj), tmp)
+    torch.save(payload, tmp)
     os.replace(tmp, path)
     with open(path + ".meta.json", "w") as f:
         json.dump({"epoch": epoch, **(extra or {})}, f)
@@ -89,22 +157,67 @@ def update_checkpoint_meta(path: str, extra: dict):
         json.dump(meta, f)
 
 
-def _dcp_payload(state: TrainState) -> dict:
+def _stored(t: torch.Tensor, split, axis: Optional[str]):
+    """A planned tensor as a sharded checkpoint stores it: chunked
+    [chunks, n, ...] for the MHA's rows, and, for a split state, a DTensor
+    of this rank's shard over the 'model' sub-mesh (sharing `t`'s
+    storage: a load fills `t`)."""
+    v = chunk_view(t, split) if split.chunks > 1 else t
+    if axis is None:
+        return v
+    from torch.distributed.tensor import DTensor, Shard
+
+    dim = split.dim + (split.chunks > 1)
+    shape = list(v.shape)
+    shape[dim] *= pdist.process_count(axis)
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(v, pdist.current_mesh()[axis], [Shard(dim)],
+                              run_check=False, shape=torch.Size(shape),
+                              stride=stride)
+
+
+def _unstored(v, like: torch.Tensor) -> torch.Tensor:
+    v = v.to_local() if hasattr(v, "to_local") else v
+    return v.reshape(like.shape)
+
+
+def _dcp_payload(state: TrainState, chunked: bool):
     """The state as torch.distributed.checkpoint's state_dict functions
     lay it out: the student and its optimizer by parameter name, each EMA
-    track, the prototype state and the counters."""
+    track, the prototype state and the counters; a split state's planned
+    tensors, and with `chunked` the MHA's rows of any state, as `_stored`
+    gives them. Returns (payload, the names so stored)."""
     from torch.distributed.checkpoint.state_dict import (
         get_model_state_dict,
         get_state_dict,
     )
 
+    plan, axis = _tp(state.model)
+    if plan is not None and (state.optimizer._sharded or not chunked):
+        raise NotImplementedError(
+            "sharded checkpoints of a tensor-parallel state sharded by "
+            "FSDP, or saved without tensor parallelism into one")
+    if plan is None:
+        plan = {k: s for k, s in tp_plan(state.model, 1).items()
+                if s.chunks > 1} if chunked else {}
+        if plan and state.optimizer._sharded:
+            raise NotImplementedError(
+                "a tensor-parallel sharded checkpoint into an FSDP state")
+
+    def stored(sd):
+        return _map_tp(sd, plan, lambda v, s: _stored(v, s, axis))
+
     model_sd, optim_sd = get_state_dict(state.model, state.optimizer.opt)
-    return {"model": model_sd, "optimizer": optim_sd,
-            **{n: get_model_state_dict(getattr(state, n))
+    optim_sd = {**optim_sd, "state": {
+        k: {n: _stored(v, plan[k], axis) if k in plan and torch.is_tensor(v)
+            and v.dim() else v for n, v in st.items()}
+        for k, st in optim_sd["state"].items()}}
+    return {"model": stored(model_sd), "optimizer": optim_sd,
+            **{n: stored(get_model_state_dict(getattr(state, n)))
                for n in EMA_TRACKS},
             "global_proto": state.global_proto, "amount": state.amount,
             "counters": torch.tensor([state.step, state.ema_updates]),
-            "dn_generator": state.dn_generator.get_state()}
+            "dn_generator": state.dn_generator.get_state()}, plan
 
 
 def save_checkpoint_sharded(path: str, state: TrainState, epoch: int,
@@ -116,7 +229,8 @@ def save_checkpoint_sharded(path: str, state: TrainState, epoch: int,
 
     path = os.path.abspath(path)
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    dcp.save(_dcp_payload(state), checkpoint_id=path)
+    dcp.save(_dcp_payload(state, _tp(state.model)[0] is not None)[0],
+             checkpoint_id=path)
     if pdist.is_main():
         with open(path + ".meta.json", "w") as f:
             json.dump({"epoch": epoch, **(extra or {})}, f)
@@ -135,13 +249,29 @@ def load_checkpoint_sharded(path: str, state: TrainState
     )
 
     path = os.path.abspath(path)
-    payload = _dcp_payload(state)
+    # a tensor-parallel run stored the MHA's rows chunked ([3, d, d])
+    meta = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+    chunked = any(k.startswith("model.") and k.endswith("in_proj_weight")
+                  and len(getattr(v, "size", ())) == 3
+                  for k, v in meta.items())
+    payload, plan = _dcp_payload(state, chunked)
     dcp.load(payload, checkpoint_id=path)
+    params = dict(state.model.named_parameters())
+
+    def plain(sd):
+        return {k: _unstored(v, params[k]) if k in plan else v
+                for k, v in sd.items()}
+
+    osd = payload["optimizer"]
+    osd = {**osd, "state": {k: {n: _unstored(v, params[k]) if k in plan
+                                and torch.is_tensor(v) and v.dim() else v
+                                for n, v in st.items()}
+                            for k, st in osd["state"].items()}}
     set_state_dict(state.model, state.optimizer.opt,
-                   model_state_dict=payload["model"],
-                   optim_state_dict=payload["optimizer"])
+                   model_state_dict=plain(payload["model"]),
+                   optim_state_dict=osd)
     for n in EMA_TRACKS:
-        set_model_state_dict(getattr(state, n), payload[n])
+        set_model_state_dict(getattr(state, n), plain(payload[n]))
     state.global_proto = payload["global_proto"]
     state.amount = payload["amount"]
     state.step, state.ema_updates = (int(v) for v in payload["counters"])
@@ -150,10 +280,17 @@ def load_checkpoint_sharded(path: str, state: TrainState
 
 
 def _restore_state(state: TrainState, payload) -> TrainState:
-    state.model.load_state_dict(payload["model"])
-    state.optimizer.opt.load_state_dict(payload["optimizer"])
+    state.model.load_state_dict(_local_sd(state.model, payload["model"]))
+    osd = payload["optimizer"]
+    plan, axis = _tp(state.model)
+    if plan is not None:
+        r, n = pdist.process_index(axis), pdist.process_count(axis)
+        osd = _map_tp_opt(osd, state.optimizer.names, plan,
+                          lambda v, s: shard_tensor(v, s, r, n))
+    state.optimizer.opt.load_state_dict(osd)
     for name in EMA_TRACKS:
-        getattr(state, name).load_state_dict(payload[name])
+        m = getattr(state, name)
+        m.load_state_dict(_local_sd(m, payload[name]))
     dev = state.global_proto.device
     state.global_proto = payload["global_proto"].to(dev)
     state.amount = payload["amount"].to(dev)
@@ -182,6 +319,13 @@ def _pretrain_params(path: str, payload, model: nn.Module
     if _is_state(payload):
         payload = payload["model"]
     want = model.state_dict()
+    plan, axis = _tp(model)
+    if plan is not None:  # a split model: its tensors' whole shapes
+        n = pdist.process_count(axis)
+        for k, sp in plan.items():
+            shape = list(want[k].shape)
+            shape[sp.dim] *= n
+            want[k] = want[k].new_empty(shape)
     # published eval checkpoints may lack the train-only DA heads (the
     # reference creates them only when training, dino.py:102-108): exactly
     # these come from the model's own init, everything else is checked
@@ -248,7 +392,7 @@ def load_resume(path: str, state: TrainState
             meta.get("epoch", -1)) + 1, meta
     params = _pretrain_params(path, payload, state.model)
     for m in (state.model, *(getattr(state, n) for n in EMA_TRACKS)):
-        m.load_state_dict(params)
+        m.load_state_dict(_local_sd(m, params))
     return state, 0, meta
 
 

@@ -8,9 +8,19 @@ Groups, by the flax path datr_tpu labels (`_label_for_path`):
 - main:     everything else -> lr.
 Both trainable groups use AdamW with the config's weight decay. The gradient
 is clipped to a global norm over the trainable parameters only, as optax's
-clip_by_global_norm does after datr_tpu zeroes the frozen group. Under FSDP
-(`fully_shard`) each rank holds a shard of every gradient: the norm is the
-square root of the all-reduced sum of the shards' squares.
+clip_by_global_norm does after datr_tpu zeroes the frozen group. The norm
+is the whole model's: under FSDP (`fully_shard`) each rank holds a shard of
+every gradient and the shards' squares are summed over the data axis;
+under tensor parallelism (a model split by parallel/mesh.py `apply_tp`)
+each split tensor's squares count once per shard, summed over 'model', and
+each whole (replicated) tensor's once.
+
+The ranks of a model axis ('model', 'seq', 'pipe') compute the gradient
+of every tensor they hold whole alike, but not bitwise on the card: the
+atomic adds of a backward (a gather's, MSDA's) sum in another order on
+each rank. Before the clip, those gradients are averaged over the axis in
+one all-reduce, so the ranks' copies of the model stay bitwise equal (a
+mean of equal values is exact: on the CPU nothing changes).
 """
 
 from __future__ import annotations
@@ -121,6 +131,13 @@ class Optimizer:
              for g in ("main", "backbone")],
             betas=(0.9, 0.999), eps=1e-8, weight_decay=self.weight_decay)
         self._sharded = any(hasattr(p, "to_local") for p in self.params)
+        # the tensor-parallel split of each parameter (apply_tp's plan)
+        plan = getattr(model, "tp_plan", {})
+        tp = getattr(model, "tp", None)
+        self.tp_axis = getattr(tp, "axis", None) if plan else None
+        names = {id(p): n for n, p in model.named_parameters()}
+        self.names = [names[id(p)] for p in self.params]
+        self.tp_split = [n in plan for n in self.names]
 
     def rebind(self, model: nn.Module):
         """Rebuild over `model`'s parameters as they are now (after
@@ -163,13 +180,38 @@ class Optimizer:
         """Global norm of the trainable gradients (missing ones count 0);
         over every rank's shard when the parameters are sharded."""
         grads = [_local(p.grad) for p in self.params if p.grad is not None]
-        if not self._sharded:
+        if not self._sharded and self.tp_axis is None:
             return torch.linalg.vector_norm(
                 torch.stack([torch.linalg.vector_norm(g) for g in grads]))
-        # each shard's norm, squared and summed in f64 over the ranks
+        # each shard's norm, squared and summed in f64: [split ; whole]
+        split = [s for p, s in zip(self.params, self.tp_split)
+                 if p.grad is not None]
         sq = torch.stack([torch.linalg.vector_norm(g) for g in grads]
-                         ).double().pow(2).sum()
-        return pdist.all_reduce_sum(sq).sqrt().to(torch.float32)
+                         ).double().pow(2)
+        mask = torch.tensor(split, device=sq.device)
+        sq = torch.stack([sq[mask].sum(), sq[~mask].sum()])
+        if self._sharded:
+            sq = pdist.all_reduce_sum(sq)
+        if self.tp_axis is not None:
+            sq[0] = pdist.all_reduce_sum(sq[0], self.tp_axis)
+        return sq.sum().sqrt().to(torch.float32)
+
+    def _average_over_model_axes(self):
+        """Each model axis's whole tensors' gradients averaged over it
+        (the module docstring): on 'model' those the plan leaves whole, on
+        'seq' and 'pipe' all (whose ranks hold every tensor whole)."""
+        for axis in ("model", "seq", "pipe"):
+            n = pdist.process_count(axis)
+            if n == 1:
+                continue
+            grads = [_local(p.grad) for p, split in
+                     zip(self.params, self.tp_split)
+                     if not (split and axis == self.tp_axis)]
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            flat = pdist.all_reduce_sum(flat, axis) / n
+            torch._foreach_copy_(grads, [
+                f.view_as(g) for f, g in zip(
+                    flat.split([g.numel() for g in grads]), grads)])
 
     def step(self, step: int) -> torch.Tensor:
         """Clip, then one AdamW update at the schedule's lr for update
@@ -177,6 +219,7 @@ class Optimizer:
         for p in self.params:  # optax updates every leaf, grad or not
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        self._average_over_model_axes()
         norm = self.grad_norm()
         if self.clip_max_norm > 0:
             # optax: g if norm < max else g / norm * max

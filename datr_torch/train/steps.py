@@ -45,22 +45,34 @@ def _student(state: TrainState):
 
 
 def _student_forward(state: TrainState, images, batch, dn_draws,
-                     self_training: bool = False):
+                     self_training: bool = False, encoder_fn=None):
     model = _student(state)
     state.optimizer.zero_grad()
     return model(images, batch["pad_mask"],
                  targets={k: batch[k] for k in ("boxes", "labels", "valid")},
                  train=True, global_proto=state.global_proto,
                  amount=state.amount, dn_generator=state.dn_generator,
-                 dn_draws=dn_draws, self_training=self_training)
+                 dn_draws=dn_draws, self_training=self_training,
+                 encoder_fn=encoder_fn)
 
 
 def loss_and_grads(state: TrainState, batch: Dict[str, torch.Tensor],
                    ccfg: CriterionCfg, weight_dict: Dict[str, float],
-                   dn_draws: Optional[CdnDraws] = None):
+                   dn_draws: Optional[CdnDraws] = None, pp_mesh=None,
+                   pp_n_micro: int = 0, pp_dp_axis: Optional[str] = None):
     """Burn-in forward, losses and backward; the gradients are left in
-    `.grad`. Returns (total, losses, outputs)."""
-    out = _student_forward(state, batch["images"], batch, dn_draws)
+    `.grad`. With `pp_n_micro` the encoder is pipelined over `pp_mesh`'s
+    'pipe' axis in that many microbatches (`pp_dp_axis`: the mesh's data
+    axis). Returns (total, losses, outputs)."""
+    encoder_fn = None
+    if pp_n_micro:
+        from ..parallel.pipeline import make_pp_encoder_fn
+
+        encoder_fn = make_pp_encoder_fn(state.model, mesh=pp_mesh,
+                                        n_micro=pp_n_micro,
+                                        dp_axis=pp_dp_axis)
+    out = _student_forward(state, batch["images"], batch, dn_draws,
+                           encoder_fn=encoder_fn)
     losses = criterion(out, batch["labels"], batch["boxes"], batch["valid"],
                        ccfg, gt_masks=batch.get("masks"))
     total = weighted_total(losses, weight_dict)
@@ -86,14 +98,19 @@ def _update(state: TrainState, out, ema_decay: float) -> torch.Tensor:
 def train_step_burnin(state: TrainState, batch: Dict[str, torch.Tensor],
                       ccfg: CriterionCfg, weight_dict: Dict[str, float],
                       ema_decay: float = 0.0,
-                      dn_draws: Optional[CdnDraws] = None
+                      dn_draws: Optional[CdnDraws] = None,
+                      pp_mesh=None, pp_n_micro: int = 0,
+                      pp_dp_axis: Optional[str] = None
                       ) -> Dict[str, torch.Tensor]:
     """One burn-in step; updates `state` in place. Returns the metrics as
     0-d tensors on the device: `loss`, every loss term and `grad_norm` (the
     pre-clip norm over the trainable parameters). `dn_draws` replaces the
-    CDN noise drawn from the state's generator (tests feed datr_tpu's)."""
+    CDN noise drawn from the state's generator (tests feed datr_tpu's).
+    `pp_mesh` / `pp_n_micro` / `pp_dp_axis`: the pipelined encoder
+    (`loss_and_grads`)."""
     total, losses, out = loss_and_grads(state, batch, ccfg, weight_dict,
-                                        dn_draws)
+                                        dn_draws, pp_mesh, pp_n_micro,
+                                        pp_dp_axis)
     grad_norm = _update(state, out, ema_decay)
     return reduce_metrics({"loss": total.detach(),
                            **{k: v.detach() for k, v in losses.items()},

@@ -81,7 +81,13 @@ def run(tmp_path_factory):
         mp.undo()
 
 
-def _run(tmp):
+def _run(tmp, tasks=None, world=WORLD, also=None, self_training=True):
+    """datr_tpu's two steps (or only the burn-in step) on the global batch
+    while the ranks run `tasks(common)` (default: the DDP steps and the
+    FSDP burn-in step) on `world` ranks, and `also(common)` in this
+    process. Returns the JAX steps under "jax", each task's results by
+    task name ("ddp" / "fsdp" for the default ones) and what
+    `also(common, datr_tpu's model, its params)` returned under "one"."""
     jm = jdino.DINO(**KW, dn_labelbook_size=K, use_remat=False)
     params = {"params": backbone_params(train_tree_shapes(jm, CANVAS), 4)}
     tx = _stash_grads()
@@ -102,10 +108,10 @@ def _run(tmp):
                   wd=tcrit.build_weight_dict(dec_layers=2),
                   burnin_draws=draws, thr=torch.from_numpy(thr),
                   canvas=CANVAS, lr=LR, lr_backbone=LR_BACKBONE)
-    ctx = worker.spawn([("steps", dict(common, st_draws=draws)),
-                        ("steps:fsdp", dict(common, st_draws=None,
-                                            fsdp=True))],
-                       WORLD, tmp)
+    task_list = ([("steps", dict(common, st_draws=draws)),
+                  ("steps:fsdp", dict(common, st_draws=None, fsdp=True))]
+                 if tasks is None else tasks(dict(common, st_draws=draws)))
+    ctx = worker.spawn(task_list, world, tmp)
     try:  # datr_tpu's global steps while the ranks run
         batch = {k: jnp.asarray(v) for k, v in _tiny_batch().items()}
         ccfg, wd = jcrit.CriterionCfg(**CCFG), jcrit.build_weight_dict(
@@ -124,15 +130,20 @@ def _run(tmp):
 
         # both steps compile at once (XLA releases the GIL)
         with ThreadPoolExecutor(2) as pool:
-            jax_steps = dict(zip(("burnin", "self_training"), pool.map(
-                run_step, (jax_burnin, jax_self_training),
+            fns = (jax_burnin, jax_self_training)[:1 + self_training]
+            jax_steps = pool.map(
+                run_step, fns,
                 ({}, dict(class_thresholds=jnp.asarray(thr),
-                          canvas_hw=CANVAS)))))
+                          canvas_hw=CANVAS)))
+            one = (also(dict(common, st_draws=draws), jm, params) if also
+                   else None)
+            jax_steps = dict(zip(("burnin", "self_training"), jax_steps))
     finally:
         worker.join(ctx)
-    return dict(jax=jax_steps,
-                ddp=worker.results(tmp, "steps", WORLD),
-                fsdp=worker.results(tmp, "steps:fsdp", WORLD))
+    res = {name: worker.results(tmp, name, world) for name, _ in task_list}
+    if tasks is None:
+        return dict(jax=jax_steps, ddp=res["steps"], fsdp=res["steps:fsdp"])
+    return dict(jax=jax_steps, one=one, **res)
 
 
 def _grad_errors(got, want):

@@ -836,3 +836,32 @@ def test_two_ranks_ddp_step_on_the_card(cuda, tmp_path, monkeypatch):
         assert torch.equal(a["after"]["global_proto"],
                            b["after"]["global_proto"])
         assert a["launches"][0] > 0 and a["launches"][0] == b["launches"][0]
+
+
+# ---------------- the model axes' shapes ----------------
+
+# a tensor-parallel rank's encoder call (4 of 8 heads, Lq = S) and a
+# sequence-parallel rank's share of the queries against the whole value
+# table (8 heads, Lq = ceil(S / 2)), P = 4 as the models have
+AXES_GEOMETRIES = [(S, 4), (-(-S // 2), 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lq,h", AXES_GEOMETRIES, ids=["tp_h4", "sp_half"])
+def test_kernels_match_plain_at_model_axes_shapes(cuda, dtype, lq, h):
+    """msda_fwd and msda_bwd at the shapes tensor and sequence parallelism
+    give them, against their plain versions on the same inputs."""
+    value, loc, attn = _inputs(lq, h, 32, 4, dtype, "outside")
+    got = msda.msda_fwd(value, SHAPES, loc, attn)
+    torch.cuda.synchronize()
+    assert got.shape == (2, lq, h * 32)
+    want = msda.ms_deform_attn_plain(value.float(), SHAPES, loc, attn)
+    torch.testing.assert_close(got.float(), want, **_fwd_tol(dtype))
+    g = _grad_out(lq, h, 32).to(dtype)
+    got_b = msda.msda_bwd(value, SHAPES, loc, attn, g)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        _assert_bwd_close(got_b, msda.ms_deform_attn_plain_bwd(
+            value, SHAPES, loc, attn, g))
+    else:
+        _assert_bwd_bf16_close(got_b, value, SHAPES, loc, attn, g)

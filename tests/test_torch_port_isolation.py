@@ -53,6 +53,7 @@ def test_every_port_module_is_a_case():
     assert {"datr_torch.data.png", "datr_torch.inference",
             "datr_torch.tools.serve_bench", "datr_torch.serve",
             "datr_torch.parallel.dist", "datr_torch.parallel.mesh",
+            "datr_torch.parallel.pipeline",
             "tests.torch_port_dist_worker"} <= set(MODULES)
     assert len(MODULES) == len(set(MODULES)) > 30
 
