@@ -99,16 +99,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
      f32 parameters); each part's state freed before the next;
   9. the serving surface (runs after 4, before 6): the flagship behind
      serve_http on a local port, in f32 (TF32 off) and in bf16, with the
-     u8 and the yuv420 wire: /healthz and /stats, 48 POSTs of PNG bodies
+     u8 and the yuv420 wire: /healthz and /stats, 8 POSTs of PNG bodies
      (8 seeded 1024x2048 frames, the five PNG filters cycled over the rows,
      decoded on the host by data/png.py) from 8 client threads, msda_fwd
      at 12 launches per batch, every answer held to the server's own
      detections of the same decoded image (boxes atol 1e-4 x 2048, scores
      1e-3); with yuv420 the decode on the card held to its plain CPU run
      (atol 1e-5) and the answers to a forward on the RGB the wire
-     reconstructs; each wire's decode launches per batch; 16 JPEG bodies
+     reconstructs; each wire's decode launches per batch; 8 JPEG bodies
      in f32 where libjpeg was found (else a line says why not); then
-     datr_torch.tools.serve_bench through submit (4 clients, 64 images,
+     datr_torch.tools.serve_bench through submit (4 clients, 12 images,
      in-flight 2; f32 and bf16, u8 and yuv420): img/s, p50 / p95 latency,
      occupancy; then a burst of 16 POSTs against max_queue 2 and 4
      concurrent requests: at least one 503 overloaded, close() returns;
@@ -121,13 +121,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
      the kernels against the plain forward (bf16: phase 8's floor and
      control); one train_step_plain of each at the config's own canvas and
      batch (800x1344, 2 images, f32, use_remat on) through
-     engine.train_one_epoch_plain fed by make_single_loader (warm-up + 3
-     timed steps, launches, peak memory, one step against the plain step);
+     engine.train_one_epoch_plain fed by make_single_loader (warm-up + 1
+     timed step, launches, peak memory, one step against the plain step);
      then C2F self-training at 1216x2048 with an external teacher: the R50
      student, the teacher the same config with the Swin-L backbone, seeded,
      through save_checkpoint / load_pretrain_params, labelling through
      engine.train_one_epoch_self_training(teacher=...) (a per-run
-     threshold, warm-up + 2 timed steps, 60 / 24 launches per step, the
+     threshold, warm-up + 1 timed step, 60 / 24 launches per step, the
      teacher and EMA teacher unchanged, the parts by CUDA events, one step
      against the plain step with the pseudo-labels made once);
   11. instance masks (runs after 10, before 6): a single-domain COCO tree
@@ -135,13 +135,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
      1024x2048 PNG frames, polygon, compressed-RLE and uncompressed-RLE
      segmentations); the flagship with masks=True and mask_query_chunk 100
      behind InferenceServer(mask_top_k=50) at 800x1344, batch 2, f32 with
-     TF32 off: the 8 frames as requests (12 msda_fwd launches per batch,
+     TF32 off: 4 of the frames as requests (12 msda_fwd launches per batch,
      every answer's 50 masks at the frame's size), the step by CUDA events,
      peak memory, profile, the forward through the kernels against the
      plain forward (memory / logits / boxes as phase 3; pred_masks atol
      1e-3; each of a batch's top-50 masks finished on the host, IoU >= 0.99
-     with the plain run's), 8 PNG POSTs through serve_http whose mask RLEs
-     equal detect's; one batch in bf16; engine.evaluate(segm=True) over 4
+     with the plain run's), 4 PNG POSTs through serve_http whose mask RLEs
+     equal detect's; one batch in bf16; engine.evaluate(segm=True) over 2
      frames of the tree (batch 2, 100 detections per image: the 12 bbox and
      12 segm stats, img/s, the host finish's time); train_one_epoch_plain
      on the tree through make_single_loader with return_masks (800x1344,
@@ -157,15 +157,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
      (12 msda_fwd launches per batch, the step by CUDA events, the forward
      against the plain forward at phase 3's tolerances) and trained as
      phase 10 trains the backbones (train_step_plain through
-     make_single_loader: warm-up + 3 timed steps at 24 / 12 launches, the
+     make_single_loader: warm-up + 1 timed step at 24 / 12 launches, the
      step against the plain step); the C++ host image ops against their
      plain versions on seeded 1024x2048 frames at the serving and the
      loader's sizes (resize_normalize_pad and rgb_to_yuv420 bitwise,
      resize_pad_u8 within one count, the share that differs printed),
      each timed beside its plain version on one thread, and beside the
      same source built with -fopenmp, alone and from 4 threads at once;
-     the loader's img/s (phase 7's) and serve_bench through submit (u8,
-     f32, 4 clients, 64 images) through the C++ ops, the plain versions
+     the loader's img/s (3 batches) and serve_bench through submit (u8,
+     f32, 4 clients, 24 images) through the C++ ops, the plain versions
      patched in, and the OpenMP build; `python -m
      datr_torch.tools.benchmark` on the flagship at 800x1344, batch 1;
   13. data parallelism across processes on the one card (runs after 7,
@@ -175,12 +175,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
      the whole 2 + 2 batch (each rank runs that in turn with the package's
      collectives off; its top-k, assignments, prototype classes and ReLU
      signs held, each rank taking its share; losses and gradients 1e-3 as
-     phase 5's check), then a warm-up, 3 timed burn-in and 2 self-training
-     DDP steps (s/step, launches per step, peak per rank; the ranks'
+     phase 5's check), then a warm-up, 1 timed burn-in and 1 self-training
+     DDP step (s/step, launches per step, peak per rank; the ranks'
      parameters and prototype state compared after every step); b. one
      FSDP burn-in step from the same weights, batch and CDN draws, its
      parameters within 2 lr of DDP's, the bytes each rank holds beside
-     DDP's; c. engine.evaluate(segm=True) of phase 11's masks model on 8
+     DDP's; c. engine.evaluate(segm=True) of phase 11's masks model on 4
      fogged frames over the 2 ranks (equal stats on both, within 1e-3 of
      the one-process evaluate's, detections within phase 6's tolerances);
      d. the FSDP state saved sharded (torch.distributed.checkpoint) and
@@ -188,7 +188,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
      ranks'; e. phase 7's CLI under torchrun's environment, NCCL, world 1
      (DDP on one card), its step time beside phase 7's; f. the flagship
      served on devices=[cuda:0, cuda:0], answers as one device's;
-  14. the result: the wall time of each phase, a {"kernels": [...]} line,
+  14. the model axes on the one card (runs after 13, before 8): tensor
+     parallelism (tp = 2), encoder sequence parallelism (sp = 2), the GPipe
+     encoder (2 stages), data x tensor parallelism with FSDP on 4 ranks, a
+     tensor-parallel sharded checkpoint loaded into one process, serving
+     with tp = 2 (`run_model_axes`);
+  15. the tools and the float64 mode (runs after 14, before 8): a. a
+     reference-layout .pth of the flagship (full width, random, `module.`
+     prefixes and an `args` Namespace) through
+     datr_torch/tools/convert_checkpoint.py into the flagship: every eval
+     tensor the converter's, none at init, none left over; served and its
+     forward against the plain forward at phase 3's tolerances; b. its eval
+     forward exported with torch.export at 1 x 800x1344 in f32, saved,
+     loaded (`load_exported`) and run: 12 msda_fwd launches, within phase
+     3's tolerances of eager (bitwise expected), export / load seconds and
+     ms beside eager's; the registered op's host cost per call beside the
+     wrapper's, f32 and bf16; c. `datr_torch.tools.train_bench.main` (f32
+     burn-in, warm-up + 3 steps, 192 / 96 launches); d. `python -m
+     datr_torch.tools.profile_model` on the bf16 eval forward (`--copies`)
+     and burn-in step (`--train`), each in a process of its own (its
+     profiler apart from the smoke's): the categories cover at
+     least 95% of the kernel time, msda_fwd / msda_bwd by name, the idle
+     share; e. `datr_torch.tools.repro_c2f.main(["--dry_run"])` on the
+     card, every stage ok; f. the f64 instantiations of msda_fwd / msda_bwd against
+     their plain versions (rtol 1e-9 / atol 1e-12) at random, outside and
+     the f64 flagship's own locations, timed beside their f64 bounds; the
+     f64 flagship's serving forward at batch 1 through the kernels against
+     the plain f64 forward (phase 3's tolerances times 2^-29, f64's epsilon
+     over f32's), its ms, and the f32 forward's distance from it (a
+     finding); one f64 C2F burn-in step at 800x1344 (48 / 24 launches);
+  the result: the wall time of each phase, a {"kernels": [...]} line,
      the card line, and as the last line {"ok": true, "device": {...}}.
 Imports nothing of JAX or datr_tpu. Needs one CUDA card; fails without one.
 """
@@ -197,6 +226,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import io
 import json
 import os
 import subprocess
@@ -302,7 +332,7 @@ def cache_traffic(msda, loc, shapes, d=D, elt=4) -> dict:
     inside corner whose bilinear weight is not zero (fewer where it merges
     the reductions of consecutive queries on one row, so its rate reads
     high there)."""
-    _, valids, weights = msda._corners(loc, shapes)
+    _, valids, weights, _ = msda._corners(loc, shapes)
     inside = sum(int(v.sum()) for v in valids)
     reduced = sum(int((v & (w != 0)).sum()) for v, w in zip(valids, weights))
     return dict(fwd=inside * d * elt, bwd=inside * d * elt + reduced * d * 4)
@@ -2336,7 +2366,7 @@ def run_bf16(msda, card) -> dict:
 
 CANVAS = (800, 1344)  # the flagship's serving canvas
 FRAME_HW = (1024, 2048)  # Cityscapes-sized requests
-HTTP_CLIENTS, HTTP_REQUESTS, JPEG_REQUESTS = 8, 48, 16
+HTTP_CLIENTS, HTTP_REQUESTS, JPEG_REQUESTS = 8, 8, 8
 NUM_SELECT = 300  # the server's default: detections per answer
 MSDA_PER_FORWARD = 12  # 6 encoder + 6 decoder layers
 # HTTP answers against detect on the same decoded image (PERF.md §2's
@@ -2693,7 +2723,7 @@ def run_serving_surface(msda, card) -> dict:
     bench = {}
     for amp in (False, True):
         for wire in ("u8", "yuv420"):
-            argv = ["--clients", "4", "--images", "64", "--in_flight", "2",
+            argv = ["--clients", "4", "--images", "12", "--in_flight", "2",
                     "--wire", wire] + (["--amp"] if amp else [])
             r = serve_bench.run(serve_bench.get_args_parser().parse_args(argv))
             assert r["msda_fwd_launches"] == MSDA_PER_FORWARD * r[
@@ -2797,7 +2827,7 @@ def run_backbone_training(msda, card, config, **overrides) -> dict:
     canvas and batch (800x1344, 2 images, f32 with TF32 off, the config's
     use_remat), fed by
     make_single_loader with the config's SingleDomainTrainTransform over
-    synthetic Cityscapes-sized frames: a warm-up step, then 3 timed steps
+    synthetic Cityscapes-sized frames: a warm-up step, then 1 timed step
     (launches, s/step, peak memory), and one step through the kernels
     against the plain versions with the choices held."""
     from datr_torch.data.loader import make_single_loader, to_device
@@ -2807,7 +2837,7 @@ def run_backbone_training(msda, card, config, **overrides) -> dict:
     from datr_torch.models.layers import MSDeformAttn
     from datr_torch.train.steps import plain_loss_and_grads
 
-    n_batches = 4
+    n_batches = 2
     base_gb = torch.cuda.memory_allocated() / 1e9
     state, ccfg, wd, cfg = c2f_train_state(n_batches, config, **overrides)
     model = state.model
@@ -2870,7 +2900,7 @@ def run_distillation(msda, card) -> dict:
     that config with the Swin-L backbone, seeded, written by
     save_checkpoint and read back by load_pretrain_params into a model of
     another seed (bitwise); a per-run threshold from the teacher's scores;
-    a warm-up step and 2 timed steps through
+    a warm-up step and 1 timed step through
     engine.train_one_epoch_self_training(teacher=...): launches, s/step,
     peak memory, num_pseudo; the teacher and the EMA teacher unchanged; the
     device time of the teacher forward, the pseudo-labels and the student;
@@ -2889,7 +2919,7 @@ def run_distillation(msda, card) -> dict:
     from datr_torch.train.pseudo import pseudo_labels_from_outputs
     from datr_torch.train.steps import self_training_loss_and_grads
 
-    n_batches = 3
+    n_batches = 2
     base_gb = torch.cuda.memory_allocated() / 1e9
     state, ccfg, wd, cfg = c2f_train_state(n_batches, C2F_ST, seed=1)
     t_cfg = load_config(C2F_ST)
@@ -3016,9 +3046,12 @@ def run_backbones(msda, card) -> dict:
 # ---------------------------------------------------------------- phase 11
 
 MASK_CHUNK = 100  # (image, query) pairs per pass of the mask head
+# f32 requests to the masks server, and HTTP POSTs (each answer's host
+# finish, ~2 s of 50 masks, sets the phase's time)
+MASK_SERVE_REQUESTS = 4
 MASK_TOP_K = 50  # the server's default: masks answered per request
 MASK_ATOL, MASK_IOU_MIN = 1e-3, 0.99
-MASK_EVAL_IMAGES, MASK_EVAL_SELECT = 4, 100  # the host finish sets the time
+MASK_EVAL_IMAGES, MASK_EVAL_SELECT = 2, 100  # the host finish sets the time
 
 
 def _ellipse(h, w, box):
@@ -3172,7 +3205,7 @@ def run_masks_serving(msda, card, frames, bodies) -> dict:
         srv = InferenceServer(model, canvas_hw=CANVAS, batch_size=2,
                               score_threshold=0.0, batch_timeout_s=1.0,
                               mask_top_k=MASK_TOP_K)
-        reqs = frames if mode == "f32" else frames[:2]
+        reqs = frames[:MASK_SERVE_REQUESTS] if mode == "f32" else frames[:2]
         try:
             srv.warmup()
             torch.cuda.synchronize()
@@ -3218,7 +3251,8 @@ def run_masks_serving(msda, card, frames, bodies) -> dict:
                 srv.batch_timeout_s = 0.02
                 msda.msda_fwd.launches = 0
                 with http_front_end(srv) as url:
-                    posted = [http_post(url + "/detect", b) for b in bodies]
+                    posted = [http_post(url + "/detect", b)
+                              for b in bodies[:MASK_SERVE_REQUESTS]]
                 r["http_launches"] = msda.msda_fwd.launches
                 for (code, ans), im in zip(posted, frames):
                     assert code == 200, (code, ans)
@@ -3404,7 +3438,7 @@ def run_shared_heads(msda, card) -> dict:
     12 msda_fwd launches per batch, the step by CUDA events, the forward
     through the kernels against the plain forward at phase 3's
     tolerances), then one train_step_plain as phase 10 trains the other
-    backbones (warm-up + 3 timed steps at 24 / 12 launches, the step
+    backbones (warm-up + 1 timed step at 24 / 12 launches, the step
     against the plain step)."""
     from datr_torch.models import dino as dino_mod
 
@@ -3570,16 +3604,15 @@ def plain_host_ops():
 
 
 def run_host_traffic(msda, card, omp) -> dict:
-    """The loader's img/s (phase 7's loader_rate: 4 threads, 1024x2048, 6
-    batches) and serve_bench through submit (u8, f32, 4 clients, 64
+    """The loader's img/s (phase 7's loader_rate: 4 threads, 1024x2048, 3
+    batches) and serve_bench through submit (u8, f32, 4 clients, 24
     images) with the plain versions patched in, through the C++ host ops
-    and (where `omp`, the OpenMP build, is given) through that build; the
-    loader once more per variant in the reverse order, so that each
-    variant has a run early and a run late in the sequence."""
+    and (where `omp`, the OpenMP build, is given) through that build; one
+    loader run of 3 batches per variant."""
     from datr_torch import native
     from datr_torch.tools import serve_bench
 
-    argv = ["--clients", "4", "--images", "64", "--in_flight", "2",
+    argv = ["--clients", "4", "--images", "24", "--in_flight", "2",
             "--wire", "u8"]
     variants = [("plain", plain_host_ops), ("cpp", contextlib.nullcontext)]
     if omp is not None:
@@ -3588,7 +3621,7 @@ def run_host_traffic(msda, card, omp) -> dict:
     out = {ops: {"loader": []} for ops, _ in variants}
     for ops, ctx in variants:
         with ctx():
-            out[ops]["loader"].append(loader_rate(n_batches=6))
+            out[ops]["loader"].append(loader_rate(n_batches=3))
             r = serve_bench.run(serve_bench.get_args_parser().parse_args(
                 argv))
         assert r["msda_fwd_launches"] == MSDA_PER_FORWARD * r["batches"], r
@@ -3599,9 +3632,6 @@ def run_host_traffic(msda, card, omp) -> dict:
         out[ops]["submit"] = r
         gc.collect()
         torch.cuda.empty_cache()
-    for ops, ctx in reversed(variants):
-        with ctx():
-            out[ops]["loader"].append(loader_rate(n_batches=6))
     for ops, _ in variants:
         rates = [x["img_s"] for x in out[ops]["loader"]]
         out[ops]["loader_img_s"] = float(np.mean(rates))
@@ -3661,9 +3691,9 @@ def run_registry_and_host(msda, card, host_build) -> dict:
 # ---------------------------------------------------------------- phase 13
 
 DIST_WORLD = 2  # ranks sharing the one card over gloo (NCCL refuses that)
-DIST_STEPS = 3  # timed burn-in steps per rank, after a warm-up step
-DIST_ST_STEPS = 2  # self-training steps per rank
-DIST_EVAL_IMAGES, DIST_EVAL_SELECT = 8, 20  # the host mask finish
+DIST_STEPS = 1  # timed burn-in steps per rank, after a warm-up step
+DIST_ST_STEPS = 1  # self-training steps per rank
+DIST_EVAL_IMAGES, DIST_EVAL_SELECT = 4, 20  # the host mask finish
 DIST_SERVE_REQUESTS = 6
 
 
@@ -4318,7 +4348,9 @@ def run_distributed(msda, card, cli_ref) -> dict:
 
 # ---------------------------------------------------------------- phase 14
 
-AXES_STEPS = 1  # timed tensor-parallel burn-in steps (the held step warms)
+# timed burn-in steps beyond the held one (14a times its held step, which
+# runs the tp burn-in path, and its self-training step)
+AXES_STEPS = 0
 AXES_SERVE_REQUESTS = 4
 
 
@@ -4490,10 +4522,9 @@ def _free():
 def axes_two(rank, world, tmp):
     """Phase 14 a, b, c and e's save on two ranks (gloo, CUDA tensors, the
     one card). a: the C2F burn-in step split by tensor parallelism (tp =
-    2) against the reference, choices held (it warms the ranks up);
-    AXES_STEPS timed burn-in steps and one self-training step, the
-    matcher's assignments and the whole (replicated) parameters compared
-    between the ranks; one encoder and one decoder call of 4
+    2) against the reference, choices held, timed; one self-training
+    step, the matcher's assignments and, after its update, the whole
+    (replicated) parameters compared between the ranks; one encoder and one decoder call of 4
     heads through check_model_locations. e: that state's forward, its
     whole student written by rank 0, its sharded save. b: sequence
     parallelism (sp = 2): the flagship's eval forward at 800x1344 on
@@ -4540,30 +4571,29 @@ def axes_two(rank, world, tmp):
     whole_bytes = local_bytes(model)
     shard_train_state(state)
     draws = _axes_draws(model, dev)
+    torch.cuda.reset_peak_memory_stats()
     with held_choices(0, 1, held, inner=(me, world, -1)) as flips:
-        _, losses, _ = loss_and_grads(state, b0, ccfg, wd, draws)
+        burn = [_step_timed(lambda: loss_and_grads(state, b0, ccfg, wd,
+                                                   draws), msda)]
+    losses = burn[0][1][1]
     norm = state.optimizer.grad_norm().item()
     check = _axes_check("14a tp=2", {k: v.item() for k, v in losses.items()},
                         _axes_grads(state), ref, flips, norm)
     state.optimizer.zero_grad()
     _free()
-    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        thr = pseudo_threshold(state, [_on(batches[0], dev)])
     with _match_digests() as digests:
-        burn = [_step_timed(lambda b=b: train_step_burnin(
-            state, _on(_burnin(b), dev), ccfg, wd), msda)
-            for b in batches[1:]]
+        st = _step_timed(lambda: train_step_self_training(
+            state, _on(batches[0], dev), ccfg, wd,
+            torch.full((model.num_classes,), thr, device=dev),
+            TRAIN_CANVAS), msda)
     peak = torch.cuda.max_memory_allocated() / 1e9
     matches_agree = _agree_over(torch.stack(digests), "model")
     # the tensors every tp rank holds whole stay bitwise equal
     whole_agree = _agree_over(_bits_of(
         [p for n, p in model.named_parameters()
          if n not in model.tp_plan]), "model")
-    with torch.no_grad():
-        thr = pseudo_threshold(state, [_on(batches[0], dev)])
-    st = _step_timed(lambda: train_step_self_training(
-        state, _on(batches[0], dev), ccfg, wd,
-        torch.full((model.num_classes,), thr, device=dev), TRAIN_CANVAS),
-        msda)
     want_burn = (2 * n_msda * remat, 2 * n_msda)
     want_st = (n_msda + 2 * n_msda * remat, 2 * n_msda)
     assert all(n == want_burn for _, _, n in burn), burn
@@ -4571,7 +4601,7 @@ def axes_two(rank, world, tmp):
     assert matches_agree, "the tp ranks' assignments differ"
     assert whole_agree, "the tp ranks' whole parameters differ"
     assert float(st[1]["num_pseudo"]) > 0 and all(
-        np.isfinite(float(m["loss"])) for _, m, _ in [*burn, st])
+        np.isfinite(float(t)) for t in (burn[0][1][0], st[1]["loss"]))
     calls = training_msda_calls(msda, state, b0)  # both ranks: TP's reduces
     at_model = None
     if rank == 0:
@@ -4593,7 +4623,7 @@ def axes_two(rank, world, tmp):
         want_self_training=want_st, matches_agree=matches_agree,
         whole_params_agree=whole_agree,
         match_calls=len(digests), model_locations=at_model,
-        loss=[float(m["loss"]) for _, m, _ in [*burn, st]])
+        loss=[float(burn[0][1][0]), float(st[1]["loss"])])
     log(f"  rank {rank}: 14a tp {out['tp']}")
 
     # ---- e: the split state's forward, whole student, sharded save
@@ -4909,6 +4939,389 @@ def run_model_axes(msda, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 15
+
+# f64 kernels against their plain versions: the sums differ only in order
+F64_TOL = dict(rtol=1e-9, atol=1e-12)
+# NVIDIA H100 SXM data sheet: FP64 outside the tensor cores (the f64
+# kernels' FMAs)
+F64_FLOPS_PER_S = 34e12
+# phase 3's forward tolerances (f32) scaled by f64's epsilon over f32's
+F64_FORWARD_TOL = {k: v * 2.0 ** -52 / 2.0 ** -23 for k, v in
+                   {"memory": 1e-4, "pred_logits": 1e-3,
+                    "pred_boxes": 1e-4}.items()}
+
+
+def tool_json(args, timeout=900) -> list:
+    """Run `python -m <args>` from the repository's root; its JSON lines
+    (a tool's result lines). Raises with its output when it fails."""
+    proc = subprocess.run([sys.executable, "-m", *args], capture_output=True,
+                          text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{' '.join(args)} failed ({proc.returncode}):\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    return [json.loads(ln) for ln in proc.stdout.splitlines()
+            if ln.startswith("{")]
+
+
+def msda_f64_bounds(msda, loc, d=D, shapes=SHAPES) -> dict:
+    """The forward's and the backward's bounds (ms, bound_by) at f64
+    widths: as `msda_bound` / `msda_bwd_bound` count them, every element 8
+    bytes (value, loc, attn, out, grad_out, grad_value, grad_loc,
+    grad_attn), the operations at the f64 rate."""
+    lq, heads, n_l, n_p = loc.shape[1:5]
+    s_tok = sum(h * w for h, w in shapes)
+    rows = value_rows_touched(msda, loc, shapes)
+    n = B * lq * heads * n_l * n_p
+
+    def bound(n_bytes, flops):
+        t_b, t_o = n_bytes / HBM_BYTES_PER_S, flops / F64_FLOPS_PER_S
+        return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+    fwd = bound((rows * d + n * 3 + B * lq * heads * d) * 8, n * 4 * d * 2)
+    bwd = bound(((rows + B * s_tok * heads + B * lq * heads) * d
+                 + n * 3 * 2) * 8, n * 4 * d * 4)
+    return dict(fwd_bound_ms=fwd[0], fwd_bound_by=fwd[1],
+                bwd_bound_ms=bwd[0], bwd_bound_by=bwd[1])
+
+
+def check_f64_kernels(msda, name, value, shapes, loc, attn, g,
+                      time_it=True) -> dict:
+    """msda_fwd / msda_bwd in f64 against their plain versions on the same
+    inputs, F64_TOL (grad_loc's atol times the largest level side, as the
+    f32 check's); with `time_it` each timed beside its plain version and
+    its bound."""
+    got = msda.msda_fwd(value, shapes, loc, attn)
+    got_b = msda.msda_bwd(value, shapes, loc, attn, g)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float64 and all(
+        t.dtype == torch.float64 for t in got_b)
+    want = msda.ms_deform_attn_plain(value, shapes, loc, attn)
+    want_b = msda.ms_deform_attn_plain_bwd(value, shapes, loc, attn, g)
+    side = max(max(hw) for hw in shapes)
+    errs = {"fwd": (got - want).abs().max().item()}
+    torch.testing.assert_close(got, want, **F64_TOL,
+                               msg=lambda m: f"msda_fwd f64 {name}: {m}")
+    for part, a, b in zip(("value", "loc", "attn"), got_b, want_b):
+        errs[f"grad_{part}"] = (a - b).abs().max().item()
+        torch.testing.assert_close(
+            a, b, rtol=F64_TOL["rtol"],
+            atol=F64_TOL["atol"] * (side if part == "loc" else 1),
+            msg=lambda m: f"msda_bwd f64 {name} grad_{part}: {m}")
+    out = dict(lq=loc.shape[1], max_abs_err=errs)
+    if time_it:
+        enc = loc.shape[1] == value.shape[1]
+        iters, p_iters = (10, 2) if enc else (50, 5)
+        out.update(
+            fwd_ms=cuda_ms(lambda: msda.msda_fwd(value, shapes, loc, attn),
+                           iters),
+            fwd_plain_ms=cuda_ms(lambda: msda.ms_deform_attn_plain(
+                value, shapes, loc, attn), p_iters, warmup=1),
+            bwd_ms=cuda_ms(lambda: msda.msda_bwd(value, shapes, loc, attn,
+                                                 g), iters),
+            bwd_plain_ms=cuda_ms(lambda: msda.ms_deform_attn_plain_bwd(
+                value, shapes, loc, attn, g), p_iters, warmup=1),
+            **msda_f64_bounds(msda, loc, value.shape[-1], shapes))
+    log(f"  f64 {name}: max_abs_err {errs}" + (
+        f"; fwd {out['fwd_ms']:.4f} ms (plain {out['fwd_plain_ms']:.3f}, "
+        f"bound {out['fwd_bound_ms']:.4f} {out['fwd_bound_by']}), bwd "
+        f"{out['bwd_ms']:.4f} ms (plain {out['bwd_plain_ms']:.3f}, bound "
+        f"{out['bwd_bound_ms']:.4f} {out['bwd_bound_by']})"
+        if time_it else ""))
+    return out
+
+
+def f64_forward_against_plain(model, x, pad, msda, dino_mod) -> dict:
+    """The f64 forward through the kernels against the plain f64 forward,
+    the two-stage selection held, at F64_FORWARD_TOL; the kernel
+    forward's outputs and its ms by CUDA events."""
+    memories = []
+    hook = getattr(model, f"enc_layer{model.enc_layers - 1}") \
+        .register_forward_hook(lambda m, i, o: memories.append(o))
+    try:
+        with torch.inference_mode():
+            msda.msda_fwd.launches = 0
+            out_k = model(x, pad)
+            launches = msda.msda_fwd.launches
+            idx = out_k["topk_idx"]
+            with mock.patch.object(msda, "ms_deform_attn",
+                                   msda.ms_deform_attn_plain), \
+                    mock.patch.object(dino_mod, "_stable_topk_indices",
+                                      lambda s, k: idx):
+                out_p = model(x, pad)
+    finally:
+        hook.remove()
+    torch.cuda.synchronize()
+    diffs = {"memory": (memories[0] - memories[1]).abs().max().item(),
+             **{k: (out_k[k] - out_p[k]).abs().max().item()
+                for k in ("pred_logits", "pred_boxes")}}
+    assert all(out_k[k].dtype == torch.float64
+               for k in ("pred_logits", "pred_boxes"))
+    log(f"  f64 forward, kernels vs plain (tolerance {F64_FORWARD_TOL}): "
+        f"{diffs}")
+    for k, t in F64_FORWARD_TOL.items():
+        assert diffs[k] <= t, f"f64 forward through the kernels: {k}"
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: model(x, pad), 3, warmup=1)
+    return dict(diffs=diffs, launches=launches, ms=ms, out=out_k)
+
+
+def run_float64(msda, card) -> dict:
+    """Phase 15f: amp_dtype="float64" on the card (datr_tpu's x64 mode)."""
+    from datr_torch.models import dino as dino_mod
+    from datr_torch.serve import wire_decode
+    from datr_torch.train.steps import train_step_burnin
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    out = {"random": {}, "model_locations": {}}
+    # ---- the f64 kernels at uniform-random locations, serving shapes ----
+    for part, lq in (("encoder", S), ("decoder", N_QUERIES)):
+        value, loc, attn = msda_inputs(gen, lq, torch.float64)
+        loc, attn = loc.double(), attn.double()
+        g = torch.randn(B, lq, H * D, device="cuda", generator=gen,
+                        dtype=torch.float64)
+        out["random"][part] = check_f64_kernels(
+            msda, f"{part} Lq={lq} random", value, SHAPES, loc, attn, g)
+    value, loc, attn = msda_inputs(gen, N_QUERIES, torch.float64,
+                                   case="outside")
+    g = torch.randn(B, N_QUERIES, H * D, device="cuda", generator=gen,
+                    dtype=torch.float64)
+    out["outside_errs"] = check_f64_kernels(
+        msda, "decoder outside", value, SHAPES, loc.double(), attn.double(),
+        g, time_it=False)["max_abs_err"]
+
+    # ---- the flagship in f64: its locations, its serving forward ----
+    model = flagship_model(amp_dtype="float64")
+    imgs = request_images()
+    canv = torch.from_numpy(np.stack([imgs[0][:800, :1344]])).cuda()
+    x, pad = wire_decode(canv, torch.tensor([[800, 1344]], device="cuda"),
+                         CANVAS, "u8")
+    batch2 = torch.cat([x, x.flip(2)]), torch.cat([pad, pad])
+    calls = capture_msda_calls(msda, lambda: model(*batch2))
+    for part, lq in (("encoder", S), ("decoder", N_QUERIES)):
+        value, sh, loc, attn = calls[lq]
+        assert loc.dtype == attn.dtype == value.dtype == torch.float64
+        g = torch.randn(B, lq, H * D, device="cuda", generator=gen,
+                        dtype=torch.float64)
+        out["model_locations"][part] = check_f64_kernels(
+            msda, f"{part} Lq={lq} at the model's locations", value, sh, loc,
+            attn, g)
+    del calls
+    fwd = f64_forward_against_plain(model, x, pad, msda, dino_mod)
+    out.update(forward_diffs=fwd["diffs"], forward_ms=fwd["ms"],
+               serving_launches=fwd["launches"])
+    assert fwd["launches"] == MSDA_PER_FORWARD, fwd["launches"]
+    # ---- finding: the f32 kernel forward's distance from the f64 one ----
+    f32 = flagship_model()
+    with torch.inference_mode():
+        o32 = f32(x, pad)
+    out["f32_vs_f64"] = {
+        "topk_idx_mismatch": int((o32["topk_idx"] != fwd["out"]["topk_idx"])
+                                 .sum().item()),
+        **{k: (o32[k].double() - fwd["out"][k]).abs().max().item()
+           for k in ("pred_logits", "pred_boxes")}}
+    log(f"  f64 serving forward, batch 1: {fwd['ms']:.2f} ms on {card}; "
+        f"the f32 forward's distance from it (a finding): "
+        f"{out['f32_vs_f64']}")
+    del f32, o32, model, fwd
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- one f64 burn-in step (msda_bwd's f64 instantiation on its
+    # path): the C2F model, train_bench's batch at the serving canvas ----
+    from datr_torch.tools.train_bench import bench_batch
+
+    state, ccfg, wd, _ = c2f_train_state(1, amp_dtype="float64")
+    batch = bench_batch(2, CANVAS, torch.device("cuda"), False)
+    msda.msda_fwd.launches = msda.msda_bwd.launches = 0
+    metrics, step_ms = cuda_timed(lambda: train_step_burnin(
+        state, batch, ccfg, wd))
+    out["training_launches"] = {"msda_fwd": msda.msda_fwd.launches,
+                                "msda_bwd": msda.msda_bwd.launches}
+    loss = metrics["loss"].item()
+    assert np.isfinite(loss) and metrics["loss"].dtype == torch.float64, loss
+    assert out["training_launches"]["msda_bwd"] > 0
+    out.update(training_step_ms=step_ms, training_loss=loss)
+    log(f"  f64 C2F burn-in step at {CANVAS}, 1 + 1 images: "
+        f"{step_ms:.1f} ms, loss {loss:.6f}, launches "
+        f"{out['training_launches']}")
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def host_us(fn, reps=200) -> float:
+    """Host microseconds per call of fn (no synchronization inside: what
+    the host spends issuing it)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e6
+
+
+def registered_op_cost(msda) -> dict:
+    """Host us per MSDA call through the registered op (ms_deform_attn,
+    the model's route) beside the wrapper called directly (msda_fwd), f32
+    and bf16, at the decoder's serving shape; times 12 per forward."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = {}
+    for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        value, loc, attn = msda_inputs(gen, N_QUERIES, dtype)
+        op = host_us(lambda: msda.ms_deform_attn(value, SHAPES, loc, attn))
+        direct = host_us(lambda: msda.msda_fwd(value, SHAPES, loc, attn))
+        out[dt] = dict(op_us=op, direct_us=direct, extra_us=op - direct,
+                       per_forward_us=MSDA_PER_FORWARD * (op - direct))
+    log(f"  host us per MSDA call, registered op vs direct wrapper: {out}")
+    return out
+
+
+def run_tools(msda, card) -> dict:
+    """Phase 15a-e: datr_torch/tools/ on the card."""
+    import tempfile
+
+    from datr_torch.models import dino as dino_mod
+    from datr_torch.serve import InferenceServer, wire_decode
+    from datr_torch.tools import convert_checkpoint as conv
+    from datr_torch.tools import export_model, repro_c2f, train_bench
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    imgs = request_images()
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- a: a reference-layout .pth into the flagship ----
+        t0 = time.perf_counter()
+        sd = {k: torch.from_numpy(v) for k, v in conv.build_reference_state_dict(
+            "configs/DINO/DINO_4scale.py", ["num_classes=9"]).items()}
+        pth = os.path.join(tmp, "reference.pth")
+        torch.save({"model": {f"module.{k}": v for k, v in sd.items()},
+                    "args": __import__("argparse").Namespace(lr=1e-4)}, pth)
+        model = flagship_model()
+        init = {k: v.clone() for k, v in model.state_dict().items()}
+        kept = conv.load_reference_checkpoint(model, pth)
+        got = model.state_dict()
+        want = conv.convert_checkpoint(conv.read_reference_state_dict(pth))
+        eval_keys = {k for k in got if k.split(".")[0] not in conv.DA_HEADS}
+        assert set(want) == eval_keys, sorted(set(want) ^ eval_keys)
+        assert all(k.split(".")[0] in conv.DA_HEADS for k in kept)
+        assert all(torch.equal(got[k].cpu(), want[k]) for k in eval_keys)
+        at_init = [k for k in eval_keys if torch.equal(got[k], init[k])
+                   and init[k].numel() > 1]
+        assert not at_init, at_init
+        convert_s = time.perf_counter() - t0
+        srv = InferenceServer(model, canvas_hw=CANVAS, batch_size=2,
+                              score_threshold=0.0, batch_timeout_s=1.0)
+        try:
+            srv.warmup()
+            served = serve_requests(srv, msda, imgs[:2])
+            batch, sizes = serving_batch(srv, imgs)
+            diffs = check_forward_against_plain(srv.model, batch, sizes,
+                                                msda, dino_mod)
+        finally:
+            srv.close()
+        out["convert"] = dict(seconds=convert_s, tensors=len(want),
+                              kept_at_init=len(kept),
+                              launches=served["launches"],
+                              forward_diffs=diffs)
+        log(f"  15a: {len(want)} tensors converted and loaded in "
+            f"{convert_s:.2f} s ({len(kept)} DA-head tensors kept at init); "
+            f"served {served['requests']} requests, {served['launches']} "
+            f"msda_fwd launches")
+
+        # ---- b: export at 1 x 800x1344, f32; save, load, run ----
+        canv = torch.from_numpy(batch[:1]).cuda()
+        x, pad = wire_decode(canv, torch.from_numpy(sizes[:1]).cuda(),
+                             CANVAS, "u8")
+        t0 = time.perf_counter()
+        ep = export_model.build_exported(model, 1, CANVAS)
+        export_s = time.perf_counter() - t0
+        art = os.path.join(tmp, "flagship.pt2")
+        torch.export.save(ep, art)
+        t0 = time.perf_counter()
+        exported = export_model.load_exported(art)
+        load_s = time.perf_counter() - t0
+        with torch.inference_mode():
+            eager = export_model.EvalForward(model)(x, pad)
+            msda.msda_fwd.launches = 0
+            got_e = exported(x, pad)
+            torch.cuda.synchronize()
+            ex_launches = msda.msda_fwd.launches
+            eager_ms = cuda_ms(lambda: model(x, pad), 5, warmup=1)
+            ex_ms = cuda_ms(lambda: exported(x, pad), 5, warmup=1)
+        assert ex_launches == MSDA_PER_FORWARD, ex_launches
+        ex_diffs = {k: (a - b).abs().max().item() for k, a, b in zip(
+            ("pred_logits", "pred_boxes"), got_e, eager)}
+        bitwise = all(torch.equal(a, b) for a, b in zip(got_e, eager))
+        assert ex_diffs["pred_logits"] <= 1e-3, ex_diffs
+        assert ex_diffs["pred_boxes"] <= 1e-4, ex_diffs
+        out["export"] = dict(
+            export_s=export_s, load_s=load_s, bytes=os.path.getsize(art),
+            msda_nodes=export_model.msda_nodes(ep), launches=ex_launches,
+            diffs=ex_diffs, bitwise=bitwise, exported_ms=ex_ms,
+            eager_ms=eager_ms,
+            copy_ops_top=export_model.rank_copies(ep, top=5))
+        log(f"  15b: exported in {export_s:.1f} s ({out['export']['bytes']} "
+            f"bytes, loaded in {load_s:.1f} s), {ex_launches} msda_fwd "
+            f"launches per forward; exported {ex_ms:.2f} ms vs eager "
+            f"{eager_ms:.2f} ms, batch 1, f32, on {card}; diffs {ex_diffs}, "
+            f"bitwise {bitwise}")
+        out["registered_op"] = registered_op_cost(msda)
+        del model, ep, exported, srv
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- c: train_bench, f32 burn-in: warm-up + 3 steps ----
+        tb = train_bench.main(["--steps", "3"])
+        assert tb["metric"] == "burnin_s_per_step" and tb["value"] > 0
+        # the warm-up and 3 steps, each 2 passes (remat: the forward twice)
+        assert (tb["msda_fwd_launches"], tb["msda_bwd_launches"]) == (
+            4 * 2 * 2 * MSDA_PER_FORWARD, 4 * 2 * MSDA_PER_FORWARD), tb
+        out["train_bench"] = tb
+        log(f"  15c: train_bench {json.dumps(tb)}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- d: profile_model, bf16 eval forward and burn-in step ----
+        out["profile"] = {}
+        for name, flags in (("eval_forward", ["--copies"]),
+                            ("burnin_step", ["--train"])):
+            (pr,) = tool_json(["datr_torch.tools.profile_model",
+                               "--trace-dir", os.path.join(tmp, "trace"),
+                               *flags])
+            assert pr["clock"] == "device" and pr["profile"] == name
+            assert pr["covered_share"] >= 0.95, pr["other_top"]
+            assert pr["categories_ms"].get("msda_fwd", 0) > 0
+            if name == "burnin_step":
+                assert pr["categories_ms"].get("msda_bwd", 0) > 0
+            out["profile"][name] = pr
+            log(f"  15d: profile_model {name} {json.dumps(pr)}")
+
+        # ---- e: repro_c2f --dry_run on the card ----
+        msda.msda_fwd.launches = 0
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            verdict = repro_c2f.main(["--dry_run", "--work_dir",
+                                      os.path.join(tmp, "repro")])
+        lines = [json.loads(ln) for ln in buf.getvalue().splitlines()
+                 if ln.startswith("{")]
+        stages = {ln["stage"]: ln for ln in lines if "stage" in ln}
+        assert all(stages.get(s, {}).get("ok") for s in
+                   ("stage", "convert", "eval")), lines
+        assert verdict["dry_run"] and lines[-1] == verdict, lines
+        out["repro"] = dict(stages=sorted(stages),
+                            launches=msda.msda_fwd.launches, **verdict)
+        assert out["repro"]["launches"] > 0
+        log(f"  15e: repro_c2f --dry_run {json.dumps(out['repro'])}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
@@ -5050,6 +5463,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done("14")
 
+    log("phase 15: the tools on the card (a reference-layout .pth "
+        "converted into the flagship, torch.export of its eval forward, "
+        "train_bench, profile_model, repro_c2f --dry_run) and the float64 "
+        "mode (the f64 kernels against their plain versions, the f64 "
+        "flagship served and one f64 burn-in step)")
+    tl = run_tools(msda, card)
+    log("tools " + json.dumps(dict(tl, card=card), default=str))
+    gc.collect()
+    torch.cuda.empty_cache()
+    f64 = run_float64(msda, card)
+    log("float64 " + json.dumps(dict(f64, card=card), default=str))
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("15")
+
     log("phase 8: bfloat16: the kernels in bf16 against their plain "
         "versions (5 levels and P = 2 in both dtypes), the flagship server "
         "(fast_norm off, on), DINO_5scale and DINO_4scale_fast, C2F burn-in, "
@@ -5180,6 +5608,20 @@ def main() -> int:
         "sp_ranks": sum(r["sp"]["step_launches"][1] for r in ar),
         "pp_ranks": sum(r["pp"]["launches"][1] for r in ar),
         "dp_tp_fsdp_ranks": sum(r["launches"][1] for r in ax["dp_tp"])}
+    # phase 15: the converted flagship's serving, the exported forward,
+    # train_bench and the kit's evaluation, profile_model's own processes
+    # (each counted in its process from 0); the f64 paths are entries of
+    # their own below
+    tl_fwd = {"converted_serving": tl["convert"]["launches"],
+              "exported_forward": tl["export"]["launches"],
+              "train_bench": tl["train_bench"]["msda_fwd_launches"],
+              "repro_c2f_eval": tl["repro"]["launches"],
+              **{f"profile_{n}_process": v["msda_fwd_launches"]
+                 for n, v in tl["profile"].items()}}
+    tl_bwd = {"train_bench": tl["train_bench"]["msda_bwd_launches"],
+              "profile_burnin_step_process": tl["profile"]["burnin_step"][
+                  "msda_bwd_launches"]}
+    f64r, f64m = f64["random"], f64["model_locations"]
     # the kernels at the model axes' shapes: a tp rank's encoder and
     # decoder calls (4 heads), an sp rank's encoder call (Lq = S / 2)
     ax_tp = ar[0]["tp"]["model_locations"]
@@ -5195,14 +5637,15 @@ def main() -> int:
                      + cl["launches"]["msda_fwd"] + sv["launches"]
                      + sum(bb_fwd.values()) + sum(mk_fwd.values())
                      + sum(rh_fwd.values()) + sum(dp_fwd.values())
-                     + sum(ax_fwd.values())),
+                     + sum(ax_fwd.values()) + sum(tl_fwd.values())),
         "launches_by_path": {"serving": s["launches"],
                              "training": tr["launches"]["msda_fwd"],
                              "self_training": st["launches"]["msda_fwd"],
                              "eval": st["eval"]["launches"],
                              "cli": cl["launches"]["msda_fwd"],
                              "serving_surface": sv["launches"], **bb_fwd,
-                             **mk_fwd, **rh_fwd, **dp_fwd, **ax_fwd},
+                             **mk_fwd, **rh_fwd, **dp_fwd, **ax_fwd,
+                             **tl_fwd},
         # phase 14: per step on each tp rank (2 + 2 images, 4 heads)
         "launches_per_tp_step_per_rank": ar[0]["tp"]["burnin_launches"][0][0],
         "launches_per_pp_step_per_rank": ar[0]["pp"]["launches"][0],
@@ -5272,11 +5715,13 @@ def main() -> int:
         "launches": (tr["launches"]["msda_bwd"] + st["launches"]["msda_bwd"]
                      + cl["launches"]["msda_bwd"] + sum(bb_bwd.values())
                      + sum(mk_bwd.values()) + sum(rh_bwd.values())
-                     + sum(dp_bwd.values()) + sum(ax_bwd.values())),
+                     + sum(dp_bwd.values()) + sum(ax_bwd.values())
+                     + sum(tl_bwd.values())),
         "launches_by_path": {"training": tr["launches"]["msda_bwd"],
                              "self_training": st["launches"]["msda_bwd"],
                              "cli": cl["launches"]["msda_bwd"], **bb_bwd,
-                             **mk_bwd, **rh_bwd, **dp_bwd, **ax_bwd},
+                             **mk_bwd, **rh_bwd, **dp_bwd, **ax_bwd,
+                             **tl_bwd},
         "model_axes": {
             "tp_h4_encoder": {k: ax_tp["encoder"][k] for k in (
                 "lq", "heads", "bwd_ms", "bwd_plain_ms", "bwd_bound_ms",
@@ -5333,6 +5778,57 @@ def main() -> int:
                                                  ("bound_ms",
                                                   "bwd_bound_ms"))},
         "per_launch_train_model": btm,
+    }, {
+        # the f64 instantiations (phase 15f, amp_dtype="float64"): f64
+        # value, loc, attn and sums; per launch at the serving shapes,
+        # uniform-random locations (encoder Lq = S, decoder Lq = 900) and
+        # the f64 flagship's own
+        "name": "msda_fwd_f64",
+        "route": "cuda",
+        "source": "datr_torch/csrc/msda_fwd.cu",
+        "replaces": "datr_tpu/ops/msda_pallas.py:45",
+        "launches": (f64["serving_launches"]
+                     + f64["training_launches"]["msda_fwd"]),
+        "launches_by_path": {
+            "serving_f64": f64["serving_launches"],
+            "training_f64": f64["training_launches"]["msda_fwd"]},
+        "max_abs_err": max(v["max_abs_err"]["fwd"] for v in
+                           [*f64r.values(), *f64m.values()]),
+        # per serving forward: 6 encoder + 6 decoder launches, random
+        "ms": 6 * f64r["encoder"]["fwd_ms"] + 6 * f64r["decoder"]["fwd_ms"],
+        "plain_ms": (6 * f64r["encoder"]["fwd_plain_ms"]
+                     + 6 * f64r["decoder"]["fwd_plain_ms"]),
+        "bound_ms": (6 * f64r["encoder"]["fwd_bound_ms"]
+                     + 6 * f64r["decoder"]["fwd_bound_ms"]),
+        "bound_by": f64r["encoder"]["fwd_bound_by"],
+        "library_ms": None,  # no single PyTorch call computes MSDA
+        "ms_model": (6 * f64m["encoder"]["fwd_ms"]
+                     + 6 * f64m["decoder"]["fwd_ms"]),
+        "bound_ms_model": (6 * f64m["encoder"]["fwd_bound_ms"]
+                           + 6 * f64m["decoder"]["fwd_bound_ms"]),
+        "per_launch": f64r, "per_launch_model": f64m,
+    }, {
+        "name": "msda_bwd_f64",
+        "route": "cuda",
+        "source": "datr_torch/csrc/msda_bwd.cu",
+        "replaces": "datr_tpu/ops/msda_pallas.py:154",
+        "launches": f64["training_launches"]["msda_bwd"],
+        "launches_by_path": {
+            "training_f64": f64["training_launches"]["msda_bwd"]},
+        "max_abs_err": max(e for v in [*f64r.values(), *f64m.values()]
+                           for n, e in v["max_abs_err"].items()
+                           if n in ("grad_value", "grad_attn")),
+        "max_abs_err_grad_loc": max(v["max_abs_err"]["grad_loc"] for v in
+                                    [*f64r.values(), *f64m.values()]),
+        # one encoder + one decoder launch at the serving shapes, random
+        "ms": f64r["encoder"]["bwd_ms"] + f64r["decoder"]["bwd_ms"],
+        "plain_ms": (f64r["encoder"]["bwd_plain_ms"]
+                     + f64r["decoder"]["bwd_plain_ms"]),
+        "bound_ms": (f64r["encoder"]["bwd_bound_ms"]
+                     + f64r["decoder"]["bwd_bound_ms"]),
+        "bound_by": f64r["encoder"]["bwd_bound_by"],
+        "library_ms": None,  # no PyTorch call computes MSDA's backward
+        "per_launch": f64r, "per_launch_model": f64m,
     }, {
         "name": "row_gather",
         "route": "cuda",

@@ -15,16 +15,24 @@
 // version's where(valid, w, 0).
 //
 // Layouts (all contiguous):
-//   value [B, S, H, D], grad_out [B, Lq, H, D]   float, or both bfloat16
-//   work  [B, S, H, D]  float, zeroed by the wrapper: grad_value's sum
-//   grad_value          value's type (for float, the wrapper passes work)
-//   loc, grad_loc     [B, Lq, H, L, P, 2]  float
-//   attn, grad_attn   [B, Lq, H, L, P]     float
+//   value [B, S, H, D], grad_out [B, Lq, H, D]   float, or both bfloat16;
+//                                                or both double
+//   work  [B, S, H, D]  float (double for double value), zeroed by the
+//                       wrapper: grad_value's sum
+//   grad_value          value's type (for float and double, the wrapper
+//                       passes work)
+//   loc, grad_loc     [B, Lq, H, L, P, 2]  float (double for double value)
+//   attn, grad_attn   [B, Lq, H, L, P]     float (double for double value)
 // In bf16 the rows of value and grad_out are read as bf16 and widened to
 // f32; every product and sum is f32; grad_loc / grad_attn are written in
 // f32; grad_value is summed in the f32 workspace and rounded once to bf16
 // by a second pass (msda_round_bf16_kernel). That is more exact than
 // datr_tpu's bf16 scatter-add through XLA: a documented difference.
+// The double instantiations (the float64 debugging mode) are
+// msda_bwd_kernel with A = double: f64 throughout, 16-byte loads of 2
+// doubles, and f64 atomicAdds straight into grad_value (no workspace, no
+// rounding pass; scalar: the card has no vector f64 reduction). The run
+// kernel below stays f32 / bf16.
 //
 // What bounds it on this card: the rate at which L2 takes the reductions into
 // grad_value, then L1's gather rate as in the forward (msda_fwd.cu); about 4
@@ -66,6 +74,8 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "msda_common.cuh"
 
 // p[0..VEC) += v, as one reduction of VEC*4 bytes (p aligned to them).
@@ -86,15 +96,24 @@ __device__ __forceinline__ void red_add_vec(float* p, const float (&v)[VEC]) {
   }
 }
 
+// p[0..VEC) += v in f64: one scalar reduction per element.
+template <int VEC>
+__device__ __forceinline__ void red_add_vec(double* p,
+                                            const double (&v)[VEC]) {
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) atomicAdd(p + e, v[e]);
+}
+
 // LG as in the forward: the lanes per row fixed at compile time (D = 32), or
 // read from the launch's geometry where LG < 0. T is value's and grad_out's
-// type; grad_value is the f32 sum.
-template <typename T, int VEC, int LG>
+// type, A the compute type (float, or double for double value); grad_value
+// is the sum in A.
+template <typename T, typename A, int VEC, int LG>
 __global__ void __launch_bounds__(MSDA_THREADS) msda_bwd_kernel(
-    const T* __restrict__ value, const float* __restrict__ loc,
-    const float* __restrict__ attn, const T* __restrict__ grad_out,
-    float* __restrict__ grad_value, float* __restrict__ grad_loc,
-    float* __restrict__ grad_attn, int S, int Lq, int H, int D, int P,
+    const T* __restrict__ value, const A* __restrict__ loc,
+    const A* __restrict__ attn, const T* __restrict__ grad_out,
+    A* __restrict__ grad_value, A* __restrict__ grad_loc,
+    A* __restrict__ grad_attn, int S, int Lq, int H, int D, int P,
     const Work wk, const __grid_constant__ Levels lv) {
   const int lane = threadIdx.x & 31;
   const int lg = LG >= 0 ? LG : wk.lg;
@@ -108,45 +127,46 @@ __global__ void __launch_bounds__(MSDA_THREADS) msda_bwd_kernel(
     long long bqh;
     int b, h;
     if (!msda_work_item(wk, it, Lq, H, &bqh, &b, &h)) return;
-    const float* loc_w = loc + bqh * LP * 2;
-    const float* attn_w = attn + bqh * LP;
-    float* gloc_w = grad_loc + bqh * LP * 2;
-    float* gattn_w = grad_attn + bqh * LP;
+    const A* loc_w = loc + bqh * LP * 2;
+    const A* attn_w = attn + bqh * LP;
+    A* gloc_w = grad_loc + bqh * LP * 2;
+    A* gattn_w = grad_attn + bqh * LP;
     const long long bh = (long long)b * S * row_stride + (long long)h * D;
 
     for (int c0 = 0; c0 < D; c0 += G * VEC) {
       const int ch = c0 + ch0;
       const bool live = ch < D;
-      float g[VEC];
+      A g[VEC];
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) g[e] = 0.f;
+      for (int e = 0; e < VEC; ++e) g[e] = (A)0;
       if (live) load_vec<VEC>(grad_out + bqh * D + ch, g);
 
       for (int k0 = 0; k0 < LP; k0 += 32) {
-        const SampleSetup s = msda_setup(loc_w, attn_w, k0 + lane, LP, P, lv);
+        const SampleSetup<A> s =
+            msda_setup(loc_w, attn_w, k0 + lane, LP, P, lv);
         const int n = min(LP - k0, 32);
-        float ga = 0.f, gx = 0.f, gy = 0.f;  // of this lane's own sample
+        A ga = 0, gx = 0, gy = 0;  // of this lane's own sample
 #pragma unroll 2
         for (int s0 = 0; s0 < n; s0 += R) {
           const int src = s0 + r;  // the lane that set up this group's sample
-          const float fx = __shfl_sync(MSDA_FULL, s.fx, src);
-          const float fy = __shfl_sync(MSDA_FULL, s.fy, src);
-          const float a = __shfl_sync(MSDA_FULL, s.a, src);
-          float pa = 0.f, px = 0.f, py = 0.f;  // lane partials of the sample
+          const A fx = __shfl_sync(MSDA_FULL, s.fx, src);
+          const A fy = __shfl_sync(MSDA_FULL, s.fy, src);
+          const A a = __shfl_sync(MSDA_FULL, s.a, src);
+          A pa = 0, px = 0, py = 0;  // lane partials of the sample
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
             const int off = __shfl_sync(MSDA_FULL, s.off[c], src);
             if (off >= 0 && live) {
-              float wx, wy, w, v[VEC];
+              A wx, wy, w, v[VEC];
               msda_corner_weights(c, fx, fy, &wx, &wy, &w);
-              const float wa = __fmul_rn(w, a);  // the forward's weight
+              const A wa = mul_rn(w, a);  // the forward's weight
               const long long at = bh + (long long)off * row_stride + ch;
               load_vec<VEC>(value + at, v);
-              float dot = 0.f;
+              A dot = 0;
 #pragma unroll
               for (int e = 0; e < VEC; ++e) dot += g[e] * v[e];
-              if (wa != 0.f) {
-                float add[VEC];
+              if (wa != (A)0) {
+                A add[VEC];
 #pragma unroll
                 for (int e = 0; e < VEC; ++e) add[e] = wa * g[e];
                 red_add_vec<VEC>(grad_value + at, add);
@@ -164,15 +184,15 @@ __global__ void __launch_bounds__(MSDA_THREADS) msda_bwd_kernel(
           }
           // back to the lane that owns the sample: lane s0 + j reads group j
           const int from = ((lane - s0) & (R - 1)) << lg;
-          const float ta = __shfl_sync(MSDA_FULL, pa, from);
-          const float tx = __shfl_sync(MSDA_FULL, px, from);
-          const float ty = __shfl_sync(MSDA_FULL, py, from);
+          const A ta = __shfl_sync(MSDA_FULL, pa, from);
+          const A tx = __shfl_sync(MSDA_FULL, px, from);
+          const A ty = __shfl_sync(MSDA_FULL, py, from);
           if (lane >= s0 && lane < s0 + R) ga = ta, gx = tx, gy = ty;
         }
         const int k = k0 + lane;
         if (k < LP) {
-          const float lx = s.a * gx * (float)s.wl;
-          const float ly = s.a * gy * (float)s.hl;
+          const A lx = s.a * gx * (A)s.wl;
+          const A ly = s.a * gy * (A)s.hl;
           if (c0 == 0) {
             gattn_w[k] = ga;
             gloc_w[2 * k] = lx;
@@ -229,8 +249,8 @@ __global__ void __launch_bounds__(MSDA_THREADS) msda_bwd_run_kernel(
 
   for (int k0 = 0; k0 < LP; k0 += R) {
     const int k = k0 + js;
-    const SampleSetup s = msda_setup(loc + mine * LP * 2, attn + mine * LP,
-                                     jq < nq ? k : LP, LP, P, lv);
+    const SampleSetup<float> s = msda_setup(
+        loc + mine * LP * 2, attn + mine * LP, jq < nq ? k : LP, LP, P, lv);
     int pend_off[4] = {-1, -1, -1, -1};  // per corner: the row not yet sent
     float pend[4][VEC];                  // and its sum
     float ga = 0.f, gx = 0.f, gy = 0.f;  // of this lane's own sample
@@ -316,29 +336,29 @@ __global__ void __launch_bounds__(256) msda_round_bf16_kernel(
     out[i] = __float2bfloat16(in[i]);
 }
 
-template <typename T, int VEC, int LG>
+template <typename T, typename A, int VEC, int LG>
 static cudaError_t launch_bwd_as(const void* value, const void* loc,
                                  const void* attn, const void* grad_out,
-                                 float* work, void* grad_loc, void* grad_attn,
+                                 A* work, void* grad_loc, void* grad_attn,
                                  int S, int Lq, int H, int D, int P,
                                  const Work& wk, long long blocks,
                                  const Levels& lv, int device,
                                  cudaStream_t stream) {
   static bool asked[MSDA_MAX_DEVICES];
   cudaError_t err =
-      msda_prefer_l1(msda_bwd_kernel<T, VEC, LG>, device, asked);
+      msda_prefer_l1(msda_bwd_kernel<T, A, VEC, LG>, device, asked);
   if (err != cudaSuccess) return err;
-  msda_bwd_kernel<T, VEC, LG><<<(unsigned)blocks, MSDA_THREADS, 0, stream>>>(
-      (const T*)value, (const float*)loc, (const float*)attn,
-      (const T*)grad_out, work, (float*)grad_loc, (float*)grad_attn, S, Lq,
-      H, D, P, wk, lv);
+  msda_bwd_kernel<T, A, VEC, LG>
+      <<<(unsigned)blocks, MSDA_THREADS, 0, stream>>>(
+          (const T*)value, (const A*)loc, (const A*)attn, (const T*)grad_out,
+          work, (A*)grad_loc, (A*)grad_attn, S, Lq, H, D, P, wk, lv);
   return cudaGetLastError();
 }
 
-template <typename T, int VEC>
+template <typename T, typename A, int VEC>
 static cudaError_t launch_bwd(const void* value, const void* loc,
                               const void* attn, const void* grad_out,
-                              float* work, void* grad_loc, void* grad_attn,
+                              A* work, void* grad_loc, void* grad_attn,
                               int B, int S, int Lq, int H, int D, int P,
                               const Levels& lv, int device,
                               cudaStream_t stream) {
@@ -347,7 +367,7 @@ static cudaError_t launch_bwd(const void* value, const void* loc,
   cudaError_t err = msda_plan(&wk, B, Lq, H, D, VEC, device, &blocks);
   if (err != cudaSuccess) return err;
   // D = 32 in 16-byte vectors: the compile-time geometry
-  if constexpr (VEC * sizeof(T) == 16) {
+  if constexpr (VEC * sizeof(T) == 16 && std::is_same<A, float>::value) {
     if (D == 32 && wk.qpw > 1) {  // a long launch: runs of queries per warp
       const int n_runs = (Lq + MSDA_WARPS * MSDA_RUN_Q - 1) /
                          (MSDA_WARPS * MSDA_RUN_Q);
@@ -361,14 +381,16 @@ static cudaError_t launch_bwd(const void* value, const void* loc,
           Lq, H, P, n_runs, lv);
       return cudaGetLastError();
     }
+  }
+  if constexpr (VEC * sizeof(T) == 16) {
     if (D == 32)  // 32 / VEC lanes per row
-      return launch_bwd_as<T, VEC, (VEC == 8 ? 2 : 3)>(
+      return launch_bwd_as<T, A, VEC, msda_lg32<VEC>()>(
           value, loc, attn, grad_out, work, grad_loc, grad_attn, S, Lq, H, D,
           P, wk, blocks, lv, device, stream);
   }
-  return launch_bwd_as<T, VEC, -1>(value, loc, attn, grad_out, work,
-                                   grad_loc, grad_attn, S, Lq, H, D, P, wk,
-                                   blocks, lv, device, stream);
+  return launch_bwd_as<T, A, VEC, -1>(value, loc, attn, grad_out, work,
+                                      grad_loc, grad_attn, S, Lq, H, D, P, wk,
+                                      blocks, lv, device, stream);
 }
 
 static cudaError_t launch_round_bf16(const float* work, void* grad_value,
@@ -387,29 +409,39 @@ static cudaError_t launch_round_bf16(const float* work, void* grad_value,
 
 extern "C" {
 
-// Returns the cudaError_t of the launches (0 = success). `work` (f32, the
-// shape of value) must hold zeros on entry and receives grad_value's sum;
-// for float value the caller passes grad_value itself as `work`, for
-// bfloat16 value (value_is_bf16 = 1, grad_out bf16 too) the sum is then
-// rounded into grad_value. grad_loc and grad_attn are overwritten.
+// Returns the cudaError_t of the launches (0 = success). `work` (the shape
+// of value; f32, or f64 for double value) must hold zeros on entry and
+// receives grad_value's sum; for float and double value the caller passes
+// grad_value itself as `work`, for bfloat16 value (dtype MSDA_BF16,
+// grad_out bf16 too) the sum is then rounded into grad_value. grad_loc and
+// grad_attn are overwritten. `dtype` is a MsdaDtype.
 int msda_bwd(const void* value, const void* loc, const void* attn,
              const void* grad_out, void* work, void* grad_value,
              void* grad_loc, void* grad_attn, int B, int S, int Lq, int H,
-             int D, int L, int P, const int* shapes, int value_is_bf16,
-             int device, void* stream) {
+             int D, int L, int P, const int* shapes, int dtype, int device,
+             void* stream) {
   Levels lv;
   cudaError_t err = fill_levels(&lv, shapes, L, S);
   if (err != cudaSuccess) return (int)err;
   err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if ((long long)B * Lq * H == 0 && !value_is_bf16) return (int)cudaSuccess;
+  if ((long long)B * Lq * H == 0 && dtype != MSDA_BF16)
+    return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   float* w = (float*)work;
-#define MSDA_BWD(T, VEC)                                                  \
-  err = launch_bwd<T, VEC>(value, loc, attn, grad_out, w, grad_loc,       \
-                           grad_attn, B, S, Lq, H, D, P, lv, device, s); \
+#define MSDA_BWD(T, A, VEC, W)                                               \
+  err = launch_bwd<T, A, VEC>(value, loc, attn, grad_out, W, grad_loc,       \
+                              grad_attn, B, S, Lq, H, D, P, lv, device, s); \
   break
-  if (value_is_bf16) {
+  if (dtype == MSDA_F64) {
+    double* wd = (double*)work;
+    switch (msda_vec_width(D, 2, 8, value, grad_out, work)) {
+      case 2: MSDA_BWD(double, double, 2, wd);
+      default: MSDA_BWD(double, double, 1, wd);
+    }
+    return (int)err;
+  }
+  if (dtype == MSDA_BF16) {
     // the rows of value and grad_out in bf16, the reductions into the f32
     // workspace: the narrower of the two vectors
     const int vb = msda_vec_width(D, 8, 2, value, grad_out, grad_out);
@@ -418,20 +450,21 @@ int msda_bwd(const void* value, const void* loc, const void* attn,
       err = cudaSuccess;
     } else {
       switch (vb < vw ? vb : vw) {
-        case 8: MSDA_BWD(__nv_bfloat16, 8);
-        case 4: MSDA_BWD(__nv_bfloat16, 4);
-        case 2: MSDA_BWD(__nv_bfloat16, 2);
-        default: MSDA_BWD(__nv_bfloat16, 1);
+        case 8: MSDA_BWD(__nv_bfloat16, float, 8, w);
+        case 4: MSDA_BWD(__nv_bfloat16, float, 4, w);
+        case 2: MSDA_BWD(__nv_bfloat16, float, 2, w);
+        default: MSDA_BWD(__nv_bfloat16, float, 1, w);
       }
     }
     if (err != cudaSuccess) return (int)err;
     return (int)launch_round_bf16(w, grad_value, (long long)B * S * H * D,
                                   device, s);
   }
+  if (dtype != MSDA_F32) return (int)cudaErrorInvalidValue;
   switch (msda_vec_width(D, 4, 4, value, grad_out, work)) {
-    case 4: MSDA_BWD(float, 4);
-    case 2: MSDA_BWD(float, 2);
-    default: MSDA_BWD(float, 1);
+    case 4: MSDA_BWD(float, float, 4, w);
+    case 2: MSDA_BWD(float, float, 2, w);
+    default: MSDA_BWD(float, float, 1, w);
   }
 #undef MSDA_BWD
   return (int)err;

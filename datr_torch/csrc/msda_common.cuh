@@ -3,6 +3,11 @@
 // set-up of a warp, the work order and the vector loads. The backward must
 // pick exactly the corners the forward picked, so both go through
 // msda_sample (by way of msda_setup).
+//
+// The compute type A of the sample set-up is float for f32 and bf16 value
+// (loc and attn f32) and double for f64 value (loc and attn f64: the
+// float64 debugging mode); the same code in each, through the overloads
+// below, so the f64 instantiations repeat the f32 arithmetic step for step.
 
 #pragma once
 
@@ -15,6 +20,39 @@
 #define MSDA_QPW 4                          // queries per warp, long launches
 #define MSDA_WARPS (MSDA_THREADS / 32)
 #define MSDA_FULL 0xffffffffu
+
+// The value type a launch is asked for (the C entry points' `dtype`).
+enum MsdaDtype { MSDA_F32 = 0, MSDA_BF16 = 1, MSDA_F64 = 2 };
+
+// Round-to-nearest arithmetic that nvcc does not contract into an FMA, and
+// floor / clamp, for either compute type.
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float sub_rn(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ double sub_rn(double a, double b) {
+  return __dsub_rn(a, b);
+}
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float msda_floor(float x) { return floorf(x); }
+__device__ __forceinline__ double msda_floor(double x) { return floor(x); }
+__device__ __forceinline__ float msda_clamp(float x, float lo, float hi) {
+  return fminf(fmaxf(x, lo), hi);
+}
+__device__ __forceinline__ double msda_clamp(double x, double lo,
+                                             double hi) {
+  return fmin(fmax(x, lo), hi);
+}
 
 // Work order of a launch: a block serves a run of consecutive queries of ONE
 // (batch, head), its warps interleaved over the run, and block indices run
@@ -49,63 +87,67 @@ static inline cudaError_t fill_levels(Levels* lv, const int* shapes, int L,
 
 // One sampling point on a level of hl x wl pixels: its lower corner and the
 // fractional offsets from it.
+template <typename A>
 struct Sample {
   int x0, y0;
-  float fx, fy;
+  A fx, fy;
 };
 
 // Pixel coordinates x = lx*W - 0.5, y = ly*H - 0.5 and the corner choice
-// floor(x - (1e-4 + W*2^-20)), in f32 exactly as the plain version computes
-// them (datr_tpu/ops/msda.py:_corner_gather_indices): __fmul_rn/__fsub_rn
-// keep nvcc from contracting loc*W - 0.5 into an FMA, and the nudge keeps the
+// floor(x - (1e-4 + W*2^-20)), in A exactly as the plain version computes
+// them (datr_tpu/ops/msda.py:_corner_gather_indices): mul_rn/sub_rn keep
+// nvcc from contracting loc*W - 0.5 into an FMA, and the nudge keeps the
 // corner choice stable even where two roundings would differ. At exact
 // integer coordinates it takes (lower corner, frac ~ 1).
-__device__ __forceinline__ Sample msda_sample(float lx, float ly, int hl,
-                                              int wl) {
-  const float fw = (float)wl, fh = (float)hl;
-  const float eps_x = __fadd_rn(1e-4f, fw * 9.5367431640625e-07f);
-  const float eps_y = __fadd_rn(1e-4f, fh * 9.5367431640625e-07f);
-  const float x = __fsub_rn(__fmul_rn(lx, fw), 0.5f);
-  const float y = __fsub_rn(__fmul_rn(ly, fh), 0.5f);
-  const float x0 = floorf(__fsub_rn(x, eps_x));
-  const float y0 = floorf(__fsub_rn(y, eps_y));
-  Sample s;
-  s.fx = __fsub_rn(x, x0);
-  s.fy = __fsub_rn(y, y0);
+template <typename A>
+__device__ __forceinline__ Sample<A> msda_sample(A lx, A ly, int hl, int wl) {
+  const A fw = (A)wl, fh = (A)hl;
+  const A eps_x = add_rn((A)1e-4, fw * (A)9.5367431640625e-07);
+  const A eps_y = add_rn((A)1e-4, fh * (A)9.5367431640625e-07);
+  const A x = sub_rn(mul_rn(lx, fw), (A)0.5);
+  const A y = sub_rn(mul_rn(ly, fh), (A)0.5);
+  const A x0 = msda_floor(sub_rn(x, eps_x));
+  const A y0 = msda_floor(sub_rn(y, eps_y));
+  Sample<A> s;
+  s.fx = sub_rn(x, x0);
+  s.fy = sub_rn(y, y0);
   // clamping keeps the int conversion defined (NaN, huge values) without
   // changing which corners are inside the level
-  s.x0 = (int)fminf(fmaxf(x0, -2.f), fw + 1.f);
-  s.y0 = (int)fminf(fmaxf(y0, -2.f), fh + 1.f);
+  s.x0 = (int)msda_clamp(x0, (A)-2, fw + (A)1);
+  s.y0 = (int)msda_clamp(y0, (A)-2, fh + (A)1);
   return s;
 }
 
 // What one lane keeps of ONE sample of its warp's (b, q, h) after the set-up:
 // the gather loops read these by __shfl_sync from the lane that owns the
 // sample, so msda_sample runs once per sample and not once per lane.
+template <typename A>
 struct SampleSetup {
-  int off[4];    // token of corner c = 2*dy + dx within the image's S tokens;
-                 // -1 outside the level (no weight, never loaded)
-  float fx, fy;  // fractional offsets from the lower corner
-  float a;       // attention weight
-  int hl, wl;    // the sample's level (the backward scales grad_loc by them)
+  int off[4];  // token of corner c = 2*dy + dx within the image's S tokens;
+               // -1 outside the level (no weight, never loaded)
+  A fx, fy;    // fractional offsets from the lower corner
+  A a;         // attention weight
+  int hl, wl;  // the sample's level (the backward scales grad_loc by them)
 };
 
 // Lane-parallel set-up: the calling lane takes sample k of the (b, q, h)
 // whose loc / attn rows start at loc_w / attn_w (coalesced across the warp:
-// 8 + 4 bytes per lane). k >= LP gives a sample with every corner outside.
-__device__ __forceinline__ SampleSetup msda_setup(const float* loc_w,
-                                                  const float* attn_w, int k,
-                                                  int LP, int P,
-                                                  const Levels& lv) {
-  SampleSetup s;
+// 8 + 4 bytes per lane in f32). k >= LP gives a sample with every corner
+// outside.
+template <typename A>
+__device__ __forceinline__ SampleSetup<A> msda_setup(const A* loc_w,
+                                                     const A* attn_w, int k,
+                                                     int LP, int P,
+                                                     const Levels& lv) {
+  SampleSetup<A> s;
   s.off[0] = s.off[1] = s.off[2] = s.off[3] = -1;
-  s.fx = s.fy = s.a = 0.f;
+  s.fx = s.fy = s.a = (A)0;
   s.hl = s.wl = 1;
   if (k < LP) {
     const int l = k / P;
     s.hl = lv.h[l];
     s.wl = lv.w[l];
-    const Sample p =
+    const Sample<A> p =
         msda_sample(__ldg(loc_w + 2 * k), __ldg(loc_w + 2 * k + 1), s.hl, s.wl);
     s.fx = p.fx;
     s.fy = p.fy;
@@ -122,12 +164,12 @@ __device__ __forceinline__ SampleSetup msda_setup(const float* loc_w,
 
 // Bilinear weights of corner c = 2*dy + dx from the fractional offsets, in
 // the plain version's arithmetic: wx, wy and w = wx*wy.
-__device__ __forceinline__ void msda_corner_weights(int c, float fx, float fy,
-                                                    float* wx, float* wy,
-                                                    float* w) {
-  *wx = (c & 1) ? fx : __fsub_rn(1.f, fx);
-  *wy = (c >> 1) ? fy : __fsub_rn(1.f, fy);
-  *w = __fmul_rn(*wx, *wy);
+template <typename A>
+__device__ __forceinline__ void msda_corner_weights(int c, A fx, A fy, A* wx,
+                                                    A* wy, A* w) {
+  *wx = (c & 1) ? fx : sub_rn((A)1, fx);
+  *wy = (c >> 1) ? fy : sub_rn((A)1, fy);
+  *w = mul_rn(*wx, *wy);
 }
 
 // The launch's geometry. A row of D channels is covered by a group of
@@ -241,6 +283,24 @@ __device__ __forceinline__ void unpack_bf16x2(unsigned int u, float* lo,
 __device__ __forceinline__ unsigned int pack_bf16x2(float lo, float hi) {
   return (unsigned int)__bfloat16_as_ushort(__float2bfloat16(lo)) |
          ((unsigned int)__bfloat16_as_ushort(__float2bfloat16(hi)) << 16);
+}
+
+template <int VEC>
+__device__ __forceinline__ void load_vec(const double* p, double (&v)[VEC]) {
+  if constexpr (VEC == 2) {
+    const double2 t = __ldg(reinterpret_cast<const double2*>(p));
+    v[0] = t.x, v[1] = t.y;
+  } else {
+    static_assert(VEC == 1, "f64 vectors hold 2 or 1 elements");
+    v[0] = __ldg(p);
+  }
+}
+
+// The lanes per row (log2) of the compile-time geometry at D = 32: 32 / VEC
+// lanes with one 16-byte vector each (bf16 8, f32 4, f64 2 elements).
+template <int VEC>
+constexpr int msda_lg32() {
+  return VEC == 8 ? 2 : VEC == 4 ? 3 : 4;
 }
 
 template <int VEC>

@@ -9,10 +9,13 @@
 // weight zero outside the level; times the attention weight; summed in f32.
 //
 // Layouts (all contiguous):
-//   value [B, S, H, D]   float or bfloat16
-//   loc   [B, Lq, H, L, P, 2] float (x, y normalized to [0, 1])
-//   attn  [B, Lq, H, L, P]    float (softmaxed over L*P)
+//   value [B, S, H, D]   float or bfloat16; or double
+//   loc   [B, Lq, H, L, P, 2] float (x, y normalized to [0, 1]); double
+//   attn  [B, Lq, H, L, P]    float (softmaxed over L*P); double
 //   out   [B, Lq, H, D]   value's type (the caller views it as [B, Lq, H*D])
+// The double instantiations (the float64 debugging mode, amp_dtype=
+// "float64") are the same kernel with A = double: f64 loc, attn, corner
+// weights and sums, 16-byte loads of 2 doubles (16 lanes per row at D = 32).
 //
 // What bounds it on this card: the rate at which an SM's L1 delivers gathered
 // rows, not arithmetic (2 flops per gathered element) and, with this design,
@@ -69,6 +72,15 @@ __device__ __forceinline__ void store_vec(float* p, const float (&v)[VEC]) {
 }
 
 template <int VEC>
+__device__ __forceinline__ void store_vec(double* p, const double (&v)[VEC]) {
+  if constexpr (VEC == 2) {
+    *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+  } else {
+    p[0] = v[0];
+  }
+}
+
+template <int VEC>
 __device__ __forceinline__ void store_vec(__nv_bfloat16* p,
                                           const float (&v)[VEC]) {
   if constexpr (VEC == 8) {
@@ -87,11 +99,11 @@ __device__ __forceinline__ void store_vec(__nv_bfloat16* p,
 
 // LG >= 0 fixes the lanes per row (2^LG) at compile time, for the widths the
 // models use (D = 32): the gather loop then unrolls whole. LG < 0 reads it
-// from the launch's geometry.
-template <typename T, int VEC, int LG>
+// from the launch's geometry. A is the compute type (module comment).
+template <typename T, typename A, int VEC, int LG>
 __global__ void __launch_bounds__(MSDA_THREADS) msda_fwd_kernel(
-    const T* __restrict__ value, const float* __restrict__ loc,
-    const float* __restrict__ attn, T* __restrict__ out, int S, int Lq, int H,
+    const T* __restrict__ value, const A* __restrict__ loc,
+    const A* __restrict__ attn, T* __restrict__ out, int S, int Lq, int H,
     int D, int P, const Work wk, const __grid_constant__ Levels lv) {
   const int lane = threadIdx.x & 31;
   const int lg = LG >= 0 ? LG : wk.lg;
@@ -105,27 +117,28 @@ __global__ void __launch_bounds__(MSDA_THREADS) msda_fwd_kernel(
     long long bqh;
     int b, h;
     if (!msda_work_item(wk, it, Lq, H, &bqh, &b, &h)) return;
-    const float* loc_w = loc + bqh * LP * 2;
-    const float* attn_w = attn + bqh * LP;
+    const A* loc_w = loc + bqh * LP * 2;
+    const A* attn_w = attn + bqh * LP;
     const T* val_bh = value + (long long)b * S * row_stride + (long long)h * D;
 
     for (int c0 = 0; c0 < D; c0 += G * VEC) {
       const int ch = c0 + ch0;
       const bool live = ch < D;
       const T* val_ch = val_bh + ch;
-      float acc[VEC];
+      A acc[VEC];
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+      for (int e = 0; e < VEC; ++e) acc[e] = (A)0;
 
       for (int k0 = 0; k0 < LP; k0 += 32) {
         // this lane's own sample: corner rows, and weights times attention
-        const SampleSetup s = msda_setup(loc_w, attn_w, k0 + lane, LP, P, lv);
-        float wgt[4];
+        const SampleSetup<A> s =
+            msda_setup(loc_w, attn_w, k0 + lane, LP, P, lv);
+        A wgt[4];
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          float wx, wy, w;
+          A wx, wy, w;
           msda_corner_weights(c, s.fx, s.fy, &wx, &wy, &w);
-          wgt[c] = __fmul_rn(w, s.a);
+          wgt[c] = mul_rn(w, s.a);
         }
         const int n = min(LP - k0, 32);
 #pragma unroll 4
@@ -134,9 +147,9 @@ __global__ void __launch_bounds__(MSDA_THREADS) msda_fwd_kernel(
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
             const int off = __shfl_sync(MSDA_FULL, s.off[c], src);
-            const float w = __shfl_sync(MSDA_FULL, wgt[c], src);
+            const A w = __shfl_sync(MSDA_FULL, wgt[c], src);
             if (off >= 0 && live) {
-              float v[VEC];
+              A v[VEC];
               load_vec<VEC>(val_ch + (long long)off * row_stride, v);
 #pragma unroll
               for (int e = 0; e < VEC; ++e) acc[e] += w * v[e];
@@ -155,7 +168,7 @@ __global__ void __launch_bounds__(MSDA_THREADS) msda_fwd_kernel(
   }
 }
 
-template <typename T, int VEC, int LG>
+template <typename T, typename A, int VEC, int LG>
 static cudaError_t launch_fwd_as(const void* value, const void* loc,
                                  const void* attn, void* out, int S, int Lq,
                                  int H, int D, int P, const Work& wk,
@@ -163,15 +176,16 @@ static cudaError_t launch_fwd_as(const void* value, const void* loc,
                                  int device, cudaStream_t stream) {
   static bool asked[MSDA_MAX_DEVICES];
   cudaError_t err =
-      msda_prefer_l1(msda_fwd_kernel<T, VEC, LG>, device, asked);
+      msda_prefer_l1(msda_fwd_kernel<T, A, VEC, LG>, device, asked);
   if (err != cudaSuccess) return err;
-  msda_fwd_kernel<T, VEC, LG><<<(unsigned)blocks, MSDA_THREADS, 0, stream>>>(
-      (const T*)value, (const float*)loc, (const float*)attn, (T*)out, S, Lq,
-      H, D, P, wk, lv);
+  msda_fwd_kernel<T, A, VEC, LG>
+      <<<(unsigned)blocks, MSDA_THREADS, 0, stream>>>(
+          (const T*)value, (const A*)loc, (const A*)attn, (T*)out, S, Lq, H,
+          D, P, wk, lv);
   return cudaGetLastError();
 }
 
-template <typename T, int VEC>
+template <typename T, typename A, int VEC>
 static cudaError_t launch_fwd(const void* value, const void* loc,
                               const void* attn, void* out, int B, int S,
                               int Lq, int H, int D, int P, const Levels& lv,
@@ -183,21 +197,23 @@ static cudaError_t launch_fwd(const void* value, const void* loc,
   // D = 32 in 16-byte vectors: the compile-time geometry
   if constexpr (VEC * sizeof(T) == 16) {
     if (D == 32)  // 32 / VEC lanes per row
-      return launch_fwd_as<T, VEC, (VEC == 8 ? 2 : 3)>(
+      return launch_fwd_as<T, A, VEC, msda_lg32<VEC>()>(
           value, loc, attn, out, S, Lq, H, D, P, wk, blocks, lv, device,
           stream);
   }
-  return launch_fwd_as<T, VEC, -1>(value, loc, attn, out, S, Lq, H, D, P, wk,
-                                   blocks, lv, device, stream);
+  return launch_fwd_as<T, A, VEC, -1>(value, loc, attn, out, S, Lq, H, D, P,
+                                      wk, blocks, lv, device, stream);
 }
 
 extern "C" {
 
 // Returns the cudaError_t of the launch (0 = success). `shapes` is a host
-// array of L (h, w) pairs; the level starts follow from it.
+// array of L (h, w) pairs; the level starts follow from it. `dtype` is a
+// MsdaDtype: value float, bfloat16 (loc and attn float) or double (loc and
+// attn double).
 int msda_fwd(const void* value, const void* loc, const void* attn, void* out,
              int B, int S, int Lq, int H, int D, int L, int P,
-             const int* shapes, int value_is_bf16, int device, void* stream) {
+             const int* shapes, int dtype, int device, void* stream) {
   Levels lv;
   cudaError_t err = fill_levels(&lv, shapes, L, S);
   if (err != cudaSuccess) return (int)err;
@@ -205,21 +221,28 @@ int msda_fwd(const void* value, const void* loc, const void* attn, void* out,
   if (err != cudaSuccess) return (int)err;
   if ((long long)B * Lq * H == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
-#define MSDA_FWD(T, VEC)                                                     \
-  return (int)launch_fwd<T, VEC>(value, loc, attn, out, B, S, Lq, H, D, P, \
-                                 lv, device, s)
-  if (value_is_bf16) {
+#define MSDA_FWD(T, A, VEC)                                      \
+  return (int)launch_fwd<T, A, VEC>(value, loc, attn, out, B, S, Lq, H, D, \
+                                    P, lv, device, s)
+  if (dtype == MSDA_BF16) {
     switch (msda_vec_width(D, 8, 2, value, out, out)) {
-      case 8: MSDA_FWD(__nv_bfloat16, 8);
-      case 4: MSDA_FWD(__nv_bfloat16, 4);
-      case 2: MSDA_FWD(__nv_bfloat16, 2);
-      default: MSDA_FWD(__nv_bfloat16, 1);
+      case 8: MSDA_FWD(__nv_bfloat16, float, 8);
+      case 4: MSDA_FWD(__nv_bfloat16, float, 4);
+      case 2: MSDA_FWD(__nv_bfloat16, float, 2);
+      default: MSDA_FWD(__nv_bfloat16, float, 1);
     }
   }
+  if (dtype == MSDA_F64) {
+    switch (msda_vec_width(D, 2, 8, value, out, out)) {
+      case 2: MSDA_FWD(double, double, 2);
+      default: MSDA_FWD(double, double, 1);
+    }
+  }
+  if (dtype != MSDA_F32) return (int)cudaErrorInvalidValue;
   switch (msda_vec_width(D, 4, 4, value, out, out)) {
-    case 4: MSDA_FWD(float, 4);
-    case 2: MSDA_FWD(float, 2);
-    default: MSDA_FWD(float, 1);
+    case 4: MSDA_FWD(float, float, 4);
+    case 2: MSDA_FWD(float, float, 2);
+    default: MSDA_FWD(float, float, 1);
   }
 #undef MSDA_FWD
 }

@@ -28,7 +28,8 @@ DINO_4scale_C2F.py --data_root /data --output_dir runs/c2f \\
       card; with --device cpu, N processes on gloo)
 
 `--amp` (or `--options amp_dtype=bfloat16`) runs the model in bfloat16 with
-f32 parameters, optimizer moments and EMA tracks, as datr_tpu's does;
+f32 parameters, optimizer moments and EMA tracks, as datr_tpu's does
+(`--options amp_dtype=float64`: in f64, datr_tpu's x64 debugging mode);
 `--options fast_norm=True` adds its fast bf16 norms. `--options masks=True
 [mask_query_chunk=N]` trains the instance-mask head on a single-domain
 layout (or `coco` / `coco_panoptic`) and adds mask AP to every evaluation.
@@ -139,11 +140,12 @@ def _refuse_unported(cfg):
     """The config keys whose parts are not ported raise here, before
     anything is built."""
     amp_dtype = cfg.get("amp_dtype", "float32")
-    if amp_dtype not in ("float32", "bfloat16"):
+    if amp_dtype not in ("float32", "bfloat16", "float64"):
         raise NotImplementedError(
-            f"datr_torch does not port amp_dtype={amp_dtype!r} yet (float32 "
-            "and bfloat16 are ported; float64: ROADMAP §A, "
-            "amp_dtype=\"float64\")")
+            f"datr_torch does not port amp_dtype={amp_dtype!r} (float32, "
+            "bfloat16 and float64 are ported; datr_tpu reads any other name "
+            "as float32, which the port refuses: ROADMAP, left out on "
+            "purpose)")
 
 
 def _load_into_all(state, params):

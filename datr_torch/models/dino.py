@@ -86,7 +86,8 @@ from .transformer import (
 )
 
 RESNET_STAGES = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3)}
-AMP_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+AMP_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+              "float64": torch.float64}
 
 
 def make_backbone(name: str, dtype: torch.dtype = torch.float32,
@@ -632,11 +633,12 @@ class DINO(nn.Module):
 def build_dino_from_config(cfg, device=None, seed: int = 0) -> DINO:
     """Config -> model with seeded weights, on `device` (default: the CUDA
     card), in eval mode. Mirrors datr_tpu/models/dino.py:632-674 for the
-    settings the eval and training paths read, `amp_dtype` ("float32" or
-    "bfloat16"), `fast_norm` and `two_stage_bbox_embed_share` (the encoder's
+    settings the eval and training paths read, `amp_dtype` ("float32",
+    "bfloat16" or "float64", datr_tpu's x64 debugging mode: the model
+    computes in f64, its parameters stay f32, MSDA takes f64 locations and
+    weights), `fast_norm` and `two_stage_bbox_embed_share` (the encoder's
     proposal heads are the decoder's) included, and refuses any other
-    amp_dtype (datr_tpu's "float64" is its x64 debugging mode: ROADMAP
-    §A, `amp_dtype="float64"`). `masks` builds the mask head,
+    amp_dtype. `masks` builds the mask head,
     `mask_query_chunk` bounds its live (image, query) pairs. `sp_axis`
     names the mesh axis of encoder sequence parallelism (datr_tpu's key,
     dino.py:669; "" or an axis of one rank: none)."""
@@ -647,8 +649,7 @@ def build_dino_from_config(cfg, device=None, seed: int = 0) -> DINO:
     if amp_dtype not in AMP_DTYPES:
         raise NotImplementedError(
             f"datr_torch does not implement amp_dtype={amp_dtype!r} "
-            f"(it runs {sorted(AMP_DTYPES)}; float64: ROADMAP §A, "
-            "amp_dtype=\"float64\")")
+            f"(it runs {sorted(AMP_DTYPES)})")
     num_classes = get("num_classes", 91)
     model = DINO(
         num_classes=num_classes,

@@ -11,9 +11,10 @@ and returns that dtype (the sum is f32 inside the product). As flax's
 Dense / Conv do, it rounds the product to `dtype` and then adds the bias,
 a second rounding in bf16 (the fused bias of F.linear / conv2d rounds once
 and differs in about a quarter of the outputs by an ulp); in f32 the fused
-add differs by at most an f32 rounding and stays. No autocast: autocast
-would keep norms, softmax and reductions in f32 where datr_tpu computes
-them in bf16. At f32 every cast is a no-op.
+add differs by at most an f32 rounding and stays, and so in f64 (the
+float64 debugging mode: every op below takes its f32 form in f64). No
+autocast: autocast would keep norms, softmax and reductions in f32 where
+datr_tpu computes them in bf16. At f32 every cast is a no-op.
 """
 
 from __future__ import annotations
@@ -33,8 +34,8 @@ def linear(x: torch.Tensor, weight: torch.Tensor,
     """F.linear in `dtype` as flax's Dense computes it: the product rounded
     to `dtype`, then the bias added (see the module docstring)."""
     x, w = x.to(dtype), weight.to(dtype)
-    if bias is None or dtype == torch.float32:
-        return F.linear(x, w, bias)
+    if bias is None or dtype != torch.bfloat16:
+        return F.linear(x, w, None if bias is None else bias.to(dtype))
     return F.linear(x, w) + bias.to(dtype)
 
 
@@ -73,8 +74,9 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x):
         x, w = x.to(self.dtype), self.weight.to(self.dtype)
-        if self.bias is None or self.dtype == torch.float32:
-            return self._conv_forward(x, w, self.bias)
+        if self.bias is None or self.dtype != torch.bfloat16:
+            return self._conv_forward(
+                x, w, None if self.bias is None else self.bias.to(self.dtype))
         return (self._conv_forward(x, w, None)
                 + self.bias.to(self.dtype)[:, None, None])
 
@@ -101,8 +103,8 @@ class _RoundedSoftmax(torch.autograd.Function):
 def softmax(x: torch.Tensor) -> torch.Tensor:
     """Softmax over the last axis as datr_tpu takes it: in bf16, each op
     rounds to bf16 (torch's fused softmax rounds once); in f32 the fused one
-    differs by a few f32 roundings and stays."""
-    if x.dtype == torch.float32:
+    differs by a few f32 roundings and stays (f64 likewise)."""
+    if x.dtype != torch.bfloat16:
         return x.softmax(-1)
     return _RoundedSoftmax.apply(x)
 
@@ -132,7 +134,7 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     f32 the fused F.gelu; in bf16 jax's ops in bf16, each rounded
     (x * 0.5 (1 + tanh(sqrt(2/pi) (x + 0.044715 x (x x)))), its constants
     rounded to bf16 first), where F.gelu would round once."""
-    if x.dtype == torch.float32:
+    if x.dtype != torch.bfloat16:
         return F.gelu(x, approximate="tanh")
     c = in_dtype(_SQRT_2_OVER_PI, x.dtype)
     cube = x * (x * x)  # lax.integer_pow's multiplications
@@ -246,8 +248,10 @@ class MSDeformAttn(nn.Module):
                 "reference_points last dim must be 2 or 4, got "
                 f"{reference_points.shape[-1]}")
 
+        # f32 locations and weights; f64 ones for an f64 model (datr_tpu
+        # rounds them to f32 even in its x64 mode, layers.py:131-132)
+        cd = msda.compute_dtype(value)
         out = msda.ms_deform_attn(
-            value.contiguous(), spatial_shapes,
-            loc.to(torch.float32).contiguous(),
-            attn.to(torch.float32).contiguous())
+            value.contiguous(), spatial_shapes, loc.to(cd).contiguous(),
+            attn.to(cd).contiguous())
         return self.output_proj(out)

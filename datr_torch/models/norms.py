@@ -22,6 +22,12 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def _widened(x: torch.Tensor) -> torch.Tensor:
+    """x in at least f32, as flax takes a norm's statistics (f64 stays
+    f64)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 class LayerNorm(nn.LayerNorm):
     """flax LayerNorm(dtype=dtype) semantics over the last dim."""
 
@@ -31,8 +37,10 @@ class LayerNorm(nn.LayerNorm):
         self.dtype = dtype
 
     def forward(self, x):
-        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
-                            self.bias, self.eps).to(self.dtype)
+        x = _widened(x)
+        return F.layer_norm(x, self.normalized_shape,
+                            self.weight.to(x.dtype), self.bias.to(x.dtype),
+                            self.eps).to(self.dtype)
 
 
 class GroupNorm(nn.GroupNorm):
@@ -44,8 +52,9 @@ class GroupNorm(nn.GroupNorm):
         self.dtype = dtype
 
     def forward(self, x):
-        return F.group_norm(x.float(), self.num_groups, self.weight,
-                            self.bias, self.eps).to(self.dtype)
+        x = _widened(x)
+        return F.group_norm(x, self.num_groups, self.weight.to(x.dtype),
+                            self.bias.to(x.dtype), self.eps).to(self.dtype)
 
 
 def _moments(x: torch.Tensor, dims):

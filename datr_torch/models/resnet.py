@@ -38,8 +38,11 @@ class FrozenBatchNorm(nn.Module):
         self.running_var.fill_(1.0)
 
     def forward(self, x):
+        # f32 out, as datr_tpu's (resnet.py:35); f64 stays f64 (datr_tpu's
+        # x64 mode rounds to f32 here: the port's float64 mode does not)
         scale = self.weight / torch.sqrt(self.running_var + self.eps)
-        return ((x.to(torch.float32) - self.running_mean[:, None, None])
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
+        return ((x - self.running_mean[:, None, None])
                 * scale[:, None, None] + self.bias[:, None, None])
 
 

@@ -102,7 +102,7 @@ class MultiheadAttention(nn.Module):
         q, k, v = (heads(x, w, b) for x, w, b in zip(
             (q, k, v), self.in_proj_weight.chunk(3),
             self.in_proj_bias.chunk(3)))
-        if self.dtype == torch.float32:
+        if self.dtype != torch.bfloat16:
             o = F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask)
         else:
             q = q / torch.tensor(math.sqrt(depth), dtype=self.dtype,

@@ -230,9 +230,16 @@ def _run_step():
             flips["relu"] += int(((x > 0) != h).sum())
             return torch.where(h, x, torch.zeros_like(x))
 
+        cells = {}  # each replayed floor by its input
+
         def replay_floor(x):
-            h = t(next(it["floor"])).to(x.dtype)
+            key = x.detach().numpy().tobytes()
+            h = next(it["floor"], None)
+            if h is None:  # the plain backward takes the forward's cells
+                return cells[key]
+            h = t(h).to(x.dtype)
             flips["cell"] += int((torch.floor(x) != h).sum())
+            cells[key] = h
             return h
 
         def with_(module, **kw):

@@ -865,3 +865,125 @@ def test_kernels_match_plain_at_model_axes_shapes(cuda, dtype, lq, h):
             value, SHAPES, loc, attn, g))
     else:
         _assert_bwd_bf16_close(got_b, value, SHAPES, loc, attn, g)
+
+
+# ---------------- the registered op, float64, export ----------------
+
+F64_TOL = dict(rtol=1e-9, atol=1e-12)  # chip_smoke.py phase 15f's
+
+
+def _f64_inputs(lq, h, d, p, case, seed=0):
+    value, loc, attn = _inputs(lq, h, d, p, torch.float64, case, seed)
+    return value, loc.double(), attn.double()
+
+
+def test_registered_op_keeps_the_gradient_on_cuda(cuda):
+    """torch.library.opcheck on CUDA tensors (schema, fake tensors, the
+    autograd registration, a traced backward), then the gradient through
+    `datr_torch::ms_deform_attn` reaches msda_bwd and equals the plain
+    version's."""
+    value, loc, attn = _inputs(11, 2, 32, 2, torch.float32, "random")
+    flat = [v for hw in SHAPES for v in hw]
+    torch.library.opcheck(msda._msda_op, (value, flat,
+                                          loc.requires_grad_(), attn))
+    leaves = [t.detach().clone().requires_grad_() for t in (value, loc, attn)]
+    bwd0 = msda.msda_bwd.launches
+    out = torch.ops.datr_torch.ms_deform_attn(leaves[0], flat, leaves[1],
+                                              leaves[2])
+    g = torch.randn_like(out)
+    out.backward(g)
+    assert msda.msda_bwd.launches == bwd0 + 1
+    want = msda.ms_deform_attn_plain_bwd(value, SHAPES, loc.detach(), attn,
+                                         g)
+    for leaf, w in zip(leaves, want):
+        torch.testing.assert_close(leaf.grad, w, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["random", "integer", "outside"])
+@pytest.mark.parametrize("d", [32, 8, 5])
+def test_f64_kernels_match_plain(cuda, case, d):
+    """The f64 instantiations of msda_fwd / msda_bwd against the plain f64
+    versions: rtol 1e-9 / atol 1e-12 (grad_loc's atol times the largest
+    level side), the sums' order and the atomics' the only difference."""
+    value, loc, attn = _f64_inputs(37, 4, d, 3, case)
+    g = torch.randn(2, 37, 4 * d, device="cuda", dtype=torch.float64)
+    got = msda.msda_fwd(value, SHAPES, loc, attn)
+    got_b = msda.msda_bwd(value, SHAPES, loc, attn, g)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got, msda.ms_deform_attn_plain(value, SHAPES, loc, attn), **F64_TOL)
+    side = max(max(hw) for hw in SHAPES)
+    want = msda.ms_deform_attn_plain_bwd(value, SHAPES, loc, attn, g)
+    for part, a, b in zip(("value", "loc", "attn"), got_b, want):
+        assert a.dtype == torch.float64
+        torch.testing.assert_close(
+            a, b, rtol=F64_TOL["rtol"],
+            atol=F64_TOL["atol"] * (side if part == "loc" else 1))
+
+
+@pytest.mark.parametrize("lq,h,p", GEOMETRIES)
+def test_f64_kernels_match_plain_geometries(cuda, lq, h, p):
+    value, loc, attn = _f64_inputs(lq, h, 32, p, "outside")
+    g = torch.randn(2, lq, h * 32, device="cuda", dtype=torch.float64)
+    torch.testing.assert_close(msda.msda_fwd(value, SHAPES, loc, attn),
+                               msda.ms_deform_attn_plain(value, SHAPES, loc,
+                                                         attn), **F64_TOL)
+    side = max(max(hw) for hw in SHAPES)
+    for part, a, b in zip(("value", "loc", "attn"),
+                          msda.msda_bwd(value, SHAPES, loc, attn, g),
+                          msda.ms_deform_attn_plain_bwd(value, SHAPES, loc,
+                                                        attn, g)):
+        torch.testing.assert_close(
+            a, b, rtol=F64_TOL["rtol"],
+            atol=F64_TOL["atol"] * (side if part == "loc" else 1))
+
+
+def test_f64_cuda_never_reaches_the_plain_version(cuda):
+    """f64 CUDA tensors go to the f64 kernels through the dispatcher, and
+    an f64 value with f32 locations is refused, not computed otherwise."""
+    value, loc, attn = _f64_inputs(5, 2, 32, 2, "random")
+    before = msda.msda_fwd.launches
+    with mock_plain_raises():
+        out = msda.ms_deform_attn(value, SHAPES, loc, attn)
+    assert out.dtype == torch.float64
+    assert msda.msda_fwd.launches == before + 1
+    with pytest.raises(ValueError, match="float64"):
+        msda.msda_fwd(value, SHAPES, loc.float(), attn.float())
+
+
+def mock_plain_raises():
+    from unittest import mock
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+    return mock.patch.object(msda, "ms_deform_attn_plain", refuse)
+
+
+def test_export_round_trip_on_the_card(cuda, tmp_path):
+    """A tiny DINO's eval forward exported on the card, saved, loaded by
+    tools/export_model.load_exported and run: equal to eager bit for bit,
+    one msda_fwd launch per MSDeformAttn."""
+    from datr_torch.tools import export_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = DINO(num_classes=4, num_queries=12, hidden_dim=32, nheads=2,
+                 enc_layers=1, dec_layers=2, dim_feedforward=64)
+    model = model.init_params(torch.Generator().manual_seed(0)).to(cuda)
+    ep = export_model.build_exported(model, 1, (96, 128))
+    assert export_model.msda_nodes(ep) == 3
+    path = tmp_path / "tiny.pt2"
+    torch.export.save(ep, str(path))
+    loaded = export_model.load_exported(str(path))
+    g = torch.Generator().manual_seed(1)
+    img = torch.randn(1, 96, 128, 3, generator=g).to(cuda)
+    pad = torch.zeros(1, 96, 128, dtype=torch.bool, device=cuda)
+    pad[0, 70:] = True
+    with torch.no_grad():
+        want = export_model.EvalForward(model.eval())(img, pad)
+        before = msda.msda_fwd.launches
+        got = loaded(img, pad)
+        torch.cuda.synchronize()
+    assert msda.msda_fwd.launches == before + 3
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)

@@ -54,6 +54,10 @@ def test_every_port_module_is_a_case():
             "datr_torch.tools.serve_bench", "datr_torch.serve",
             "datr_torch.parallel.dist", "datr_torch.parallel.mesh",
             "datr_torch.parallel.pipeline",
+            "datr_torch.tools.convert_checkpoint",
+            "datr_torch.tools.export_model", "datr_torch.tools.train_bench",
+            "datr_torch.tools.profile_model", "datr_torch.tools.stage_data",
+            "datr_torch.tools.repro_c2f",
             "tests.torch_port_dist_worker"} <= set(MODULES)
     assert len(MODULES) == len(set(MODULES)) > 30
 

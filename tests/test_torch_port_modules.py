@@ -288,13 +288,13 @@ def test_get_size_with_aspect_ratio(wh):
             == jtransforms.get_size_with_aspect_ratio(wh, 800, 1333))
 
 
-@pytest.mark.parametrize("flag", [dict(amp_dtype="float64"),
+@pytest.mark.parametrize("flag", [dict(amp_dtype="fp32"),
                                   dict(amp_dtype="float16")])
 def test_build_refuses_what_the_port_lacks(flag):
-    """bfloat16 and fast_norm build (tests/test_torch_port_bf16.py); the
-    other dtypes do not: datr_tpu's float64 is its x64 debugging mode, and
-    it reads any other name as float32. Shared two-stage heads build
-    (tests/test_torch_port_registry.py)."""
+    """bfloat16 and fast_norm build (tests/test_torch_port_bf16.py), and
+    float64, datr_tpu's x64 debugging mode (tests/test_torch_port_x64.py);
+    the other dtype names do not: datr_tpu reads them as float32. Shared
+    two-stage heads build (tests/test_torch_port_registry.py)."""
     with pytest.raises(NotImplementedError, match=next(iter(flag))):
         tdino.build_dino_from_config(dict(num_classes=4, **flag),
                                      device="cpu")
