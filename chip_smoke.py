@@ -142,7 +142,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      1e-3; each of a batch's top-50 masks finished on the host, IoU >= 0.99
      with the plain run's), 4 PNG POSTs through serve_http whose mask RLEs
      equal detect's; one batch in bf16; engine.evaluate(segm=True) over 2
-     frames of the tree (batch 2, 100 detections per image: the 12 bbox and
+     frames of the tree (batch 2, 25 detections per image: the 12 bbox and
      12 segm stats, img/s, the host finish's time); train_one_epoch_plain
      on the tree through make_single_loader with return_masks (800x1344,
      batch 2, use_remat: the mask head's chunks recomputed in the
@@ -191,8 +191,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
   14. the model axes on the one card (runs after 13, before 8): tensor
      parallelism (tp = 2), encoder sequence parallelism (sp = 2), the GPipe
      encoder (2 stages), data x tensor parallelism with FSDP on 4 ranks, a
-     tensor-parallel sharded checkpoint loaded into one process, serving
-     with tp = 2 (`run_model_axes`);
+     tensor-parallel sharded checkpoint loaded into one process (the C2F
+     model at full width, depth cut to 2 + 2 layers: gloo's host-staged
+     collectives of each layer's activations set these steps' time),
+     serving with tp = 2 (the flagship, full depth) (`run_model_axes`);
   15. the tools and the float64 mode (runs after 14, before 8): a. a
      reference-layout .pth of the flagship (full width, random, `module.`
      prefixes and an `args` Namespace) through
@@ -287,22 +289,23 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 
 
 def msda_inputs(gen, lq, dtype=torch.float32, d=D, case="random",
-                shapes=SHAPES, p=P):
+                shapes=SHAPES, p=P, heads=H):
     dev = gen.device
     s_tok, n_l = sum(h * w for h, w in shapes), len(shapes)
-    value = torch.randn(B, s_tok, H, d, device=dev, generator=gen).to(dtype)
-    attn = torch.rand(B, lq, H, n_l, p, device=dev, generator=gen)
+    value = torch.randn(B, s_tok, heads, d, device=dev,
+                        generator=gen).to(dtype)
+    attn = torch.rand(B, lq, heads, n_l, p, device=dev, generator=gen)
     attn = (attn / attn.sum((-1, -2), keepdim=True)).contiguous()
     if case == "random":
-        loc = torch.rand(B, lq, H, n_l, p, 2, device=dev, generator=gen)
+        loc = torch.rand(B, lq, heads, n_l, p, 2, device=dev, generator=gen)
     elif case == "outside":
-        loc = torch.rand(B, lq, H, n_l, p, 2, device=dev, generator=gen)
+        loc = torch.rand(B, lq, heads, n_l, p, 2, device=dev, generator=gen)
         loc = loc * 1.6 - 0.3
     else:  # "integer": on pixel centres, as DINO's initial offsets put them
         wh = torch.tensor([(w, h) for h, w in shapes], dtype=torch.float32,
                           device=dev)
         hi = (wh + 2).to(torch.int64)[:, None, :].expand(n_l, p, 2)
-        ij = (torch.rand(B, lq, H, n_l, p, 2, device=dev, generator=gen)
+        ij = (torch.rand(B, lq, heads, n_l, p, 2, device=dev, generator=gen)
               * hi).floor() - 1  # -1 .. W (H): the borders included
         loc = (ij + 0.5) / wh[:, None, :]
     return value, loc.contiguous(), attn
@@ -2007,35 +2010,54 @@ BF16 = dict(amp_dtype="bfloat16")
 def check_msda_bf16(msda) -> dict:
     """msda_fwd and msda_bwd with bf16 value against their plain versions:
     the serving shapes (forward), the training shapes (forward and
-    backward), DINO_5scale's five levels (S = 89,523) and
-    DINO_4scale_fast's two points per level in f32 and bf16; then msda_bwd
-    in bf16 beside f32 at the training shapes, random locations, timed in
-    this call (and msda_fwd in bf16 there)."""
+    backward; the backward also with corners outside and on the levels'
+    borders, at 4 heads and at half the encoder's queries), DINO_5scale's
+    five levels (S = 89,523) and DINO_4scale_fast's two points per level in
+    f32 and bf16; then msda_bwd in bf16 beside f32 at the training shapes,
+    random locations, timed in this call (and msda_fwd in bf16 there)."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     bf, f32 = torch.bfloat16, torch.float32
     dec_src, dec_tgt = TRAIN_DEC_LQ
-    # (name, shapes, Lq, dtype, P, backward)
-    cases = [("serve enc", SHAPES, S, bf, P, False),
-             ("serve dec", SHAPES, N_QUERIES, bf, P, False),
-             ("train enc", TRAIN_SHAPES, TRAIN_S, bf, P, True),
-             ("train dec src", TRAIN_SHAPES, dec_src, bf, P, True),
-             ("train dec tgt", TRAIN_SHAPES, dec_tgt, bf, P, True),
-             ("5-scale enc", SHAPES5, S5, f32, P, False),
-             ("5-scale enc", SHAPES5, S5, bf, P, True),
-             ("5-scale dec", SHAPES5, N_QUERIES, f32, P, True),
-             ("5-scale dec", SHAPES5, N_QUERIES, bf, P, True),
-             ("P=2 enc", SHAPES, S, f32, 2, True),
-             ("P=2 enc", SHAPES, S, bf, 2, True),
-             ("P=2 dec", SHAPES, N_QUERIES, f32, 2, True),
-             ("P=2 dec", SHAPES, N_QUERIES, bf, 2, True)]
+    half = -(-TRAIN_S // 2)
+    # (name, shapes, Lq, dtype, P, backward, locations, heads); the bf16
+    # backward also where corners spill off their levels' borders (outside,
+    # integer), at a tensor-parallel rank's 4 heads and at a
+    # sequence-parallel rank's half of the encoder's queries
+    cases = [("serve enc", SHAPES, S, bf, P, False, "random", H),
+             ("serve dec", SHAPES, N_QUERIES, bf, P, False, "random", H),
+             ("train enc", TRAIN_SHAPES, TRAIN_S, bf, P, True, "random", H),
+             ("train dec src", TRAIN_SHAPES, dec_src, bf, P, True, "random",
+              H),
+             ("train dec tgt", TRAIN_SHAPES, dec_tgt, bf, P, True, "random",
+              H),
+             ("train enc spill", TRAIN_SHAPES, TRAIN_S, bf, P, True,
+              "outside", H),
+             ("train enc borders", TRAIN_SHAPES, TRAIN_S, bf, P, True,
+              "integer", H),
+             ("train dec spill", TRAIN_SHAPES, dec_src, bf, P, True,
+              "outside", H),
+             ("tp enc", TRAIN_SHAPES, TRAIN_S, bf, P, True, "random", 4),
+             ("tp dec", TRAIN_SHAPES, dec_src, bf, P, True, "outside", 4),
+             ("sp enc half", TRAIN_SHAPES, half, bf, P, True, "random", H),
+             ("5-scale enc", SHAPES5, S5, f32, P, False, "random", H),
+             ("5-scale enc", SHAPES5, S5, bf, P, True, "random", H),
+             ("5-scale dec", SHAPES5, N_QUERIES, f32, P, True, "random", H),
+             ("5-scale dec", SHAPES5, N_QUERIES, bf, P, True, "random", H),
+             ("P=2 enc", SHAPES, S, f32, 2, True, "random", H),
+             ("P=2 enc", SHAPES, S, bf, 2, True, "random", H),
+             ("P=2 dec", SHAPES, N_QUERIES, f32, 2, True, "random", H),
+             ("P=2 dec", SHAPES, N_QUERIES, bf, 2, True, "random", H)]
     errs = {}
-    for name, sh, lq, dtype, p, backward in cases:
-        value, loc, attn = msda_inputs(gen, lq, dtype, shapes=sh, p=p)
-        name = f"{name} Lq={lq} {dtype_name(value)} L={len(sh)} P={p}"
+    for name, sh, lq, dtype, p, backward, where, heads in cases:
+        value, loc, attn = msda_inputs(gen, lq, dtype, case=where, shapes=sh,
+                                       p=p, heads=heads)
+        name = (f"{name} Lq={lq} {dtype_name(value)} L={len(sh)} P={p}"
+                + (f" {where}" if where != "random" else "")
+                + (f" H={heads}" if heads != H else ""))
         errs[f"msda_fwd {name}"] = check_fwd(msda, name, value, sh, loc,
                                              attn)
         if backward:
-            g = torch.randn(B, lq, H * D, device="cuda",
+            g = torch.randn(B, lq, heads * D, device="cuda",
                             generator=gen).to(dtype)
             for k, v in check_bwd(msda, name, value, sh, loc, attn,
                                   g).items():
@@ -3051,7 +3073,7 @@ MASK_CHUNK = 100  # (image, query) pairs per pass of the mask head
 MASK_SERVE_REQUESTS = 4
 MASK_TOP_K = 50  # the server's default: masks answered per request
 MASK_ATOL, MASK_IOU_MIN = 1e-3, 0.99
-MASK_EVAL_IMAGES, MASK_EVAL_SELECT = 2, 100  # the host finish sets the time
+MASK_EVAL_IMAGES, MASK_EVAL_SELECT = 2, 25  # the host finish sets the time
 
 
 def _ellipse(h, w, box):
@@ -4352,6 +4374,10 @@ def run_distributed(msda, card, cli_ref) -> dict:
 # runs the tp burn-in path, and its self-training step)
 AXES_STEPS = 0
 AXES_SERVE_REQUESTS = 4
+# the C2F model's depth in every part held to the reference (full width):
+# each tp / sp layer adds gloo round trips of its activations through the
+# host, which at 6 + 6 layers took 26 s a tp step
+AXES_DEPTH = dict(enc_layers=2, dec_layers=2)
 
 
 def _burnin(b) -> dict:
@@ -4400,7 +4426,8 @@ def axes_reference(tmp) -> dict:
     from datr_torch.train.steps import loss_and_grads
 
     dev = _rank_device()
-    state, ccfg, wd, _ = c2f_train_state(AXES_STEPS + 1, seed=0)
+    state, ccfg, wd, _ = c2f_train_state(AXES_STEPS + 1, seed=0,
+                                         **AXES_DEPTH)
     b0 = _on(_burnin(_axes_batches()[0]), dev)
     t0 = time.perf_counter()
     with held_choices() as rec:
@@ -4531,7 +4558,7 @@ def axes_two(rank, world, tmp):
     uneven shards against the one-process forward of the same model on
     the same rank, its encoder call of Lq = S / 2 through
     check_model_locations, then the C2F burn-in step against the
-    reference. c: the pipelined encoder (2 stages of 3 layers, 2
+    reference. c: the pipelined encoder (2 stages of 1 layer, 2
     microbatches): the C2F burn-in step against the reference."""
     import copy
 
@@ -4563,7 +4590,8 @@ def axes_two(rank, world, tmp):
     t_part = time.perf_counter()
     make_mesh(dev.type, tp=world)
     me = pdist.process_index("model")
-    state, ccfg, wd, cfg = c2f_train_state(AXES_STEPS + 1, seed=0)
+    state, ccfg, wd, cfg = c2f_train_state(AXES_STEPS + 1, seed=0,
+                                           **AXES_DEPTH)
     model = state.model
     pristine = copy.deepcopy(model)  # parts b and c start from it
     n_msda = sum(isinstance(m, MSDeformAttn) for m in model.modules())
@@ -4764,7 +4792,8 @@ def axes_four(rank, world, tmp):
     make_mesh(dev.type, tp=2)
     d, n, me = (pdist.process_index(), pdist.process_count(),
                 pdist.process_index("model"))
-    state, ccfg, wd, _ = c2f_train_state(AXES_STEPS + 1, seed=0)
+    state, ccfg, wd, _ = c2f_train_state(AXES_STEPS + 1, seed=0,
+                                         **AXES_DEPTH)
     model = state.model
     n_msda = sum(isinstance(m, MSDeformAttn) for m in model.modules())
     remat = 2 if model.use_remat else 1
@@ -4832,7 +4861,8 @@ def run_model_axes(msda, card) -> dict:
         out["dp_tp"] = four
 
         log("  --- 14e: the tensor-parallel sharded save into one process")
-        state, _, _, cfg = c2f_train_state(AXES_STEPS + 1, seed=5)
+        state, _, _, cfg = c2f_train_state(AXES_STEPS + 1, seed=5,
+                                           **AXES_DEPTH)
         saved = _fresh_state(state.model, cfg)  # before the load
         t0 = time.perf_counter()
         state, meta = ckpt.load_checkpoint_sharded(
@@ -5746,8 +5776,9 @@ def main() -> int:
         "per_train_step_model": bwd_step_model,
         "per_launch_train_model": tm,
     }, {
-        # the bf16 instantiation (phase 8): bf16 value / grad_out / grad_value
-        # through an f32 workspace, f32 grad_loc / grad_attn
+        # the bf16 route (phase 8): bf16 value / grad_out / grad_value
+        # through an f32 workspace, f32 grad_loc / grad_attn; the split
+        # kernel on the encoder's launches
         "name": "msda_bwd_bf16",
         "route": "cuda",
         "source": "datr_torch/csrc/msda_bwd.cu",

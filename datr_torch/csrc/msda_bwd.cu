@@ -17,58 +17,88 @@
 // Layouts (all contiguous):
 //   value [B, S, H, D], grad_out [B, Lq, H, D]   float, or both bfloat16;
 //                                                or both double
-//   work  [B, S, H, D]  float (double for double value), zeroed by the
-//                       wrapper: grad_value's sum
-//   grad_value          value's type (for float and double, the wrapper
-//                       passes work)
+//   work  [B, S, H, D]  float (double for double value): grad_value's sum,
+//                       zeroed by the wrapper (f32, f64: it is grad_value)
+//                       or by the entry point itself (bf16)
+//   grad_value          value's type
 //   loc, grad_loc     [B, Lq, H, L, P, 2]  float (double for double value)
 //   attn, grad_attn   [B, Lq, H, L, P]     float (double for double value)
-// In bf16 the rows of value and grad_out are read as bf16 and widened to
-// f32; every product and sum is f32; grad_loc / grad_attn are written in
-// f32; grad_value is summed in the f32 workspace and rounded once to bf16
-// by a second pass (msda_round_bf16_kernel). That is more exact than
-// datr_tpu's bf16 scatter-add through XLA: a documented difference.
-// The double instantiations (the float64 debugging mode) are
-// msda_bwd_kernel with A = double: f64 throughout, 16-byte loads of 2
-// doubles, and f64 atomicAdds straight into grad_value (no workspace, no
-// rounding pass; scalar: the card has no vector f64 reduction). The run
-// kernel below stays f32 / bf16.
+// f32: msda_bwd_kernel / msda_bwd_run_kernel, atomics straight into
+// grad_value. f64 (the float64 debugging mode): msda_bwd_kernel with
+// A = double, 16-byte loads of 2 doubles, scalar f64 atomicAdds straight
+// into grad_value (the card has no vector f64 reduction).
 //
-// What bounds it on this card: the rate at which L2 takes the reductions into
-// grad_value, then L1's gather rate as in the forward (msda_fwd.cu); about 4
-// flops per gathered element against them. The floor of the function is
-// device memory: the value rows the samples touch read once and grad_value
-// written once (plus grad_out/loc/attn read, grad_loc/grad_attn written).
-// The scatter-add instead sends one read-modify-write of a row to L2 per
-// corner, up to 4*L*P per (b, q, h): 6.6 GB of reductions per launch at the
-// training encoder shape on top of as many gathered bytes, where value and
-// grad_value are 106 MB each (over the 50 MB L2 together or alone).
+// What bounds them on this card. The floor of the function is device
+// memory: the value rows the samples touch read once and grad_value written
+// once (plus grad_out/loc/attn read, grad_loc/grad_attn written). The
+// kernels instead gather up to 4*L*P rows per (b, q, h) through L1 (as the
+// forward, msda_fwd.cu) and send one read-modify-write of a row to L2 per
+// corner or per merged run of corners. At the model's own locations neither
+// stream alone sets the pace of the bf16 encoder launch: taking out its
+// reductions saved less than taking out its gathers (PERF.md has the run),
+// so the instructions and the latency of the gather loop do. At
+// uniform-random locations the reductions weigh more (every row its own
+// line in L2).
 // What the design does about it (steps 1-3 are the forward's):
 // 1. the same one-time set-up per warp (msda_common.cuh:msda_setup), so
 //    grad_loc takes the slope of the cell the forward sampled;
-// 2. 16-byte gathers by groups of G lanes with VEC channels each; grad_out's
-//    row is read once per (b, q, h) into registers;
+// 2. 16-byte gathers by groups of G lanes with VEC channels each (f32);
+//    grad_out's row is read once per (b, q, h) into registers;
 // 3. the same cache-local work order: the card works on one or two (b, h)
 //    slices of value and grad_value at a time, so the reductions meet their
 //    rows in L2 instead of device memory (the largest gain at scattered
 //    locations);
 // 4. vector reductions: a*w*g goes out as one 16-byte atomicAdd per lane and
 //    corner (red.global.add.v4.f32, compute capability 9.x), a quarter of the
-//    scalar atomics; a corner whose weight is exactly zero (half of them at
-//    integer pixel coordinates, where the model's initial offsets put the
-//    samples of a query's own level) adds nothing and is not sent. A group
-//    serves the four corners of one sample in turn, so the three dot products
-//    per sample are summed in the lane first and cross only the group's G
-//    lanes (3 x log2 G shuffles per sample instead of 3 x 5); the sample's
-//    owner lane gets them back by shuffle and writes grad_attn and grad_loc
-//    coalesced.
-// 5. merging before scattering, in registers (msda_bwd_run_kernel, the long
-//    launches at D = 32): a warp serves 8 consecutive queries of its head and
-//    keeps, per corner, the row it last added to and the sum not yet sent;
-//    the next query's same sample on the same row (2, 4 or 8 neighbouring
+//    scalar atomics, each lane's 16 bytes beside its neighbours' so that a
+//    warp's reduction fills whole 32-byte sectors; a corner whose weight is
+//    exactly zero (half of them at integer pixel coordinates, where the
+//    model's initial offsets put the samples of a query's own level) adds
+//    nothing and is not sent. A group serves the four corners of one sample
+//    in turn, so the three dot products per sample are summed in the lane
+//    first and cross only the group's G lanes (3 x log2 G shuffles per
+//    sample instead of 3 x 5); the sample's owner lane gets them back by
+//    shuffle and writes grad_attn and grad_loc coalesced.
+// 5. merging before scattering, in registers (the run kernels, the long
+//    launches): a warp serves 8 consecutive queries of its head and keeps,
+//    per corner, the row it last added to and the sum not yet sent; the
+//    next query's same sample on the same row (2, 4 or 8 neighbouring
 //    pixels share a cell on each coarser level) joins the sum, and one
-//    reduction goes out for the run of them. Shared memory is not used for
-//    it: a float atomicAdd there is a compare-and-swap loop on this card.
+//    reduction goes out for the run of them. Each lane owns its channels of
+//    those rows, so no atomics are needed before the one reduction.
+//    Not in shared memory: cuobjdump -sass shows atomicAdd(float*) and
+//    red.shared.add.f32 there as an ATOMS.CAST.SPIN compare-and-swap loop;
+//    and lane-owned sums kept in shared memory instead of registers
+//    measured slower (a variant not kept).
+// bf16 (the entry point's bwd_bf16): value and grad_out read as bf16 and
+// widened to f32, every product and sum f32, grad_loc / grad_attn in f32,
+// grad_value summed in an f32 workspace of value's shape and rounded once
+// to bf16 (msda_round_bf16_kernel) -- more exact than datr_tpu's bf16
+// scatter-add through XLA, a documented difference. The one C call zeroes
+// the workspace (cudaMemsetAsync), scatters and rounds: no torch.zeros, and
+// only the outputs and the workspace are allocated by the wrapper.
+// 6. 8-byte bf16 loads, 8 lanes x 4 channels a row (msda_bwd_kernel at
+//    VEC = 4), so each lane's 16-byte f32 reduction sits beside its
+//    neighbours' (16-byte loads, 4 lanes x 8 channels, sent two reductions
+//    32 bytes apart per lane: half-filled sectors, most of the decoder
+//    launch's time; PERF.md has the run).
+// 7. the split kernel (msda_bwd_bf16_split_kernel, the long launches at
+//    D = 32 with 16-byte aligned rows, the encoder's): the round of samples
+//    a warp sets up is served twice. First each lane takes its own sample
+//    alone, whole rows of 32 channels (four 16-byte loads a corner) against
+//    its query's whole grad_out row: the dot products, grad_attn and
+//    grad_loc need no shuffle and no cross-lane sum. Then the merged
+//    scatter of step 5, the corner rows and weights taken by shuffle from
+//    the sample's lane. That removes the dot products' shuffles and
+//    cross-lane sums (PERF.md has the times). Tensor cores for its
+//    dot products (the 128 corner rows of a round against the run's 8
+//    grad_out rows, mma.sync through shared memory) measured slower (a
+//    variant not kept).
+// 8. the workspace: zeroed and rounded in the same call. A ring of
+//    per-(b, h) slots rounded by later blocks of the same launch (an atomic
+//    ticket order, release / acquire counts) was tried and dropped (a
+//    variant not kept): its counting and waiting cost more than the
+//    separate passes it saved.
 // Atomics make grad_value's sum order (and its last bits) vary from run to
 // run.
 
@@ -81,12 +111,7 @@
 // p[0..VEC) += v, as one reduction of VEC*4 bytes (p aligned to them).
 template <int VEC>
 __device__ __forceinline__ void red_add_vec(float* p, const float (&v)[VEC]) {
-  if constexpr (VEC == 8) {  // a bf16 lane's 8 channels: two reductions
-    atomicAdd(reinterpret_cast<float4*>(p),
-              make_float4(v[0], v[1], v[2], v[3]));
-    atomicAdd(reinterpret_cast<float4*>(p + 4),
-              make_float4(v[4], v[5], v[6], v[7]));
-  } else if constexpr (VEC == 4) {
+  if constexpr (VEC == 4) {
     atomicAdd(reinterpret_cast<float4*>(p),
               make_float4(v[0], v[1], v[2], v[3]));
   } else if constexpr (VEC == 2) {
@@ -216,10 +241,7 @@ __global__ void __launch_bounds__(MSDA_THREADS) msda_bwd_kernel(
 // Where the next query's same sample falls on the same row (neighbouring
 // pixels do on every coarser level: 2, 4 or 8 queries to a cell), the
 // contribution joins the sum in registers and one reduction goes out for the
-// run of them. bf16 runs f32's geometry (8-byte value loads, the same
-// 16-byte f32 reductions): 4 lanes x 8 bf16 a row, with two set-ups and two
-// reductions a lane, took 122 registers against f32's 72 and 4.43 ms against
-// 2.40 ms at the training encoder shape on an H100.
+// run of them. f32 only: bf16's long launches take the split kernel (below).
 #define MSDA_RUN_Q 8
 template <typename T>
 __global__ void __launch_bounds__(MSDA_THREADS) msda_bwd_run_kernel(
@@ -319,23 +341,6 @@ __global__ void __launch_bounds__(MSDA_THREADS) msda_bwd_run_kernel(
   }
 }
 
-// bf16 grad_value: the f32 sum rounded once, 4 elements a thread per step
-// (16-byte loads, 8-byte stores) where both pointers allow it.
-__global__ void __launch_bounds__(256) msda_round_bf16_kernel(
-    const float* __restrict__ in, __nv_bfloat16* __restrict__ out,
-    long long n, int vec4) {
-  const long long n4 = vec4 ? n / 4 : 0;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  for (long long i = t; i < n4; i += stride) {
-    const float4 v = __ldcs(reinterpret_cast<const float4*>(in) + i);
-    reinterpret_cast<uint2*>(out)[i] =
-        make_uint2(pack_bf16x2(v.x, v.y), pack_bf16x2(v.z, v.w));
-  }
-  for (long long i = 4 * n4 + t; i < n; i += stride)
-    out[i] = __float2bfloat16(in[i]);
-}
-
 template <typename T, typename A, int VEC, int LG>
 static cudaError_t launch_bwd_as(const void* value, const void* loc,
                                  const void* attn, const void* grad_out,
@@ -382,8 +387,9 @@ static cudaError_t launch_bwd(const void* value, const void* loc,
       return cudaGetLastError();
     }
   }
-  if constexpr (VEC * sizeof(T) == 16) {
-    if (D == 32)  // 32 / VEC lanes per row
+  // D = 32 in 16-byte vectors, or in bf16's 8-byte ones: 32 / VEC lanes
+  if constexpr (VEC * sizeof(T) == 16 || (sizeof(T) == 2 && VEC == 4)) {
+    if (D == 32)
       return launch_bwd_as<T, A, VEC, msda_lg32<VEC>()>(
           value, loc, attn, grad_out, work, grad_loc, grad_attn, S, Lq, H, D,
           P, wk, blocks, lv, device, stream);
@@ -391,6 +397,175 @@ static cudaError_t launch_bwd(const void* value, const void* loc,
   return launch_bwd_as<T, A, VEC, -1>(value, loc, attn, grad_out, work,
                                       grad_loc, grad_attn, S, Lq, H, D, P, wk,
                                       blocks, lv, device, stream);
+}
+
+// ------------------------------------------------------------------ bf16
+// bf16 grad_value: the f32 sum rounded once, 4 elements a thread per step
+// (16-byte loads, 8-byte stores) where both pointers allow it.
+__global__ void __launch_bounds__(256) msda_round_bf16_kernel(
+    const float* __restrict__ in, __nv_bfloat16* __restrict__ out,
+    long long n, int vec4) {
+  const long long n4 = vec4 ? n / 4 : 0;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  for (long long i = t; i < n4; i += stride) {
+    const float4 v = __ldcs(reinterpret_cast<const float4*>(in) + i);
+    reinterpret_cast<uint2*>(out)[i] =
+        make_uint2(pack_bf16x2(v.x, v.y), pack_bf16x2(v.z, v.w));
+  }
+  for (long long i = 4 * n4 + t; i < n; i += stride)
+    out[i] = __float2bfloat16(in[i]);
+}
+
+// A bf16 row of 32 channels, widened: four 16-byte loads through the
+// read-only path.
+__device__ __forceinline__ void load_row32(const __nv_bfloat16* p,
+                                           float (&v)[32]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint4 t = __ldg(reinterpret_cast<const uint4*>(p) + i);
+    unpack_bf16x2(t.x, &v[8 * i + 0], &v[8 * i + 1]);
+    unpack_bf16x2(t.y, &v[8 * i + 2], &v[8 * i + 3]);
+    unpack_bf16x2(t.z, &v[8 * i + 4], &v[8 * i + 5]);
+    unpack_bf16x2(t.w, &v[8 * i + 6], &v[8 * i + 7]);
+  }
+}
+
+// <g, row> over the 32 channels of a bf16 row: four 16-byte loads through
+// the read-only path, widened, summed in f32.
+__device__ __forceinline__ float dot_row32(const __nv_bfloat16* p,
+                                           const float (&g)[32]) {
+  uint4 t[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    t[i] = __ldg(reinterpret_cast<const uint4*>(p) + i);
+  float dot = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const unsigned u[4] = {t[i].x, t[i].y, t[i].z, t[i].w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float lo, hi;
+      unpack_bf16x2(u[e], &lo, &hi);
+      dot += g[8 * i + 2 * e] * lo;
+      dot += g[8 * i + 2 * e + 1] * hi;
+    }
+  }
+  return dot;
+}
+
+// The long launches at D = 32 with 16-byte aligned rows (the encoder's):
+// msda_bwd_run_kernel's geometry (8 lanes x 4 channels a row, a warp's run
+// of MSDA_RUN_Q = 8 consecutive queries, one set-up of 8 queries x 4
+// samples a round) with each round split in two. First every lane serves
+// the sample it set up, alone: its query's whole grad_out row and its four
+// corners' whole rows (4 x 16 bytes each), the four dot products,
+// grad_attn and grad_loc, all in the lane: no shuffles, no cross-lane
+// sums. Then the scatter, the queries in order: group r takes the corner
+// rows and the forward's weights of its sample from the lane that set it
+// up (two shuffles a corner), and merges and sends as msda_bwd_run_kernel
+// does, into the f32 workspace.
+__global__ void __launch_bounds__(MSDA_THREADS) msda_bwd_bf16_split_kernel(
+    const __nv_bfloat16* __restrict__ value, const float* __restrict__ loc,
+    const float* __restrict__ attn, const __nv_bfloat16* __restrict__ grad_out,
+    float* __restrict__ work, float* __restrict__ grad_loc,
+    float* __restrict__ grad_attn, int S, int Lq, int H, int P, int n_runs,
+    const __grid_constant__ Levels lv) {
+  constexpr int D = 32, VEC = 4, G = 8, R = 4;
+  const int lane = threadIdx.x & 31;
+  const int r = lane >> 3;                   // the gather's row group
+  const int ch = (lane & (G - 1)) * VEC;     // this lane's channels
+  const int jq = lane >> 2, js = lane & (R - 1);  // the set-up
+  const int LP = lv.n * P;
+  const int run = blockIdx.x % n_runs, bh = blockIdx.x / n_runs;
+  const int b = bh / H, h = bh % H;
+  const int q0 = (run * MSDA_WARPS + (threadIdx.x >> 5)) * G;
+  if (q0 >= Lq) return;  // warp-uniform
+  const int nq = min(G, Lq - q0);
+  const long long bqh0 = ((long long)b * Lq + q0) * H + h;
+  const long long mine = bqh0 + (long long)jq * H;
+  const long long row_stride = (long long)H * D;  // a token of value
+  const long long bh_off = (long long)b * S * row_stride + (long long)h * D;
+  const __nv_bfloat16* val_bh = value + bh_off;
+  float* work_bh = work + bh_off;
+
+  for (int k0 = 0; k0 < LP; k0 += R) {
+    const int k = k0 + js;
+    const bool own = jq < nq && k < LP;
+    const SampleSetup<float> s = msda_setup(loc + mine * LP * 2,
+                                            attn + mine * LP, own ? k : LP,
+                                            LP, P, lv);
+    float wa[4] = {0.f, 0.f, 0.f, 0.f};  // the forward's weights
+    if (own) {
+      float g[32];
+      load_row32(grad_out + mine * D, g);
+      float ga = 0.f, gx = 0.f, gy = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (s.off[c] >= 0) {
+          float wx, wy, w;
+          msda_corner_weights(c, s.fx, s.fy, &wx, &wy, &w);
+          wa[c] = __fmul_rn(w, s.a);
+          const float dot =
+              dot_row32(val_bh + (long long)s.off[c] * row_stride, g);
+          ga += w * dot;
+          gx += ((c & 1) ? wy : -wy) * dot;   // dw/dfx
+          gy += ((c >> 1) ? wx : -wx) * dot;  // dw/dfy
+        }
+      }
+      const long long at = mine * LP + k;
+      grad_attn[at] = ga;
+      grad_loc[2 * at] = s.a * gx * (float)s.wl;
+      grad_loc[2 * at + 1] = s.a * gy * (float)s.hl;
+    }
+    int pend_off[4] = {-1, -1, -1, -1};  // per corner: the row owed
+    float pend[4][VEC];                  // and its sum
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      if (j >= nq) break;  // warp-uniform
+      const int src = j * R + r;  // the lane that set up this sample
+      float g[VEC];
+      load_vec<VEC>(grad_out + (bqh0 + (long long)j * H) * D + ch, g);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int off = __shfl_sync(MSDA_FULL, s.off[c], src);
+        const float w_a = __shfl_sync(MSDA_FULL, wa[c], src);
+        if (off < 0 || w_a == 0.f) continue;
+        if (off == pend_off[c]) {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) pend[c][e] += w_a * g[e];
+        } else {
+          if (pend_off[c] >= 0)
+            red_add_vec<VEC>(work_bh + (long long)pend_off[c] * row_stride +
+                             ch, pend[c]);
+          pend_off[c] = off;
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) pend[c][e] = w_a * g[e];
+        }
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (pend_off[c] >= 0)
+        red_add_vec<VEC>(work_bh + (long long)pend_off[c] * row_stride + ch,
+                         pend[c]);
+  }
+}
+
+static cudaError_t launch_bwd_bf16_split(
+    const void* value, const void* loc, const void* attn,
+    const void* grad_out, float* work, void* grad_loc, void* grad_attn,
+    int S, int Lq, int H, int P, int n_runs, long long blocks,
+    const Levels& lv, int device, cudaStream_t stream) {
+  static bool asked[MSDA_MAX_DEVICES];
+  cudaError_t err =
+      msda_prefer_l1(msda_bwd_bf16_split_kernel, device, asked);
+  if (err != cudaSuccess) return err;
+  msda_bwd_bf16_split_kernel<<<(unsigned)blocks, MSDA_THREADS, 0, stream>>>(
+      (const __nv_bfloat16*)value, (const float*)loc, (const float*)attn,
+      (const __nv_bfloat16*)grad_out, work, (float*)grad_loc,
+      (float*)grad_attn, S, Lq, H, P, n_runs, lv);
+  return cudaGetLastError();
 }
 
 static cudaError_t launch_round_bf16(const float* work, void* grad_value,
@@ -407,14 +582,65 @@ static cudaError_t launch_round_bf16(const float* work, void* grad_value,
   return cudaGetLastError();
 }
 
+// The bf16 route: `work` (f32, value's shape, 16-byte aligned; its
+// contents on entry do not matter) is zeroed here, takes the sum, and is
+// rounded once into grad_value: three launches on `stream`. Rows are read
+// in at most 8-byte vectors (8 lanes x 4 channels a row at D = 32, so that
+// each lane's 16-byte f32 reduction sits beside its neighbours'); the long
+// launches at D = 32 with 16-byte aligned rows take the split kernel, every
+// other launch msda_bwd_kernel.
+static cudaError_t bwd_bf16(const void* value, const void* loc,
+                            const void* attn, const void* grad_out,
+                            float* work, void* grad_value, void* grad_loc,
+                            void* grad_attn, int B, int S, int Lq, int H,
+                            int D, int P, const Levels& lv, int device,
+                            cudaStream_t s) {
+  const long long n = (long long)B * S * H * D;
+  cudaError_t err = cudaMemsetAsync(work, 0, (size_t)n * sizeof(float), s);
+  if (err != cudaSuccess) return err;
+  if ((long long)B * Lq * H > 0) {
+    const int vb = msda_vec_width(D, 4, 2, value, grad_out, grad_out);
+    const int vw = msda_vec_width(D, 4, 4, work, work, work);
+    const int vec = vb < vw ? vb : vw;
+    Work wk;
+    long long blocks;
+    err = msda_plan(&wk, B, Lq, H, D, vec, device, &blocks);
+    if (err != cudaSuccess) return err;
+    const bool rows16 = (((size_t)value | (size_t)grad_out) % 16) == 0;
+    if (D == 32 && vec == 4 && rows16 && wk.qpw > 1) {
+      const int n_runs = (Lq + MSDA_WARPS * MSDA_RUN_Q - 1) /
+                         (MSDA_WARPS * MSDA_RUN_Q);
+      blocks = (long long)B * H * n_runs;
+      if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+      err = launch_bwd_bf16_split(value, loc, attn, grad_out, work, grad_loc,
+                                  grad_attn, S, Lq, H, P, n_runs, blocks, lv,
+                                  device, s);
+    } else {
+#define MSDA_BWD_BF16(VEC)                                                    \
+  err = launch_bwd<__nv_bfloat16, float, VEC>(value, loc, attn, grad_out,     \
+                                              work, grad_loc, grad_attn, B, S, \
+                                              Lq, H, D, P, lv, device, s);    \
+  break
+      switch (vec) {
+        case 4: MSDA_BWD_BF16(4);
+        case 2: MSDA_BWD_BF16(2);
+        default: MSDA_BWD_BF16(1);
+      }
+#undef MSDA_BWD_BF16
+    }
+    if (err != cudaSuccess) return err;
+  }
+  return launch_round_bf16(work, grad_value, n, device, s);
+}
+
 extern "C" {
 
-// Returns the cudaError_t of the launches (0 = success). `work` (the shape
-// of value; f32, or f64 for double value) must hold zeros on entry and
-// receives grad_value's sum; for float and double value the caller passes
-// grad_value itself as `work`, for bfloat16 value (dtype MSDA_BF16,
-// grad_out bf16 too) the sum is then rounded into grad_value. grad_loc and
-// grad_attn are overwritten. `dtype` is a MsdaDtype.
+// Returns the cudaError_t of the launches (0 = success). `dtype` is a
+// MsdaDtype. f32 and f64 value: `work` is grad_value itself, of value's
+// shape and type, holding zeros on entry, and receives the sum. bf16 value
+// (MSDA_BF16, grad_out bf16 too, loc / attn f32): `work` is an f32 buffer
+// of value's shape whose contents do not matter (bwd_bf16 above), and
+// grad_value the bf16 result. grad_loc and grad_attn are overwritten.
 int msda_bwd(const void* value, const void* loc, const void* attn,
              const void* grad_out, void* work, void* grad_value,
              void* grad_loc, void* grad_attn, int B, int S, int Lq, int H,
@@ -423,12 +649,16 @@ int msda_bwd(const void* value, const void* loc, const void* attn,
   Levels lv;
   cudaError_t err = fill_levels(&lv, shapes, L, S);
   if (err != cudaSuccess) return (int)err;
+  if (dtype != MSDA_F32 && dtype != MSDA_BF16 && dtype != MSDA_F64)
+    return (int)cudaErrorInvalidValue;
   err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if ((long long)B * Lq * H == 0 && dtype != MSDA_BF16)
-    return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
-  float* w = (float*)work;
+  if (dtype == MSDA_BF16)
+    return (int)bwd_bf16(value, loc, attn, grad_out, (float*)work, grad_value,
+                         grad_loc, grad_attn, B, S, Lq, H, D, P, lv, device,
+                         s);
+  if ((long long)B * Lq * H == 0) return (int)cudaSuccess;
 #define MSDA_BWD(T, A, VEC, W)                                               \
   err = launch_bwd<T, A, VEC>(value, loc, attn, grad_out, W, grad_loc,       \
                               grad_attn, B, S, Lq, H, D, P, lv, device, s); \
@@ -441,26 +671,7 @@ int msda_bwd(const void* value, const void* loc, const void* attn,
     }
     return (int)err;
   }
-  if (dtype == MSDA_BF16) {
-    // the rows of value and grad_out in bf16, the reductions into the f32
-    // workspace: the narrower of the two vectors
-    const int vb = msda_vec_width(D, 8, 2, value, grad_out, grad_out);
-    const int vw = msda_vec_width(D, 8, 4, work, work, work);
-    if ((long long)B * Lq * H == 0) {
-      err = cudaSuccess;
-    } else {
-      switch (vb < vw ? vb : vw) {
-        case 8: MSDA_BWD(__nv_bfloat16, float, 8, w);
-        case 4: MSDA_BWD(__nv_bfloat16, float, 4, w);
-        case 2: MSDA_BWD(__nv_bfloat16, float, 2, w);
-        default: MSDA_BWD(__nv_bfloat16, float, 1, w);
-      }
-    }
-    if (err != cudaSuccess) return (int)err;
-    return (int)launch_round_bf16(w, grad_value, (long long)B * S * H * D,
-                                  device, s);
-  }
-  if (dtype != MSDA_F32) return (int)cudaErrorInvalidValue;
+  float* w = (float*)work;
   switch (msda_vec_width(D, 4, 4, value, grad_out, work)) {
     case 4: MSDA_BWD(float, float, 4, w);
     case 2: MSDA_BWD(float, float, 2, w);

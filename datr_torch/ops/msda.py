@@ -24,9 +24,12 @@ The functions:
   (narrower where D or a pointer's alignment asks for it: every D and any
   contiguous tensor is taken), blocks serve runs of consecutive queries of
   one (batch, head), and the backward scatters with 16-byte vector
-  reductions into a zeroed f32 sum in f32 and bf16 (on long launches at
-  D = 32 it first merges, in registers, the reductions of consecutive
-  queries onto one row).
+  reductions into a zeroed f32 sum (on long launches it first merges, in
+  registers, the reductions of consecutive queries onto one row). bf16
+  reads rows in 8-byte loads, and on the encoder's long launches takes a
+  kernel of its own (each sample's dot products in one lane over whole
+  rows before the merged scatter); the one C call zeroes its f32
+  workspace, scatters and rounds.
   Both take value in f32 or bf16 with f32 loc / attn, or everything in
   f64 (`amp_dtype="float64"`, datr_tpu's x64 debugging mode: its own
   instantiations, f64 arithmetic throughout, 16-byte loads of 2 doubles,
@@ -237,10 +240,11 @@ def msda_bwd(value: torch.Tensor, spatial_shapes: Shapes,
     value and grad_out [B, Lq, H*D] both f32 or both bf16 with loc and attn
     f32, or all f64; all contiguous on one CUDA device. Returns (grad_value,
     grad_loc, grad_attn), shaped as value, loc, attn; grad_value in value's
-    dtype (bf16: the f32 sum rounded once, by a second launch of the entry
-    point), grad_loc and grad_attn in loc's. grad_value is a sum of atomic
-    adds, so its last bits vary from run to run. Raises on other inputs,
-    and when the kernel fails to build or launch."""
+    dtype (bf16: the f32 sum in a workspace of value's shape, zeroed and
+    rounded once by the same C call), grad_loc and grad_attn in loc's.
+    grad_value is a sum of atomic adds, so its last bits vary from run to
+    run. Raises on other inputs, and when the kernel fails to build or
+    launch."""
     B, S, Lq, H, D, L, P = _check_msda_inputs(
         "msda_bwd", value, spatial_shapes, sampling_locations,
         attention_weights, grad_out)
@@ -252,15 +256,17 @@ def msda_bwd(value: torch.Tensor, spatial_shapes: Shapes,
                          f"{(B, Lq, H * D)}")
 
     lib = _build.load_library()
-    bf16 = value.dtype == torch.bfloat16
-    # f32 / f64: the atomics sum straight into grad_value; bf16: into an f32
-    # workspace, rounded once into grad_value
-    work = torch.zeros(value.shape, dtype=compute_dtype(value),
-                       device=value.device)
-    grad_value = torch.empty_like(value) if bf16 else work
     grad_loc = torch.empty_like(sampling_locations)
     grad_attn = torch.empty_like(attention_weights)
     stream = torch.cuda.current_stream(value.device).cuda_stream
+    if value.dtype == torch.bfloat16:
+        # the f32 sum, zeroed and rounded into grad_value by the C call
+        work = torch.empty(value.shape, dtype=torch.float32,
+                           device=value.device)
+        grad_value = torch.empty_like(value)
+    else:
+        # f32 / f64: the atomics sum straight into grad_value
+        work = grad_value = torch.zeros_like(value)
     rc = lib.msda_bwd(
         value.data_ptr(), sampling_locations.data_ptr(),
         attention_weights.data_ptr(), grad_out.data_ptr(), work.data_ptr(),

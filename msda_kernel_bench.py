@@ -2,7 +2,7 @@
 process.
 
     python msda_kernel_bench.py [--source NAME=DIR ...] [--only SUBSTR]
-                                [--out FILE]
+                                [--dtype f32,bf16] [--split] [--out FILE]
 
 Run from the repository root, beside chip_smoke.py, whose inputs, bounds,
 models and tolerances it uses. It builds the port's kernel sources
@@ -13,11 +13,21 @@ another commit unpacked into DIR, e.g. parent=build/parent_csrc filled by
 MSDA cases: the encoder and decoder launches of the serving path
 (800x1344, Lq 22,323 / 900) and of the training path (1216x2048, Lq 51,680
 / 1,100 / 900), each at uniform-random locations and at the locations the
-seeded models produce (captured from one forward of each). Every library is
-held against the plain versions on every case (chip_smoke.py's
-tolerances), then the libraries are timed in turns (a, b, b, a) by CUDA
-events over back-to-back calls of the port's own wrappers; the time kept is
-the mean of the two turns. Gather cases (names start with "gather"): the
+seeded models produce (captured from one forward of each), and the
+training encoder at the model's locations moved, each coordinate of each
+sample by a normal draw of 1, 4 or 16 pixels of its level (names
+"training encoder moved<n>px": a trained model's offsets spread from
+DINO's initial ones), in each --dtype: f32, and bf16 value / grad_out with
+f32 locations (names ending in "bf16"; the seeded models computing in
+bf16). Every library is held against the plain versions on every case
+(chip_smoke.py's tolerances), then the libraries are timed in turns (a, b,
+b, a) by CUDA events over back-to-back calls of the port's own wrappers;
+the time kept is the mean of the two turns. The backward of a --source
+library in bf16 is called as the port's wrapper called it before its f32
+workspace was zeroed in the C call: zeroed by torch.zeros
+(`zeroed_bf16_bwd`). --split adds, per backward case and library, the
+profiler's device time per call by kernel (zero-fill, scatter, rounding)
+and the host's time per call. Gather cases (names start with "gather"): the
 gather bench's row_gather (K2) and gather_fma (K3, 16 rows per output) and
 gather_fma at K = 1, 3 and 36 over the same table (2,048 outputs), held
 against the plain versions as the gather bench holds them and timed in
@@ -34,6 +44,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -44,6 +55,7 @@ from datr_torch.ops import _build, gather, msda
 from datr_torch.tools import msda_gather_bench as gbench
 
 FMA_KS = (16, 1, 3, 36)  # gather_fma's rows per output; 16 is the bench's
+MOVED_PX = (1, 4, 16)  # the spreads of the moved training encoder cases
 
 
 def build_libraries(source_dirs: dict) -> tuple[dict, dict]:
@@ -65,10 +77,12 @@ def build_libraries(source_dirs: dict) -> tuple[dict, dict]:
              for n, _, log in built})
 
 
-def collect_cases(only=None, device="cuda") -> list:
+def collect_cases(only=None, device="cuda", dtypes=("f32",)) -> list:
     """(name, value, shapes, loc, attn, grad_out or None) for every MSDA case
-    whose name holds `only`; the backward is timed at the training shapes
-    only, as on the main path."""
+    whose name holds `only`, in each of `dtypes` ("f32", "bf16": bf16 value
+    and grad_out, names ending in " bf16", the models computing in bf16);
+    the backward is timed at the training shapes only, as on the main
+    path."""
     cases = []
     gen = torch.Generator(device=device).manual_seed(0)
 
@@ -78,7 +92,8 @@ def collect_cases(only=None, device="cuda") -> list:
     def add(name, shapes, value, loc, attn, backward):
         g = (torch.randn(value.shape[0], loc.shape[1],
                          value.shape[2] * value.shape[3], device=device,
-                         generator=gen) if backward else None)
+                         generator=gen).to(value.dtype)
+             if backward else None)
         cases.append((name, value, tuple(shapes), loc, attn, g))
 
     def add_captured(name, call, backward):
@@ -88,37 +103,57 @@ def collect_cases(only=None, device="cuda") -> list:
     serving = (("encoder", cs.S), ("decoder", cs.N_QUERIES))
     training = (("encoder", cs.TRAIN_S), ("decoder_src", cs.TRAIN_DEC_LQ[0]),
                 ("decoder_tgt", cs.TRAIN_DEC_LQ[1]))
-    for part, lq in serving:
-        if kept(f"serving {part} random"):
-            add(f"serving {part} random", cs.SHAPES,
-                *cs.msda_inputs(gen, lq), False)
-    for part, lq in training:
-        if kept(f"training {part} random"):
-            add(f"training {part} random", cs.TRAIN_SHAPES,
-                *cs.msda_inputs(gen, lq, shapes=cs.TRAIN_SHAPES), True)
-
-    if any(kept(f"serving {part} model") for part, _ in serving):
-        srv = cs.flagship_server()
-        try:
-            batch, sizes = cs.serving_batch(srv, cs.request_images())
-            calls = cs.capture_msda_calls(msda,
-                                          lambda: srv._step(batch, sizes))
-        finally:
-            srv.close()
-        del srv
+    for dt in dtypes:
+        sfx = "" if dt == "f32" else f" {dt}"
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        amp = cs.BF16 if dt == "bf16" else {}
         for part, lq in serving:
-            if kept(f"serving {part} model"):
-                add_captured(f"serving {part} model", calls[lq], False)
-
-    if any(kept(f"training {part} model") for part, _ in training):
-        state, _, _, _ = cs.c2f_train_state(1, device=device)
-        calls = cs.training_msda_calls(
-            msda, state, cs.paired_batches(1, device, seed=0)[0])
-        del state
-        torch.cuda.empty_cache()
+            if kept(f"serving {part} random{sfx}"):
+                add(f"serving {part} random{sfx}", cs.SHAPES,
+                    *cs.msda_inputs(gen, lq, dtype), False)
         for part, lq in training:
-            if kept(f"training {part} model"):
-                add_captured(f"training {part} model", calls[lq], True)
+            if kept(f"training {part} random{sfx}"):
+                add(f"training {part} random{sfx}", cs.TRAIN_SHAPES,
+                    *cs.msda_inputs(gen, lq, dtype, shapes=cs.TRAIN_SHAPES),
+                    True)
+
+        if any(kept(f"serving {part} model{sfx}") for part, _ in serving):
+            srv = cs.flagship_server(**amp, **({"use_remat": False}
+                                               if amp else {}))
+            try:
+                batch, sizes = cs.serving_batch(srv, cs.request_images())
+                calls = cs.capture_msda_calls(msda,
+                                              lambda: srv._step(batch, sizes))
+            finally:
+                srv.close()
+            del srv
+            for part, lq in serving:
+                if kept(f"serving {part} model{sfx}"):
+                    add_captured(f"serving {part} model{sfx}", calls[lq],
+                                 False)
+
+        moved = [f"training encoder moved{px}px{sfx}" for px in MOVED_PX]
+        if any(map(kept, [f"training {part} model{sfx}"
+                          for part, _ in training] + moved)):
+            state, _, _, _ = cs.c2f_train_state(1, device=device, **amp)
+            calls = cs.training_msda_calls(
+                msda, state, cs.paired_batches(1, device, seed=0)[0])
+            del state
+            if torch.cuda.is_available():
+                torch.cuda.empty_cache()
+            for part, lq in training:
+                if kept(f"training {part} model{sfx}"):
+                    add_captured(f"training {part} model{sfx}", calls[lq],
+                                 True)
+            value, shapes, loc, attn = calls[cs.TRAIN_S]
+            wh = torch.tensor([(w, h) for h, w in shapes], device=device,
+                              dtype=loc.dtype)[:, None, :]  # [L, 1, 2]
+            for px, name in zip(MOVED_PX, moved):
+                if kept(name):
+                    add(name, shapes, value,
+                        (loc + px / wh * torch.randn(
+                            loc.shape, device=device, generator=gen,
+                            dtype=loc.dtype)).contiguous(), attn, True)
     return cases
 
 
@@ -183,26 +218,90 @@ def run_gather_case(case, libs, floor_ms) -> dict:
     return res
 
 
-def check_case(case, want) -> dict:
-    """Max abs errors of the loaded library against the plain results
-    `want`; raises outside chip_smoke.py's tolerances."""
+def zeroed_bf16_bwd(lib, value, shapes, loc, attn, grad_out):
+    """The bf16 route of `msda_bwd` as the port's wrapper called it before
+    the C call zeroed its own workspace: the f32 sum in a workspace of
+    value's shape zeroed by torch.zeros, the scatter kernel and its
+    rounding pass from one call of the C entry point `msda_bwd` (dtype
+    1)."""
+    B, S, H, D = value.shape
+    _, Lq, _, L, P, _ = loc.shape
+    work = torch.zeros(value.shape, dtype=torch.float32, device=value.device)
+    grad_value = torch.empty_like(value)
+    grad_loc = torch.empty_like(loc)
+    grad_attn = torch.empty_like(attn)
+    stream = torch.cuda.current_stream(value.device).cuda_stream
+    rc = lib.msda_bwd(
+        value.data_ptr(), loc.data_ptr(), attn.data_ptr(),
+        grad_out.data_ptr(), work.data_ptr(), grad_value.data_ptr(),
+        grad_loc.data_ptr(), grad_attn.data_ptr(), B, S, Lq, H, D, L, P,
+        msda._shapes_arg(shapes), 1, value.device.index, stream)
+    _build.check(lib, rc, "msda_bwd (bf16, a workspace) launch")
+    return grad_value, grad_loc, grad_attn
+
+
+def bwd_call(lib, case, own):
+    """The backward of `case` through the port's wrapper (`own`: the port's
+    library), or for another commit's library in bf16 with a zeroed
+    workspace (to be called inside `_build.use_library(lib)`)."""
     name, value, shapes, loc, attn, g = case
+    if value.dtype == torch.bfloat16 and not own:
+        return lambda: zeroed_bf16_bwd(lib, value, shapes, loc, attn, g)
+    return lambda: msda.msda_bwd(value, shapes, loc, attn, g)
+
+
+def check_case(case, want, bwd) -> dict:
+    """Max abs errors of the loaded library against the plain results
+    `want` (computed in f32 on the same values); raises outside
+    chip_smoke.py's tolerances (check_fwd / check_bwd: a bf16 output within
+    one rounding of the f32 sum)."""
+    name, value, shapes, loc, attn, g = case
+    bf16 = value.dtype == torch.bfloat16
     got = msda.msda_fwd(value, shapes, loc, attn)
     torch.cuda.synchronize()
-    errs = {"fwd": (got - want["fwd"]).abs().max().item()}
-    torch.testing.assert_close(got, want["fwd"], **cs.TOL["f32"],
+    errs = {"fwd": (got.float() - want["fwd"]).abs().max().item()}
+    torch.testing.assert_close(got.float(), want["fwd"],
+                               **cs.TOL[cs.dtype_name(value)],
                                msg=lambda m: f"msda_fwd {name}: {m}")
     if g is not None:
         max_side = max(max(hw) for hw in shapes)
-        got = msda.msda_bwd(value, shapes, loc, attn, g)
+        got = bwd()
         torch.cuda.synchronize()
         for part, a, b in zip(("value", "loc", "attn"), got, want["bwd"]):
-            errs[f"grad_{part}"] = (a - b).abs().max().item()
+            errs[f"grad_{part}"] = (a.float() - b).abs().max().item()
+            rtol = 1e-4 + (2.0 ** -8 if bf16 and part == "value" else 0.0)
             atol = 1e-5 * (max_side if part == "loc" else 1)
             torch.testing.assert_close(
-                a, b, rtol=1e-4, atol=atol,
+                a.float(), b, rtol=rtol, atol=atol,
                 msg=lambda m: f"msda_bwd {name} grad_{part}: {m}")
     return errs
+
+
+def split_call(fn, iters=20) -> dict:
+    """The host's time per call of fn (enqueue, no synchronisation) and the
+    device time per call by kernel name, from the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+            kernels[e.key[:90]] = dict(ms=us / 1e3 / iters,
+                                       per_call=e.count / iters)
+    return dict(host_ms=host_ms, kernels=kernels,
+                device_ms=sum(k["ms"] for k in kernels.values()))
 
 
 def main(argv=None) -> int:
@@ -212,6 +311,10 @@ def main(argv=None) -> int:
                     "commit's msda_fwd.cu, msda_bwd.cu, gather.cu and "
                     "msda_common.cuh")
     ap.add_argument("--only", help="run the cases whose name contains this")
+    ap.add_argument("--dtype", default="f32,bf16",
+                    help="comma-separated value types of the MSDA cases")
+    ap.add_argument("--split", action="store_true",
+                    help="profile each backward call by kernel and host")
     ap.add_argument("--out", default="build/msda_kernel_bench.json")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -231,26 +334,32 @@ def main(argv=None) -> int:
 
     results = []
     with _build.use_library(libs["new"]):
-        cases = collect_cases(args.only)
+        cases = collect_cases(args.only, dtypes=args.dtype.split(","))
     for case in cases:
         name, value, shapes, loc, attn, g = case
         lq = loc.shape[1]
+        elt = value.element_size()
         iters = 10 if lq == value.shape[1] else 50  # encoder / decoder
-        want = {"fwd": msda.ms_deform_attn_plain(value, shapes, loc, attn)}
-        fb, _, rows = cs.msda_bound(msda, loc, shapes=shapes)
-        traffic = cs.cache_traffic(msda, loc, shapes)
-        res = dict(case=name, lq=lq, fwd_bound_ms=fb, value_rows_read=rows,
+        want = {"fwd": msda.ms_deform_attn_plain(value.float(), shapes, loc,
+                                                 attn)}
+        fb, _, rows = cs.msda_bound(msda, loc, elt=elt, shapes=shapes)
+        traffic = cs.cache_traffic(msda, loc, shapes, elt=elt)
+        res = dict(case=name, lq=lq, dtype=cs.dtype_name(value),
+                   fwd_bound_ms=fb, value_rows_read=rows,
                    fwd_cache_bytes=traffic["fwd"], libraries={})
         if g is not None:
-            want["bwd"] = msda.ms_deform_attn_plain_bwd(value, shapes, loc,
-                                                        attn, g)
-            res["bwd_bound_ms"] = cs.msda_bwd_bound(msda, loc,
-                                                    shapes=shapes)[0]
+            want["bwd"] = msda.ms_deform_attn_plain_bwd(
+                value.float(), shapes, loc, attn, g.float())
+            res["bwd_bound_ms"] = cs.msda_bwd_bound(msda, loc, shapes=shapes,
+                                                    elt=elt)[0]
             res["bwd_cache_bytes"] = traffic["bwd"]
+        bwds = {lname: bwd_call(lib, case, lname == "new")
+                for lname, lib in libs.items()}
         for lname, lib in libs.items():
             with _build.use_library(lib):
                 res["libraries"][lname] = dict(
-                    max_abs_err=check_case(case, want), fwd_ms=[], bwd_ms=[])
+                    max_abs_err=check_case(case, want, bwds[lname]),
+                    fwd_ms=[], bwd_ms=[])
         del want
         order = list(libs)
         for turn in (order, order[::-1]):
@@ -260,8 +369,12 @@ def main(argv=None) -> int:
                     r["fwd_ms"].append(cs.cuda_ms(lambda: msda.msda_fwd(
                         value, shapes, loc, attn), iters))
                     if g is not None:
-                        r["bwd_ms"].append(cs.cuda_ms(lambda: msda.msda_bwd(
-                            value, shapes, loc, attn, g), iters))
+                        r["bwd_ms"].append(cs.cuda_ms(bwds[lname], iters))
+        if g is not None and args.split:
+            for lname in order:
+                with _build.use_library(libs[lname]):
+                    res["libraries"][lname]["bwd_split"] = split_call(
+                        bwds[lname])
         line = [f"{name} Lq={lq}: fwd bound {fb:.4f} ms, "
                 f"{traffic['fwd'] / 1e9:.3f} GB from the caches"
                 + (f"; bwd bound {res['bwd_bound_ms']:.4f} ms, "
@@ -275,7 +388,14 @@ def main(argv=None) -> int:
                 txt += (f"; bwd {b_ms:.4f} ms "
                         f"({b_ms / res['bwd_bound_ms']:.1f}x bound, "
                         f"{traffic['bwd'] / b_ms / 1e9:.2f} TB/s)")
-            line.append(txt + f"; turns fwd {r['fwd_ms']} bwd {r['bwd_ms']}")
+            line.append(txt + f"; turns fwd {r['fwd_ms']} bwd {r['bwd_ms']}"
+                        f"; max_abs_err {r['max_abs_err']}")
+            if "bwd_split" in r:
+                sp = r["bwd_split"]
+                line.append(f"      split: host {sp['host_ms']:.4f} ms/call, "
+                            f"device {sp['device_ms']:.4f} ms/call: " + "; "
+                            .join(f"{k} {v['ms']:.4f} ms x{v['per_call']:g}"
+                                  for k, v in sp["kernels"].items()))
         print("\n".join(line), flush=True)
         results.append(res)
 

@@ -35,8 +35,9 @@ use_remat = False
 
 
 def test_collect_training_cases(tmp_path):
-    """Every training case (uniform-random and at the seeded model's own
-    locations) comes back with a gradient, at the canvas's level shapes."""
+    """Every training case (uniform-random, at the seeded model's own
+    locations and at the encoder's moved from them) comes back with a
+    gradient, at the canvas's level shapes."""
     cfg = tmp_path / "tiny_c2f.py"
     cfg.write_text(TINY_C2F.format(base=ROOT / cs.C2F, nq=NQ, dn=DN,
                                    pad=PAD))
@@ -56,7 +57,15 @@ def test_collect_training_cases(tmp_path):
         cases = bench.collect_cases("training", device="cpu")
     names = [c[0] for c in cases]
     assert names == [f"training {p} {kind}" for kind in ("random", "model")
-                     for p in ("encoder", "decoder_src", "decoder_tgt")]
+                     for p in ("encoder", "decoder_src", "decoder_tgt")] + [
+        f"training encoder moved{px}px" for px in bench.MOVED_PX]
+    model = cases[3]
+    wh = torch.tensor([(w, h) for h, w in shapes], dtype=torch.float32)
+    for px, case in zip(bench.MOVED_PX, cases[6:]):
+        assert case[1] is model[1] and case[4] is model[4]  # value, attn
+        # moved by px pixels of each level, in the spread of a normal draw
+        moved = ((case[3] - model[3]) * wh[:, None, :] / px).std().item()
+        assert 0.9 < moved < 1.1, (px, moved)
     for name, value, got_shapes, loc, attn, g in cases:
         assert got_shapes == shapes, name
         assert value.shape[1] == sum(h * w for h, w in shapes), name

@@ -330,6 +330,95 @@ def test_msda_bwd_bf16_takes_misaligned_value(cuda, d):
     _assert_bwd_bf16_close(got, value, SHAPES, loc, attn, g)
 
 
+# The bf16 backward at encoder-like sizes: every token of a 4-level image a
+# query (or a sequence-parallel rank's half of them), long enough that the
+# split kernel takes the launch (D = 32, 16-byte aligned rows, runs of
+# queries a warp: B * Lq * H / 16 is at least twice the blocks 132 SMs hold
+# at 8 heads and at 4).
+ENC_SHAPES = ((96, 160), (48, 80), (24, 40), (12, 20))
+ENC_S = sum(hh * w for hh, w in ENC_SHAPES)  # 20,400 tokens
+
+
+def _encoder_loc(tokens, h, p, shapes, seed):
+    """[2, len(tokens), h, L, p, 2] locations as an encoder's queries take
+    them: token t (levels in order) samples each level at its own pixel's
+    centre plus (point + 1) pixels along its head's direction (DINO's
+    initial offsets), moved by up to 0.3 of a pixel, so consecutive
+    queries share cells on the coarser levels."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = torch.device("cuda")
+    sizes = torch.tensor([hh * w for hh, w in shapes], device=dev)
+    starts = torch.cumsum(sizes, 0) - sizes
+    lvl = (torch.searchsorted(torch.cumsum(sizes, 0), tokens, right=True))
+    ws = torch.tensor([w for _, w in shapes], device=dev)
+    hs = torch.tensor([hh for hh, _ in shapes], device=dev)
+    i = tokens - starts[lvl]
+    ref = torch.stack([(i % ws[lvl] + 0.5) / ws[lvl],
+                       (i // ws[lvl] + 0.5) / hs[lvl]], -1).float()
+    theta = torch.arange(h, device=dev) * (2 * torch.pi / h)
+    d = torch.stack([theta.cos(), theta.sin()], -1)
+    d = d / d.abs().max(-1, keepdim=True).values  # [h, 2]
+    steps = torch.arange(1, p + 1, device=dev, dtype=torch.float32)
+    wh = torch.stack([ws, hs], -1).float()  # [L, 2]
+    off = d[:, None, None, :] * steps[None, None, :, None] / wh[None, :, None]
+    jitter = (torch.rand(2, len(tokens), h, len(shapes), p, 2, device=dev,
+                         generator=g) - 0.5) * 0.6 / wh[None, None, None, :,
+                                                        None]
+    loc = ref[None, :, None, None, None, :] + off[None, None] + jitter
+    return loc.contiguous()
+
+
+@pytest.mark.parametrize("case,h,lq", [
+    ("local", 8, ENC_S),  # merged runs: consecutive queries share rows
+    ("spread", 8, ENC_S),  # uniform-random: every corner its own row
+    ("borders", 8, ENC_S),  # outside corners, level borders
+    ("local", 4, ENC_S),  # a tensor-parallel rank's 4 heads
+    ("offset_half", 8, ENC_S // 2),  # a sequence-parallel rank's queries
+    ("local", 8, ENC_S - 13),  # a ragged last run
+])
+def test_msda_bwd_bf16_encoder_sizes(cuda, case, h, lq):
+    """The split kernel's launches against the plain version at one bf16
+    rounding (and check_bwd's f32 tolerances for grad_loc / grad_attn)."""
+    value = torch.randn(2, ENC_S, h, 32, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(
+                            4)).to(torch.bfloat16)
+    first = ENC_S - lq if case == "offset_half" else 0
+    tokens = torch.arange(first, first + lq, device="cuda")
+    n_l = len(ENC_SHAPES)
+    if case in ("spread", "borders"):
+        loc = torch.rand(2, lq, h, n_l, 4, 2, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(
+                             5))
+        loc = (loc * 1.6 - 0.3) if case == "borders" else loc
+    else:
+        loc = _encoder_loc(tokens, h, 4, ENC_SHAPES, seed=5)
+    attn = torch.rand(2, lq, h, n_l, 4, device="cuda")
+    attn = (attn / attn.sum((-1, -2), keepdim=True)).contiguous()
+    g = _grad_out(lq, h, 32).to(torch.bfloat16)
+    before = msda.msda_bwd.launches
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        got = msda.msda_bwd(value, ENC_SHAPES, loc.contiguous(), attn, g)
+        torch.cuda.synchronize()
+    assert msda.msda_bwd.launches == before + 1
+    ran = [e.key for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert any("msda_bwd_bf16_split_kernel" in k for k in ran), ran
+    _assert_bwd_bf16_close(got, value, ENC_SHAPES, loc, attn, g)
+
+
+def test_msda_bwd_bf16_no_queries(cuda):
+    """Lq = 0: grad_value comes back all zeros in bf16 (the entry point
+    still zeroes and rounds its workspace), grad_loc / grad_attn empty."""
+    value, loc, attn, g = _bf16_case(0, 4, 32, 2, "random")
+    value.fill_(1.0)
+    got = msda.msda_bwd(value, SHAPES, loc, attn, g)
+    torch.cuda.synchronize()
+    assert got[0].dtype == torch.bfloat16 and got[0].shape == value.shape
+    assert torch.count_nonzero(got[0]) == 0
+    assert got[1].numel() == got[2].numel() == 0
+
+
 def test_dispatcher_on_cuda_keeps_the_bf16_gradient(cuda):
     """ms_deform_attn on bf16 CUDA values: the gradients through msda_bwd
     come back in the leaves' dtypes (value bf16, loc / attn f32)."""
