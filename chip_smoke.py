@@ -146,7 +146,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      12 segm stats, img/s, the host finish's time); train_one_epoch_plain
      on the tree through make_single_loader with return_masks (800x1344,
      batch 2, use_remat: the mask head's chunks recomputed in the
-     backward; warm-up + 3 timed steps, 24 / 12 launches per step, s/step,
+     backward; warm-up + 1 timed step, 24 / 12 launches per step, s/step,
      peak memory, loss_mask / loss_dice finite), one step through the
      kernels against the plain step (phase 5's check: losses 1e-3
      relative, every gradient, the mask head's too, 1e-3 by norm);
@@ -169,7 +169,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      patched in, and the OpenMP build; `python -m
      datr_torch.tools.benchmark` on the flagship at 800x1344, batch 1;
   13. data parallelism across processes on the one card (runs after 7,
-     before 8): a. the C2F burn-in config at full width on 2 spawned ranks
+     before 8): a. the C2F burn-in config at full width (depth 2 + 2,
+     `DIST_DEPTH`, in d's checkpoint too) on 2 spawned ranks
      over gloo with CUDA tensors (NCCL refuses two ranks on one device),
      1 + 1 images per rank; the DDP step against the one-process step on
      the whole 2 + 2 batch (each rank runs that in turn with the package's
@@ -181,7 +182,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      FSDP burn-in step from the same weights, batch and CDN draws, its
      parameters within 2 lr of DDP's, the bytes each rank holds beside
      DDP's; c. engine.evaluate(segm=True) of phase 11's masks model on 4
-     fogged frames over the 2 ranks (equal stats on both, within 1e-3 of
+     fogged frames, 10 detections an image (`DIST_EVAL_SELECT`), over the
+     2 ranks (equal stats on both, within 1e-3 of
      the one-process evaluate's, detections within phase 6's tolerances);
      d. the FSDP state saved sharded (torch.distributed.checkpoint) and
      loaded into one process by load_resume, its forward bitwise the
@@ -195,6 +197,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      model at full width, depth cut to 2 + 2 layers: gloo's host-staged
      collectives of each layer's activations set these steps' time),
      serving with tp = 2 (the flagship, full depth) (`run_model_axes`);
+     14d's state after its step saved sharded, loaded on the same 4 ranks
+     as dp 1 x tp 4 and into one process: the whole state (parameters,
+     AdamW moments, EMA tracks, prototype state) bitwise by its bits, the
+     one process's forward bitwise that of the whole student the ranks
+     gathered;
   15. the tools and the float64 mode (runs after 14, before 8): a. a
      reference-layout .pth of the flagship (full width, random, `module.`
      prefixes and an `args` Namespace) through
@@ -219,8 +226,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
      the plain f64 forward (phase 3's tolerances times 2^-29, f64's epsilon
      over f32's), its ms, and the f32 forward's distance from it (a
      finding); one f64 C2F burn-in step at 800x1344 (48 / 24 launches);
+  16. distillation and every PNG kind (runs after 15, before 8): `python
+     -m datr_torch.tools.distill_retention` in a process of its own at
+     flagship width (hidden 256, 6 + 6 layers, R50, bf16 + remat, 320x640,
+     2 + 2 images a step): a 4-point teacher's 4 burn-in steps, a 2-point
+     student's 2 burn-in and 2 distillation steps labelled by that
+     teacher, each evaluated; every phase's launches against the count
+     derived from the model (48 / 24 per burn-in step, 60 / 24 per
+     distillation step, 12 per evaluation batch), its step times, AP50 in
+     [0, 1]; in this process msda_fwd / msda_bwd at the 2-point student's
+     own bf16 training locations against their plain versions, timed
+     beside their bounds; one bf16 step of that student through the
+     kernels against the plain step (phase 8's floor and control), one
+     step of it computing in f32 (phase 5's 1e-3); a seeded 1024x2048
+     frame as 8-bit, 16-bit and Adam7 PNGs decoded on the host bitwise to
+     PIL, each timed, and all 30 PNG kinds (colour type x bit depth x
+     interlace) at 37x53;
   the result: the wall time of each phase, a {"kernels": [...]} line,
      the card line, and as the last line {"ok": true, "device": {...}}.
+Each seeded model is drawn on the host once per architecture and seed in a
+process: a later build copies the drawn tensors (`memoize_seeded_inits`;
+bitwise the same weights; the smoke builds the flagship some 40 times).
 Imports nothing of JAX or datr_tpu. Needs one CUDA card; fails without one.
 """
 
@@ -261,6 +287,64 @@ TOL = {"f32": dict(rtol=1e-4, atol=1e-5),
 
 def log(*a):
     print(*a, flush=True)
+
+
+# the seeded inits the smoke drew, by architecture and seed (LRU)
+_SEEDED_INITS: "dict" = {}
+SEEDED_INIT_ENTRIES = 12
+
+
+def _init_key(model, generator):
+    """What DINO.init_params' draws depend on: the generator's seed and the
+    module tree (each module's type, its scalar settings but its compute
+    dtype and remat, its parameters' and buffers' names and shapes); None
+    if the generator has drawn already."""
+    fresh = torch.Generator().manual_seed(generator.initial_seed())
+    if not torch.equal(generator.get_state(), fresh.get_state()):
+        return None
+    mods = tuple((name, type(m).__name__, tuple(sorted(
+        (k, v) for k, v in vars(m).items()
+        if not k.startswith("_")
+        and k not in ("dtype", "training", "use_remat", "fast_norm")
+        and isinstance(v, (bool, int, float, str, tuple)))))
+        for name, m in model.named_modules())
+    tensors = tuple((n, tuple(t.shape)) for n, t in (
+        *model.named_parameters(), *model.named_buffers()))
+    return generator.initial_seed(), mods, tensors
+
+
+def memoize_seeded_inits():
+    """DINO.init_params, memoized for this process: a model whose
+    architecture and seed were drawn before gets a copy of those tensors
+    (init_params is deterministic in them: bitwise the same model) instead
+    of drawing them again on the host, which takes seconds a model; the
+    smoke builds the flagship some 40 times."""
+    from datr_torch.models import dino as dino_mod
+
+    draw = dino_mod.DINO.init_params
+    if getattr(draw, "memoized", False):
+        return
+
+    @torch.no_grad()
+    def init_params(self, generator):
+        key = _init_key(self, generator)
+        hit = _SEEDED_INITS.pop(key, None) if key is not None else None
+        if hit is None:
+            draw(self, generator)
+            if key is None:
+                return self
+            hit = {n: t.detach().clone() for n, t in (
+                *self.named_parameters(), *self.named_buffers())}
+        else:
+            for n, t in (*self.named_parameters(), *self.named_buffers()):
+                t.copy_(hit[n])
+        _SEEDED_INITS[key] = hit  # the most recent last
+        while len(_SEEDED_INITS) > SEEDED_INIT_ENTRIES:
+            _SEEDED_INITS.pop(next(iter(_SEEDED_INITS)))
+        return self
+
+    init_params.memoized = True
+    dino_mod.DINO.init_params = init_params
 
 
 def card_line() -> str:
@@ -2887,7 +2971,7 @@ def run_backbone_training(msda, card, config, **overrides) -> dict:
     warm = train_one_epoch_plain(state, batches[:1], ccfg, wd)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    steps = batches[1:]
+    steps = batches[1:2]
     r = timed_epoch(msda, lambda: train_one_epoch_plain(state, steps, ccfg,
                                                         wd), len(steps))
     metrics = r.pop("metrics")
@@ -3358,7 +3442,7 @@ def run_masks_eval(msda, card, root) -> dict:
 def run_masks_training(msda, card, root) -> dict:
     """train_one_epoch_plain of the flagship with masks (800x1344, batch
     2, use_remat) over the tree's train split through make_single_loader
-    with return_masks: a warm-up step and 3 timed steps, then one step
+    with return_masks: a warm-up step and 1 timed step, then one step
     against the plain step."""
     from datr_torch.data.coco import build_dataset
     from datr_torch.data.loader import make_single_loader, to_device
@@ -3389,7 +3473,7 @@ def run_masks_training(msda, card, root) -> dict:
     warm = train_one_epoch_plain(state, batches[:1], ccfg, wd)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    steps = batches[1:]
+    steps = batches[1:2]
     r = timed_epoch(msda, lambda: train_one_epoch_plain(state, steps, ccfg,
                                                         wd), len(steps))
     metrics = r.pop("metrics")
@@ -3715,8 +3799,13 @@ def run_registry_and_host(msda, card, host_build) -> dict:
 DIST_WORLD = 2  # ranks sharing the one card over gloo (NCCL refuses that)
 DIST_STEPS = 1  # timed burn-in steps per rank, after a warm-up step
 DIST_ST_STEPS = 1  # self-training steps per rank
-DIST_EVAL_IMAGES, DIST_EVAL_SELECT = 4, 20  # the host mask finish
+# the host's mask finish (~90 ms a detection) sets 13c's time
+DIST_EVAL_IMAGES, DIST_EVAL_SELECT = 4, 10
 DIST_SERVE_REQUESTS = 6
+# the C2F model's depth on phase 13's ranks and in its checkpoint (full
+# width), as phase 14's: the smoke must fit its limit on the card's
+# slowest hosts
+DIST_DEPTH = dict(enc_layers=2, dec_layers=2)
 
 
 def _rank_device() -> torch.device:
@@ -3744,6 +3833,7 @@ def _dist_entry(rank, world, tmp, task, kwargs):
         os.path.join(tmp, f"{task}.store"), world))
     try:
         _build.load_library()
+        memoize_seeded_inits()
         out = globals()[task](rank, world, tmp, **kwargs)
         torch.save(out, os.path.join(tmp, f"{task}.rank{rank}.pt"))
     finally:
@@ -3777,13 +3867,17 @@ def _on(batch, device):
 
 
 def _bits_of(tensors) -> torch.Tensor:
-    """Two int64 sums of the bit patterns of f32 tensors (plain and
-    position-weighted): equal on two ranks only if (but for a vanishing
-    chance) the tensors are bitwise equal."""
-    flat = torch.cat([t.detach().reshape(-1) for t in tensors])
-    b = flat.view(torch.int32).to(torch.int64)
-    w = torch.arange(b.numel(), device=b.device) % 65521 + 1
-    return torch.stack([b.sum(), (b * w).sum()])
+    """Two int64 sums of the bit patterns of f32 tensors, taken as one
+    flat sequence (plain and position-weighted): equal on two ranks only
+    if (but for a vanishing chance) the tensors are bitwise equal."""
+    total, pos = None, 0
+    for t in tensors:
+        b = t.detach().reshape(-1).view(torch.int32).to(torch.int64)
+        w = (torch.arange(b.numel(), device=b.device) + pos) % 65521 + 1
+        part = torch.stack([b.sum(), (b * w).sum()])
+        total = part if total is None else total + part.to(total.device)
+        pos += b.numel()
+    return total
 
 
 def _bits(state) -> torch.Tensor:
@@ -3892,7 +3986,8 @@ def dist_train(rank, world, tmp):
 
     dev = _rank_device()
     out = {}
-    state, ccfg, wd, cfg = c2f_train_state(DIST_STEPS + 1, seed=0)
+    state, ccfg, wd, cfg = c2f_train_state(DIST_STEPS + 1, seed=0,
+                                           **DIST_DEPTH)
     model = state.model
     n_msda = sum(isinstance(m, MSDeformAttn) for m in model.modules())
     remat = 2 if model.use_remat else 1
@@ -4013,7 +4108,8 @@ def dist_train(rank, world, tmp):
 
     log(f"  rank {rank}: DDP steps done")
     # ---- b: FSDP, one burn-in step from the same weights, batch, draws
-    state, ccfg, wd, cfg = c2f_train_state(DIST_STEPS + 1, seed=0)
+    state, ccfg, wd, cfg = c2f_train_state(DIST_STEPS + 1, seed=0,
+                                           **DIST_DEPTH)
     shard_train_state(state, fsdp=True)
     # a's step under FSDP, before any update: its losses and its gradients
     # (reduce-scattered, then gathered) against DDP's
@@ -4274,14 +4370,16 @@ def run_distributed(msda, card, cli_ref) -> dict:
 
         # ---- d: the ranks' sharded save into one process
         log("  --- 13d: the sharded checkpoint into one process")
-        state, _, _, _ = c2f_train_state(DIST_STEPS + 1, seed=5)
+        state, _, _, _ = c2f_train_state(DIST_STEPS + 1, seed=5,
+                                           **DIST_DEPTH)
         t0 = time.perf_counter()
         state, start, meta = ckpt.load_resume(os.path.join(tmp, "sharded"),
                                               state)
         load_s = time.perf_counter() - t0
         # the loaded student's forward against the forward, in this
         # process, of the student the ranks held (gathered before the save)
-        saved, _, _, _ = c2f_train_state(DIST_STEPS + 1, seed=6)
+        saved, _, _, _ = c2f_train_state(DIST_STEPS + 1, seed=6,
+                                           **DIST_DEPTH)
         saved.model.load_state_dict(torch.load(
             os.path.join(tmp, "student.pt"), weights_only=True))
         b = _on(tr[0]["batch"], _rank_device())
@@ -4469,6 +4567,42 @@ def _tp_whole(model, name, t):
 
     split = getattr(model, "tp_plan", {}).get(name)
     return t if split is None else whole_tensor(t, split)
+
+
+def _whole_state_bits(state, student=None) -> torch.Tensor:
+    """`_bits_of` the whole state, in parameter-name order: the student's
+    parameters, its AdamW moments and the EMA tracks' parameters, each
+    gathered whole (FSDP's shards over 'data', tensor parallelism's over
+    'model'; every rank calls this), then the prototype state. One
+    process passes plain tensors through. `student` (a dict) receives the
+    student's whole parameters on the host."""
+    from datr_torch.train.state import EMA_TRACKS
+
+    def whole(module, name, t):
+        return _tp_whole(module, name, _gathered(t, "data"))
+
+    model = state.model
+    params = dict(model.named_parameters())
+    moments = {n: state.optimizer.opt.state[p] for n, p in params.items()
+               if p in state.optimizer.opt.state}
+
+    def tensors():
+        for name, p in params.items():
+            t = whole(model, name, p)
+            if student is not None:
+                student[name] = t.cpu()
+            yield t
+        for name in sorted(moments):
+            for k in ("exp_avg", "exp_avg_sq"):
+                yield whole(model, name, moments[name][k])
+        for track in EMA_TRACKS:
+            m = getattr(state, track)
+            for name, p in m.named_parameters():
+                yield whole(m, name, p)
+        yield state.global_proto
+        yield state.amount
+
+    return _bits_of(tensors()).cpu()
 
 
 def _axes_grads(state) -> dict:
@@ -4769,7 +4903,11 @@ def axes_four(rank, world, tmp):
     """Phase 14 d on four ranks: data 2 x model 2 with FSDP over 'data'
     (each data shard 1 + 1 images): the burn-in step against the
     reference (its losses the data shards' mean, its gradients gathered
-    whole), then one timed step."""
+    whole), then one timed step; the state after it saved sharded (and
+    its whole student by rank 0), then loaded on the same ranks as dp 1 x
+    tp 4, its whole state's bits against the saved state's."""
+    import copy
+
     import torch.distributed as dist
 
     from datr_torch.models.cdn import CdnDraws
@@ -4783,6 +4921,7 @@ def axes_four(rank, world, tmp):
         shard_batch,
         shard_train_state,
     )
+    from datr_torch.train import checkpoint as ckpt
     from datr_torch.train.steps import loss_and_grads, train_step_burnin
 
     t_part = time.perf_counter()
@@ -4792,9 +4931,10 @@ def axes_four(rank, world, tmp):
     make_mesh(dev.type, tp=2)
     d, n, me = (pdist.process_index(), pdist.process_count(),
                 pdist.process_index("model"))
-    state, ccfg, wd, _ = c2f_train_state(AXES_STEPS + 1, seed=0,
-                                         **AXES_DEPTH)
+    state, ccfg, wd, cfg = c2f_train_state(AXES_STEPS + 1, seed=0,
+                                           **AXES_DEPTH)
     model = state.model
+    pristine = copy.deepcopy(model)  # the layout 14d's load fills
     n_msda = sum(isinstance(m, MSDeformAttn) for m in model.modules())
     remat = 2 if model.use_remat else 1
     shard_train_state(state, fsdp=True)
@@ -4822,8 +4962,33 @@ def axes_four(rank, world, tmp):
                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
                model_bytes=local_bytes(model),
                ema_bytes=local_bytes(state.ema_teacher),
-               moment_bytes=optimizer_local_bytes(state.optimizer),
-               wall_s=time.perf_counter() - t_part)
+               moment_bytes=optimizer_local_bytes(state.optimizer))
+    # the state after the step, saved sharded (every FSDP piece of a
+    # rank's MHA in_proj rows crosses a q / k / v boundary at d = 256),
+    # then loaded on dp 1 x tp 4: bitwise
+    path = os.path.join(tmp, "axes_fsdp")
+    dist.barrier()
+    t0 = time.perf_counter()
+    ckpt.save_checkpoint_sharded(path, state, 0, extra={"mesh": "dp2xtp2"})
+    out["save_s"] = time.perf_counter() - t0
+    student = {}
+    out["saved_bits"] = _whole_state_bits(state, student)
+    student.update((name, b.cpu()) for name, b in model.named_buffers())
+    if rank == 0:  # the whole student, for the one process's forward
+        torch.save(student, path + "_student.pt")
+    del state, model, student
+    _free()
+    make_mesh(dev.type, tp=4)
+    tp4 = _fresh_state(pristine, cfg)
+    shard_train_state(tp4)
+    t0 = time.perf_counter()
+    tp4, meta = ckpt.load_checkpoint_sharded(path, tp4)
+    out["tp4_load_s"] = time.perf_counter() - t0
+    out["tp4_bits"] = _whole_state_bits(tp4)
+    out["tp4_meta"], out["tp4_step"] = meta, tp4.step
+    assert torch.equal(out["tp4_bits"], out["saved_bits"]), out
+    assert meta == {"epoch": 0, "mesh": "dp2xtp2"} and tp4.step == 1, meta
+    out["wall_s"] = time.perf_counter() - t_part
     log(f"  rank {rank}: 14d {out}")
     return out
 
@@ -4903,6 +5068,31 @@ def run_model_axes(msda, card) -> dict:
         assert ranks_diff["pred_logits"] <= 1e-3, ranks_diff
         assert ranks_diff["pred_boxes"] <= 1e-4, ranks_diff
         assert meta == {"epoch": 0, "tp": 2}, meta
+
+        log("  --- 14d: the dp 2 x tp 2 FSDP save into one process")
+        path = os.path.join(tmp, "axes_fsdp")
+        t0 = time.perf_counter()
+        state, meta = ckpt.load_checkpoint_sharded(path, state)
+        load_s = time.perf_counter() - t0
+        bits = _whole_state_bits(state)
+        saved.model.load_state_dict(torch.load(path + "_student.pt",
+                                               weights_only=True))
+        with torch.no_grad():
+            fwd = state.model.eval()(b["images"], b["pad_mask"])
+            want = saved.model.eval()(b["images"], b["pad_mask"])
+        same = {k: torch.equal(fwd[k], want[k]) for k in keys}
+        out["fsdp_checkpoint"] = dict(
+            save_s=[r["save_s"] for r in four],
+            tp4_load_s=[r["tp4_load_s"] for r in four], load_s=load_s,
+            state_bitwise=all(torch.equal(bits, r["saved_bits"])
+                              for r in four),
+            tp4_bitwise=all(torch.equal(r["tp4_bits"], r["saved_bits"])
+                            for r in four),
+            forward_bitwise=same, meta=meta, step=state.step)
+        log(f"  14d checkpoint: {out['fsdp_checkpoint']}")
+        assert out["fsdp_checkpoint"]["state_bitwise"], out["fsdp_checkpoint"]
+        assert all(same.values()) and state.step == 1, same
+        assert meta == {"epoch": 0, "mesh": "dp2xtp2"}, meta
         del state, saved, fwd, want, held
         _free()
 
@@ -5352,6 +5542,153 @@ def run_tools(msda, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 16
+
+# the distillation tool's run: 4 teacher steps, 2 + 2 student steps, the
+# fog val set's 2 images in 1 batch per evaluation (flagship width, bf16 +
+# remat, 320x640, 2 + 2 images a step)
+DISTILL_ARGS = ("--steps", "4", "--images", "8", "--val_images", "2")
+
+
+def distill_launches(recs, n_msda, remat, eval_batches) -> dict:
+    """The tool's launches by phase against those derived from the model:
+    per burn-in step 2 passes x n_msda forward launches (again in remat's
+    recompute) and 2 x n_msda backward; a distillation step adds the
+    4-point teacher's forward (n_msda); an evaluation n_msda per batch."""
+    per_step = {"teacher": (2 * n_msda * remat, 2 * n_msda),
+                "student_burnin": (2 * n_msda * remat, 2 * n_msda),
+                "student_distill": (2 * n_msda * remat + n_msda,
+                                    2 * n_msda)}
+    out = {}
+    for r in recs:
+        phase = r.get("phase")
+        if phase in per_step and "train_s" in r:
+            want = tuple(v * r["steps"] for v in per_step[phase])
+            got = (r["msda_fwd_launches"], r["msda_bwd_launches"])
+            assert got == want, (phase, got, want)
+            out[phase] = dict(launches=got, per_step=per_step[phase],
+                              steps=r["steps"], step_s=r["step_s"],
+                              first_step_s=r["first_step_s"])
+        elif phase and phase.endswith("_eval"):
+            assert r["msda_fwd_launches"] == n_msda * eval_batches, r
+            out[phase] = dict(launches=(r["msda_fwd_launches"], 0),
+                              ap50=r["ap50"])
+    assert set(out) == {"teacher", "teacher_eval", "student_burnin",
+                        "student_distill", "student_eval"}, sorted(out)
+    return out
+
+
+def run_png_kinds() -> dict:
+    """A seeded 1024x2048 frame as 8-bit RGB, as 16-bit RGB (its high
+    bytes the frame, its low bytes seeded) and as Adam7-interlaced 8-bit
+    RGB PNGs, each decoded on the host by data/png.py bitwise to PIL's
+    convert("RGB") (and to the frame itself), timed beside PIL (one
+    thread, the median of 3); then every colour type at every bit depth,
+    plain and Adam7, at 37x53, bitwise to PIL."""
+    from PIL import Image
+
+    from datr_torch.data import png
+    from datr_torch.tools import serve_bench
+
+    frame = serve_bench.synthetic_frames(1, FRAME_HW, seed=16)[0]
+    low = np.random.default_rng(16).integers(0, 256, frame.shape, np.uint16)
+    bodies = {"rgb8": png.encode_png(frame),
+              "rgb16": png.encode_png((frame.astype(np.uint16) << 8) | low,
+                                      depth=16),
+              "rgb8_adam7": png.encode_png(frame, interlace=True)}
+    out = {}
+    for name, body in bodies.items():
+        got = png.decode_png_rgb(body)
+        with Image.open(io.BytesIO(body)) as im:
+            want = np.asarray(im.convert("RGB"))
+        assert np.array_equal(got, want) and np.array_equal(got, frame), name
+        out[name] = dict(mb=len(body) / 1e6,
+                         decode_ms=host_ms(lambda: png.decode_png_rgb(body),
+                                           3),
+                         pil_ms=host_ms(lambda: np.asarray(Image.open(
+                             io.BytesIO(body)).convert("RGB")), 3))
+    # every colour type x bit depth x interlace at a small odd size
+    rng = np.random.default_rng(17)
+    kinds = []
+    for ctype, depths in png.DEPTHS.items():
+        for depth, interlace in ((d, i) for d in depths for i in (0, 1)):
+            px = rng.integers(0, 1 << depth, (37, 53, png.CHANNELS[ctype]))
+            px = px.astype(np.uint16 if depth == 16 else np.uint8)
+            pal = None
+            if ctype == 3:
+                px, pal = px[..., 0], rng.integers(0, 256, (3, 3), np.uint8)
+            body = png.encode_png(px, pal, depth=depth, interlace=interlace)
+            with Image.open(io.BytesIO(body)) as im:
+                want = np.asarray(im.convert("RGB"))
+            assert np.array_equal(png.decode_png_rgb(body), want), (
+                ctype, depth, interlace)
+            kinds.append((ctype, depth, interlace))
+    out["kinds_bitwise"] = len(kinds)
+    log(f"  PNG kinds at {FRAME_HW}, bitwise to PIL: {out}")
+    return out
+
+
+def run_distill_tools(msda, card) -> dict:
+    """Phase 16: `python -m datr_torch.tools.distill_retention` at
+    flagship width in a process of its own (a 4-point teacher, a 2-point
+    student burnt in and distilled, each evaluated): the launches of each
+    phase against the count derived from the model, its step times; then,
+    in this process, the kernels at the 2-point student's own training
+    locations against their plain versions (timed beside their bounds),
+    one bf16 step of the student through the kernels against the plain
+    step (phase 8's floor and control), one f32 step (phase 5's 1e-3);
+    last the PNG kinds on the host."""
+    from datr_torch.data.coco import DAPairedDataset
+    from datr_torch.data.loader import to_device
+    from datr_torch.models.layers import MSDeformAttn
+    from datr_torch.tools import distill_retention as dr
+    from datr_torch.train.steps import loss_and_grads
+
+    out = {}
+    t0 = time.perf_counter()
+    recs = tool_json(["datr_torch.tools.distill_retention", *DISTILL_ARGS])
+    out["tool_wall_s"] = time.perf_counter() - t0
+    result = recs[-1]
+    assert {"retention", "ap50_teacher", "ap50_student"} <= set(result)
+    assert all(0.0 <= result[k] <= 1.0 for k in ("ap50_teacher",
+                                                 "ap50_student")), result
+    args = dr.get_args_parser().parse_args(list(DISTILL_ARGS))
+    dev = torch.device("cuda")
+    ns = dr.setup(args, dev)
+    student = ns.make_model(2, seed=10)
+    n_msda = sum(isinstance(m, MSDeformAttn) for m in student.modules())
+    remat = 2 if student.use_remat else 1
+    out["phases"] = distill_launches(recs, n_msda, remat,
+                                     -(-args.val_images // args.batch))
+    out["result"] = result
+    log(f"  the tool ({out['tool_wall_s']:.1f} s): {out['phases']}; "
+        f"{result}")
+
+    batch = to_device(next(iter(ns.loader(
+        DAPairedDataset(ns.clear, ns.fog), 0, 1))), dev, dr.BURNIN_KEYS)
+    state = ns.init_state(student, seed=10)
+    calls = training_msda_calls(msda, state, batch)
+    enc_lq = max(calls)
+    pad = 2 * student.dn_single_pad * (student.dn_number
+                                       // student.dn_single_pad)
+    parts = dict(encoder=enc_lq, decoder_src=student.num_queries + pad,
+                 decoder_tgt=student.num_queries)
+    out["p2_bf16_model_locations"] = check_model_locations(
+        msda, calls, parts, calls[enc_lq][1], backward=True)
+    del calls
+    def run(d):
+        return loss_and_grads(state, batch, ns.ccfg, ns.wd, d)[:2]
+
+    out["bf16_step"] = check_step_against_plain(state, run, msda,
+                                                **BF16_STEP_TOL)
+    with computed_in_f32(student):  # the same student, f32 throughout
+        out["f32_step"] = check_step_against_plain(state, run, msda)
+    del state, student
+    _free()
+    out["png"] = run_png_kinds()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
@@ -5359,6 +5696,7 @@ def main() -> int:
         return 1
     from datr_torch.ops import _build, msda
 
+    memoize_seeded_inits()
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     phase_s, t_phase = {}, [time.perf_counter()]
@@ -5508,6 +5846,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done("15")
 
+    log("phase 16: the distillation tool at flagship width (a 4-point "
+        "teacher, a 2-point student burnt in and distilled) in its own "
+        "process, the 2-point student's bf16 and f32 steps against the "
+        "plain steps, every PNG kind against PIL")
+    ds = run_distill_tools(msda, card)
+    log("distill " + json.dumps(dict(ds, card=card), default=str))
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("16")
+
     log("phase 8: bfloat16: the kernels in bf16 against their plain "
         "versions (5 levels and P = 2 in both dtypes), the flagship server "
         "(fast_norm off, on), DINO_5scale and DINO_4scale_fast, C2F burn-in, "
@@ -5651,6 +5999,19 @@ def main() -> int:
     tl_bwd = {"train_bench": tl["train_bench"]["msda_bwd_launches"],
               "profile_burnin_step_process": tl["profile"]["burnin_step"][
                   "msda_bwd_launches"]}
+    # phase 16: the distillation tool's process (its own counts from 0):
+    # the teacher's and the student's steps, the three evaluations
+    ds_launches = [v["launches"] for v in ds["phases"].values()]
+    ds_fwd, ds_bwd = (sum(n[i] for n in ds_launches) for i in (0, 1))
+    dsm = ds["p2_bf16_model_locations"]
+    # per bf16 training step of the 2-point student: 12 encoder launches
+    # (2 passes x 6 layers) and 6 per decoder pass; forward again in remat
+    ds_step = {"fwd": {k2: 2 * per_train_step(dsm, key, 12, 6) for k2, key
+                       in (("ms", "fwd_ms"), ("plain_ms", "fwd_plain_ms"),
+                           ("bound_ms", "fwd_bound_ms"))},
+               "bwd": {k2: per_train_step(dsm, key, 12, 6) for k2, key in
+                       (("ms", "bwd_ms"), ("plain_ms", "bwd_plain_ms"),
+                        ("bound_ms", "bwd_bound_ms"))}}
     f64r, f64m = f64["random"], f64["model_locations"]
     # the kernels at the model axes' shapes: a tp rank's encoder and
     # decoder calls (4 heads), an sp rank's encoder call (Lq = S / 2)
@@ -5667,7 +6028,8 @@ def main() -> int:
                      + cl["launches"]["msda_fwd"] + sv["launches"]
                      + sum(bb_fwd.values()) + sum(mk_fwd.values())
                      + sum(rh_fwd.values()) + sum(dp_fwd.values())
-                     + sum(ax_fwd.values()) + sum(tl_fwd.values())),
+                     + sum(ax_fwd.values()) + sum(tl_fwd.values())
+                     + ds_fwd),
         "launches_by_path": {"serving": s["launches"],
                              "training": tr["launches"]["msda_fwd"],
                              "self_training": st["launches"]["msda_fwd"],
@@ -5675,7 +6037,7 @@ def main() -> int:
                              "cli": cl["launches"]["msda_fwd"],
                              "serving_surface": sv["launches"], **bb_fwd,
                              **mk_fwd, **rh_fwd, **dp_fwd, **ax_fwd,
-                             **tl_fwd},
+                             **tl_fwd, "distill_tool_process": ds_fwd},
         # phase 14: per step on each tp rank (2 + 2 images, 4 heads)
         "launches_per_tp_step_per_rank": ar[0]["tp"]["burnin_launches"][0][0],
         "launches_per_pp_step_per_rank": ar[0]["pp"]["launches"][0],
@@ -5737,6 +6099,12 @@ def main() -> int:
         "per_launch_bf16_model": bsm,
         "per_launch_train_bf16_model": btm,
         "per_launch_train_bf16": bt,
+        # phase 16: the 2-point student's bf16 training launches at its
+        # own locations (320x640, 2 + 2 images), per launch and per step
+        "launches_per_distill_step": ds["phases"]["student_distill"][
+            "per_step"][0],
+        "per_launch_train_p2_bf16_model": dsm,
+        "per_train_step_p2_bf16_model": ds_step["fwd"],
     }, {
         "name": "msda_bwd",
         "route": "cuda",
@@ -5785,11 +6153,15 @@ def main() -> int:
         "replaces": "datr_tpu/ops/msda_pallas.py:154",
         "launches": (bf_launches["training"]["msda_bwd"]
                      + bf_launches["self_training"]["msda_bwd"]
-                     + bf_launches["cli"]["msda_bwd"]),
+                     + bf_launches["cli"]["msda_bwd"] + ds_bwd),
         "launches_by_path": {
             "training": bf_launches["training"]["msda_bwd"],
             "self_training": bf_launches["self_training"]["msda_bwd"],
-            "cli": bf_launches["cli"]["msda_bwd"]},
+            "cli": bf_launches["cli"]["msda_bwd"],
+            "distill_tool_process": ds_bwd},
+        # phase 16: the 2-point student's launches at its own locations
+        "per_launch_train_p2_model": dsm,
+        "per_train_step_p2_model": ds_step["bwd"],
         "launches_per_train_step": bf["training"]["launches_per_step"][
             "msda_bwd"],
         "max_abs_err": max(v for n, v in bf_errs.items()

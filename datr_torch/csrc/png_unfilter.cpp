@@ -1,9 +1,11 @@
 // PNG scanline unfiltering on the host (datr_torch/data/png.py).
 //
 // The five PNG filters (None, Sub, Up, Average, Paeth; PNG spec section 9)
-// undone in one pass over the inflated IDAT stream. Sub, Average and Paeth
-// are recurrences along each row, so they do not vectorize in numpy; a
-// Cityscapes frame (1024x2048 RGB) is 6 M bytes. Built with
+// undone in one pass over the inflated IDAT stream, or over one pass of an
+// Adam7-interlaced image (the decoder calls this once per pass). Sub,
+// Average and Paeth are recurrences along each row, so they do not
+// vectorize in numpy; a Cityscapes frame (1024x2048 RGB) is 6 M bytes.
+// `data/png.py:unfilter_plain` is the numpy form of this routine. Built with
 // `g++ -O2 -shared -fPIC` at first use and loaded with ctypes, which
 // releases the GIL for the call.
 
@@ -14,7 +16,7 @@
 extern "C" {
 
 // src: h rows of (1 filter byte + rowbytes bytes); out: h * rowbytes bytes.
-// bpp: bytes per complete pixel (1..8). Returns 0, or 1 + the row of the
+// bpp: bytes per complete pixel (1..8; 1 below 8 bits a pixel). Returns 0, or 1 + the row of the
 // first unknown filter type.
 int png_unfilter(const uint8_t* src, int64_t h, int64_t rowbytes, int bpp,
                  uint8_t* out) {

@@ -46,9 +46,9 @@ def decode_rgb(data: bytes) -> np.ndarray:
         from PIL import Image
     except ImportError as e:
         raise ImportError(
-            "decoding an image that is neither a JPEG libjpeg reads nor an "
-            "8-bit PNG needs PIL, which this machine lacks (other formats: "
-            f"ROADMAP §A, image formats){why}") from e
+            "decoding an image that is neither a JPEG libjpeg reads nor a "
+            "PNG needs PIL, which this machine lacks (the port decodes "
+            f"JPEG and PNG without it){why}") from e
     with Image.open(io.BytesIO(data)) as im:
         return np.asarray(im.convert("RGB"), np.uint8)
 

@@ -6,7 +6,7 @@ EMA teacher), resize the shorter side to 800 capped at 1333 (PIL's bilinear,
 score threshold 0.2, draw rectangles (and, for a model with masks, blend
 each detection's instance mask first, `utils/visualizer.draw_masks`), save.
 Runs on the CUDA card unless `--device cpu` is given. The image is decoded
-without PIL where it is a JPEG or an 8-bit PNG (`data.coco.decode_rgb`);
+without PIL where it is a JPEG or a PNG (`data.coco.decode_rgb`);
 drawing and saving need PIL.
 
 Usage:

@@ -21,18 +21,24 @@ layout (FSDP on other ranks, DDP, one process) and back, as datr_tpu's
 restores across mesh layouts. `load_resume` and `maybe_auto_resume` read
 both kinds.
 
-Tensor parallelism (parallel/mesh.py `apply_tp`): a sharded checkpoint
-gives torch.distributed.checkpoint each split tensor (parameter, AdamW
-moment, EMA track) as a DTensor over the 'model' sub-mesh, its shard at
-its place in the whole tensor, so the planner reshards on load: a
-checkpoint saved on dp 2 x tp 2 restores on dp 1 x tp 4 or into one
-process, as datr_tpu's "save on dp4xtp2, restore on dp2xtp4". The MHA's
-[q; k; v] rows, split per chunk, are stored as [3, d, d] (and [3, d]) in
-every sharded checkpoint. `save_checkpoint` of a split state gathers the
-whole tensors over 'model' (every rank calls it) and rank 0 writes them;
-`load_checkpoint` / `load_resume` cut whole tensors to a split state's
-shards. A state both split and sharded by FSDP has no sharded checkpoint
-here (NotImplementedError).
+Tensor parallelism (parallel/mesh.py `apply_tp`), alone or under FSDP: a
+sharded checkpoint stores every tensor in its whole shape (the MHA's
+in_proj rows as [3d, d]). A split tensor (parameter, AdamW moment, EMA
+track) goes to torch.distributed.checkpoint as a ShardedTensor whose
+local shards are this rank's rectangles of the whole tensor at their true
+offsets (`_rects`): the TP shard, cut along dim 0 by FSDP's chunking
+when FSDP shards it too. Under FSDP a column split's piece is a run of
+whole rows inside the rank's TP block, a row split's a 2-D block; a piece
+of the MHA's rows that crosses a q / k / v boundary (d = 256, tp = 2:
+FSDP cuts the local [384, 256] in two pieces of 192 rows, each crossing
+one) is written as one rectangle per chunk it touches, so nothing is
+gathered. The planner reshards on load: a checkpoint saved on dp 2 x tp 2
+with FSDP restores on dp 1 x tp 4, on dp 2 x tp 2 with FSDP or DDP, on
+FSDP without TP or into one process, and each of those into it, as
+datr_tpu's "save on dp4xtp2, restore on dp2xtp4". `save_checkpoint` of
+a split state gathers the whole tensors over 'model' (every rank calls
+it) and rank 0 writes them; `load_checkpoint` / `load_resume` cut whole
+tensors to a split state's shards.
 """
 
 from __future__ import annotations
@@ -46,7 +52,7 @@ from torch import nn
 
 from ..convert import DA_HEADS
 from ..parallel import dist as pdist
-from ..parallel.mesh import chunk_view, shard_tensor, tp_plan, whole_tensor
+from ..parallel.mesh import shard_tensor, whole_tensor
 from .state import EMA_TRACKS, TrainState
 
 
@@ -157,67 +163,136 @@ def update_checkpoint_meta(path: str, extra: dict):
         json.dump(meta, f)
 
 
-def _stored(t: torch.Tensor, split, axis: Optional[str]):
-    """A planned tensor as a sharded checkpoint stores it: chunked
-    [chunks, n, ...] for the MHA's rows, and, for a split state, a DTensor
-    of this rank's shard over the 'model' sub-mesh (sharing `t`'s
-    storage: a load fills `t`)."""
-    v = chunk_view(t, split) if split.chunks > 1 else t
-    if axis is None:
-        return v
-    from torch.distributed.tensor import DTensor, Shard
+def _rects(whole, split, t: int, tp: int, d: int, dp: int):
+    """The rectangles of the whole tensor (shape `whole`) that the rank at
+    'model' coordinate t of tp and FSDP coordinate d of dp holds of a
+    tensor split by `split`: [(offsets, sizes, first local row)], each a
+    run of rows of the rank's local tensor. FSDP cuts the rank's TP shard
+    along dim 0 by `torch.chunk` (the last piece short or empty). A piece
+    of the MHA's [q; k; v] rows can cross a chunk's end: it becomes one
+    rectangle per chunk it touches."""
+    if split.dim not in (0, 1) or (split.chunks > 1 and split.dim):
+        raise ValueError(f"no sharded checkpoint layout for {split}")
+    rows = whole[0] // (tp if split.dim == 0 else 1)  # of the TP shard
+    step = -(-rows // dp)
+    a = min(d * step, rows)
+    b = min(a + step, rows)
+    if b <= a:
+        return []
+    zeros = (0,) * (len(whole) - 1)
+    if split.dim == 1:
+        q = whole[1] // tp
+        return [((a, t * q, *zeros[1:]), (b - a, q, *whole[2:]), 0)]
+    m = whole[0] // split.chunks  # rows of a chunk
+    q = m // tp  # of it on each 'model' rank
+    out, i = [], a
+    while i < b:
+        j = i // q
+        e = min(b, (j + 1) * q)
+        out.append(((j * m + t * q + i - j * q, *zeros),
+                    (e - i, *whole[1:]), i - a))
+        i = e
+    return out
 
-    dim = split.dim + (split.chunks > 1)
-    shape = list(v.shape)
-    shape[dim] *= pdist.process_count(axis)
-    stride = torch.empty(shape, device="meta").stride()
-    return DTensor.from_local(v, pdist.current_mesh()[axis], [Shard(dim)],
-                              run_check=False, shape=torch.Size(shape),
-                              stride=stride)
+
+def _pieces(v: torch.Tensor, split):
+    """A split tensor (this rank's TP shard, or an FSDP DTensor of it) as
+    torch.distributed.checkpoint stores it: a ShardedTensor of the whole
+    tensor whose local shards are views of this rank's rectangles (a load
+    fills `v`), every rank's rectangles listed with their offsets, so the
+    planner reshards on load."""
+    from torch.distributed._shard.metadata import ShardMetadata
+    from torch.distributed._shard.sharded_tensor import (
+        Shard,
+        ShardedTensor,
+        ShardedTensorMetadata,
+    )
+    from torch.distributed._shard.sharded_tensor.metadata import (
+        TensorProperties,
+    )
+
+    fsdp = hasattr(v, "to_local")
+    local = v.to_local() if fsdp else v
+    if fsdp:
+        from torch.distributed.tensor import Shard as DShard
+
+        if tuple(v.placements) != (DShard(0),):
+            raise ValueError(f"FSDP placements {v.placements}, not Shard(0)")
+        d, dp = v.device_mesh.get_local_rank(), v.device_mesh.size()
+    else:
+        d, dp = 0, 1
+    t, tp = pdist.process_index("model"), pdist.process_count("model")
+    whole = list(v.shape)
+    whole[split.dim] *= tp
+    ranks = pdist.current_mesh().mesh
+    here_d, here_s = pdist.process_index("data"), pdist.process_index("seq")
+    metas, mine, held = [], [], 0
+    for dd in range(dp):
+        for tt in range(tp):
+            g = int(ranks[dd if fsdp else here_d, here_s, tt])
+            for off, size, row in _rects(whole, split, tt, tp, dd, dp):
+                md = ShardMetadata(list(off), list(size),
+                                   f"rank:{g}/{local.device}")
+                metas.append(md)
+                if (dd, tt) == (d, t):
+                    mine.append(Shard(local.narrow(0, row, size[0]), md))
+                    held += size[0]
+    if held != local.shape[0]:
+        raise ValueError(f"a local piece of {local.shape[0]} rows, "
+                         f"{held} placed (FSDP's chunking changed?)")
+    props = TensorProperties(dtype=local.dtype, layout=torch.strided,
+                             requires_grad=False,
+                             memory_format=torch.contiguous_format,
+                             pin_memory=False)
+    return ShardedTensor._init_from_local_shards_and_global_metadata(
+        mine, ShardedTensorMetadata(metas, torch.Size(whole), props))
 
 
-def _unstored(v, like: torch.Tensor) -> torch.Tensor:
-    v = v.to_local() if hasattr(v, "to_local") else v
-    return v.reshape(like.shape)
+def _unpieced(stored, orig):
+    """`stored` as loaded, each ShardedTensor replaced by the tensor of
+    `orig` it was made of (its shards were views of that tensor)."""
+    from torch.distributed._shard.sharded_tensor import ShardedTensor
+
+    if isinstance(stored, dict):
+        return {k: _unpieced(v, orig[k]) for k, v in stored.items()}
+    return orig if isinstance(stored, ShardedTensor) else stored
 
 
-def _dcp_payload(state: TrainState, chunked: bool):
+def _dcp_payload(state: TrainState):
     """The state as torch.distributed.checkpoint's state_dict functions
     lay it out: the student and its optimizer by parameter name, each EMA
-    track, the prototype state and the counters; a split state's planned
-    tensors, and with `chunked` the MHA's rows of any state, as `_stored`
-    gives them. Returns (payload, the names so stored)."""
+    track, the prototype state and the counters, every tensor in its
+    whole shape; a split tensor as `_pieces` gives it. Returns (payload,
+    the state_dicts it was made of)."""
     from torch.distributed.checkpoint.state_dict import (
         get_model_state_dict,
         get_state_dict,
     )
 
-    plan, axis = _tp(state.model)
-    if plan is not None and (state.optimizer._sharded or not chunked):
-        raise NotImplementedError(
-            "sharded checkpoints of a tensor-parallel state sharded by "
-            "FSDP, or saved without tensor parallelism into one")
-    if plan is None:
-        plan = {k: s for k, s in tp_plan(state.model, 1).items()
-                if s.chunks > 1} if chunked else {}
-        if plan and state.optimizer._sharded:
-            raise NotImplementedError(
-                "a tensor-parallel sharded checkpoint into an FSDP state")
+    def stored(sd, module):
+        plan = _tp(module)[0] or {}
+        return {k: _pieces(v, plan[k]) if k in plan else v
+                for k, v in sd.items()}
 
-    def stored(sd):
-        return _map_tp(sd, plan, lambda v, s: _stored(v, s, axis))
-
+    plan = _tp(state.model)[0] or {}
+    fresh = not state.optimizer.opt.state
     model_sd, optim_sd = get_state_dict(state.model, state.optimizer.opt)
-    optim_sd = {**optim_sd, "state": {
-        k: {n: _stored(v, plan[k], axis) if k in plan and torch.is_tensor(v)
+    if fresh:
+        # get_state_dict made the moments by one AdamW step at lr 0: an
+        # optimizer that took no step counts none
+        for st in state.optimizer.opt.state.values():
+            st["step"].zero_()
+    emas = {n: get_model_state_dict(getattr(state, n)) for n in EMA_TRACKS}
+    optim = {**optim_sd, "state": {
+        k: {n: _pieces(v, plan[k]) if k in plan and torch.is_tensor(v)
             and v.dim() else v for n, v in st.items()}
         for k, st in optim_sd["state"].items()}}
-    return {"model": stored(model_sd), "optimizer": optim_sd,
-            **{n: stored(get_model_state_dict(getattr(state, n)))
-               for n in EMA_TRACKS},
+    return {"model": stored(model_sd, state.model), "optimizer": optim,
+            **{n: stored(sd, getattr(state, n)) for n, sd in emas.items()},
             "global_proto": state.global_proto, "amount": state.amount,
             "counters": torch.tensor([state.step, state.ema_updates]),
-            "dn_generator": state.dn_generator.get_state()}, plan
+            "dn_generator": state.dn_generator.get_state()}, \
+        {"model": model_sd, "optimizer": optim_sd, **emas}
 
 
 def save_checkpoint_sharded(path: str, state: TrainState, epoch: int,
@@ -229,8 +304,7 @@ def save_checkpoint_sharded(path: str, state: TrainState, epoch: int,
 
     path = os.path.abspath(path)
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    dcp.save(_dcp_payload(state, _tp(state.model)[0] is not None)[0],
-             checkpoint_id=path)
+    dcp.save(_dcp_payload(state)[0], checkpoint_id=path)
     if pdist.is_main():
         with open(path + ".meta.json", "w") as f:
             json.dump({"epoch": epoch, **(extra or {})}, f)
@@ -249,29 +323,14 @@ def load_checkpoint_sharded(path: str, state: TrainState
     )
 
     path = os.path.abspath(path)
-    # a tensor-parallel run stored the MHA's rows chunked ([3, d, d])
-    meta = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
-    chunked = any(k.startswith("model.") and k.endswith("in_proj_weight")
-                  and len(getattr(v, "size", ())) == 3
-                  for k, v in meta.items())
-    payload, plan = _dcp_payload(state, chunked)
+    payload, sds = _dcp_payload(state)
     dcp.load(payload, checkpoint_id=path)
-    params = dict(state.model.named_parameters())
-
-    def plain(sd):
-        return {k: _unstored(v, params[k]) if k in plan else v
-                for k, v in sd.items()}
-
-    osd = payload["optimizer"]
-    osd = {**osd, "state": {k: {n: _unstored(v, params[k]) if k in plan
-                                and torch.is_tensor(v) and v.dim() else v
-                                for n, v in st.items()}
-                            for k, st in osd["state"].items()}}
+    loaded = {k: _unpieced(payload[k], sds[k]) for k in sds}
     set_state_dict(state.model, state.optimizer.opt,
-                   model_state_dict=plain(payload["model"]),
-                   optim_state_dict=osd)
+                   model_state_dict=loaded["model"],
+                   optim_state_dict=loaded["optimizer"])
     for n in EMA_TRACKS:
-        set_model_state_dict(getattr(state, n), plain(payload[n]))
+        set_model_state_dict(getattr(state, n), loaded[n])
     state.global_proto = payload["global_proto"]
     state.amount = payload["amount"]
     state.step, state.ema_updates = (int(v) for v in payload["counters"])

@@ -411,12 +411,13 @@ def test_loader_shards_equal_datr_tpu(data_root, index, count):
 def test_open_rgb_without_pil_raises(data_root, tmp_path, monkeypatch):
     """Without PIL the port still reads the PNG folders (its own decoder,
     the images equal to datr_tpu's through PIL); a file that is neither
-    JPEG nor PNG (BMP here) needs PIL and raises, naming its ROADMAP item."""
+    JPEG nor PNG (BMP here) needs PIL and raises, naming what the port
+    decodes without it."""
     ds = tcoco.build_dataset("val", "c2f", data_root)
     want = np.asarray(jcoco.build_dataset("val", "c2f", data_root).load(0)[0])
     bmp = tmp_path / "frame.bmp"
     pil(rgb(9, 20, 30)).save(bmp)
     monkeypatch.setitem(__import__("sys").modules, "PIL", None)
     np.testing.assert_array_equal(ds.load(0)[0], want)
-    with pytest.raises(ImportError, match="needs PIL.*§A, image formats"):
+    with pytest.raises(ImportError, match="needs PIL.*JPEG and PNG without it"):
         tcoco.open_rgb(str(bmp))

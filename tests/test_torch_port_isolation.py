@@ -58,6 +58,8 @@ def test_every_port_module_is_a_case():
             "datr_torch.tools.export_model", "datr_torch.tools.train_bench",
             "datr_torch.tools.profile_model", "datr_torch.tools.stage_data",
             "datr_torch.tools.repro_c2f",
+            "datr_torch.tools.distill_retention",
+            "datr_torch.tools.distill_flagship",
             "tests.torch_port_dist_worker"} <= set(MODULES)
     assert len(MODULES) == len(set(MODULES)) > 30
 

@@ -22,6 +22,7 @@ import json
 import os
 import sys
 import time
+import types
 
 import jax
 import jax.numpy as jnp
@@ -211,19 +212,30 @@ def test_time_holder_and_device_trace(tmp_path):
     assert any("mm" in ev.get("name", "") for ev in trace["traceEvents"])
 
 
-def test_measure_throughput_differences_two_runs():
-    """The two-point difference on the host clock: a call that sleeps
-    5 ms reads about 5 ms, whatever one run pays once."""
+def test_measure_throughput_differences_two_runs(monkeypatch):
+    """The two-point difference on the host clock: a call that takes 5 ms
+    reads 5 ms, whatever one run pays once. The clock is a fake one that
+    each call advances by 5 ms and the first call of each timed run by a
+    further 40 ms (a stall), so the arithmetic is checked exactly."""
+    clock = {"now": 100.0, "first": False}
     calls = []
+
+    def perf_counter():
+        clock["first"] = True  # a timed run starts or ends
+        return clock["now"]
 
     def fn(x):
         calls.append(1)
-        time.sleep(0.005)
+        clock["now"] += 0.005 + (0.04 if clock["first"] else 0.0)
+        clock["first"] = False
         return x + 1
 
+    monkeypatch.setattr(tprof, "time", types.SimpleNamespace(
+        perf_counter=perf_counter))
     dt = tprof.measure_throughput(fn, (torch.zeros(3),), batch=1, n1=2,
                                   n2=6)
     assert 0.004 <= dt < 0.05
+    assert dt == pytest.approx(0.005, rel=1e-9, abs=0)
     assert len(calls) == 2 + 6 + 2  # each run after one untimed call
 
 

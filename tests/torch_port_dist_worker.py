@@ -370,6 +370,92 @@ def tp_ckpt(rank, world, stages, kw, sd, lr, lr_backbone, batch, ccfg, wd,
     return dict(saved=saved, loaded=loaded)
 
 
+def tp_fsdp_ckpt(rank, world, stages, kw, sd, lr, lr_backbone, batch, ccfg,
+                 wd, draws, save_to, tp_ddp):
+    """Sharded checkpoints across the layouts of 4 ranks, each of a state
+    after one burn-in step (the state as saved, gathered): dp 2 x tp 2
+    with FSDP ("tp_fsdp"), and dp 4 with FSDP and no TP ("fsdp": the
+    global batch's 2 source images do not split over 4 data ranks, so it
+    is the dp 2 x tp 2 DDP checkpoint `tp_ddp` of `tp_ckpt`, loaded).
+    Then "tp_fsdp" loaded on dp 1 x tp 4, and each of the three loaded on
+    dp 2 x tp 2 with FSDP (the states as loaded). Last, a fresh dp 4 FSDP
+    state saved before any step, resumed on dp 2 x tp 2 with FSDP and
+    stepped: its metrics, gradients (rank 0) and state after the step.
+    The states are returned as `_digest`s."""
+    from datr_torch.parallel import dist as pdist
+    from datr_torch.parallel.mesh import (
+        make_mesh,
+        shard_batch,
+        shard_train_state,
+    )
+    from datr_torch.train.checkpoint import (
+        load_checkpoint_sharded,
+        load_resume,
+        save_checkpoint_sharded,
+    )
+    from datr_torch.train.criterion import CriterionCfg
+    from datr_torch.train.steps import train_step_burnin
+
+    _patch_stages(stages)
+
+    def fresh(fsdp):
+        return shard_train_state(_state(kw, sd, lr, lr_backbone), fsdp=fsdp)
+
+    def step(state):
+        d, n = pdist.process_index(), pdist.process_count()
+        return train_step_burnin(state, shard_batch(batch, d, n),
+                                 CriterionCfg(**ccfg), wd,
+                                 dn_draws=_draws(draws, d, n))
+
+    def snap(state, **extra):
+        out = _opt_snapshot(state)
+        out.update(_snapshot(state), step=state.step, **extra)
+        return _digest(out)
+
+    saved, loaded = {}, {}
+    paths = {"tp_fsdp": f"{save_to}/tp_fsdp", "tp_ddp": tp_ddp,
+             "fsdp": f"{save_to}/fsdp"}
+    make_mesh("cpu", tp=2)
+    state = fresh(True)
+    step(state)
+    save_checkpoint_sharded(paths["tp_fsdp"], state, 5,
+                            extra={"kind": "tp_fsdp"})
+    saved["tp_fsdp"] = snap(state)
+    make_mesh("cpu")
+    state, _ = load_checkpoint_sharded(tp_ddp, fresh(True))
+    save_checkpoint_sharded(paths["fsdp"], state, 5, extra={"kind": "fsdp"})
+    saved["fsdp"] = snap(state)
+    save_checkpoint_sharded(f"{save_to}/fresh", fresh(True), 0)
+    make_mesh("cpu", tp=4)
+    state, meta = load_checkpoint_sharded(paths["tp_fsdp"], fresh(False))
+    loaded["tp_fsdp->tp4"] = snap(state, meta=meta)
+    make_mesh("cpu", tp=2)
+    for name, path in paths.items():
+        state, meta = load_checkpoint_sharded(path, fresh(True))
+        loaded[f"{name}->tp_fsdp"] = snap(state, meta=meta)
+    state, epoch, _ = load_resume(f"{save_to}/fresh", fresh(True))
+    grads = _grab_grads(state)
+    metrics = {k: v.item() for k, v in step(state).items()}
+    return dict(saved=saved, loaded=loaded, resumed=dict(
+        epoch=epoch, metrics=metrics, grads=grads if rank == 0 else None,
+        after=_digest(_snapshot(state))))
+
+
+def _digest(tree):
+    """`tree` with each tensor replaced by (dtype, shape, SHA-256 of its
+    bytes): bitwise comparisons of whole states without writing them."""
+    import hashlib
+
+    if isinstance(tree, dict):
+        return {k: _digest(v) for k, v in tree.items()}
+    if torch.is_tensor(tree):
+        t = tree.detach().cpu().contiguous()
+        return (str(t.dtype), tuple(t.shape), hashlib.sha256(
+            t.view(torch.uint8).numpy().tobytes() if t.numel() else b""
+        ).hexdigest())
+    return tree
+
+
 def _toy_stage(p, shared, x, aux):
     # datr_tpu's tests/test_pipeline.py toy layer
     return x + torch.tanh(x @ p["w"] + p["b"]) + aux
@@ -494,5 +580,6 @@ def cli(rank, world, stages, argv):
 
 
 TASKS = {"steps": steps, "evaluate": evaluate, "dcp": dcp, "cli": cli,
-         "tp_ckpt": tp_ckpt, "gpipe_cases": gpipe_cases,
+         "tp_ckpt": tp_ckpt, "tp_fsdp_ckpt": tp_fsdp_ckpt,
+         "gpipe_cases": gpipe_cases,
          "pp_model": pp_model, "sp_forward": sp_forward}
