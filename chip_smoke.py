@@ -411,18 +411,19 @@ def value_rows_touched(msda, loc, shapes=SHAPES) -> int:
     return int(touched.sum().item())
 
 
-def cache_traffic(msda, loc, shapes, d=D, elt=4) -> dict:
+def cache_traffic(msda, loc, shapes, d=D, elt=4, sum_elt=4) -> dict:
     """Bytes the kernels request from the caches on these locations (what
     the device-memory bound does not see): the forward gathers one row of d
     elements of `elt` bytes per corner inside its level; the backward
-    gathers the same rows and sends at most one reduction of d f32 per
-    inside corner whose bilinear weight is not zero (fewer where it merges
-    the reductions of consecutive queries on one row, so its rate reads
-    high there)."""
+    gathers the same rows and sends at most one reduction of d elements of
+    `sum_elt` bytes (f32, or f64 for f64 value) per inside corner whose
+    bilinear weight is not zero (fewer where it merges the reductions of
+    consecutive queries on one row, so its rate reads high there)."""
     _, valids, weights, _ = msda._corners(loc, shapes)
     inside = sum(int(v.sum()) for v in valids)
     reduced = sum(int((v & (w != 0)).sum()) for v, w in zip(valids, weights))
-    return dict(fwd=inside * d * elt, bwd=inside * d * elt + reduced * d * 4)
+    return dict(fwd=inside * d * elt,
+                bwd=inside * d * elt + reduced * d * sum_elt)
 
 
 def roofline(n_bytes, flops):
@@ -5205,15 +5206,35 @@ def msda_f64_bounds(msda, loc, d=D, shapes=SHAPES) -> dict:
                 bwd_bound_ms=bwd[0], bwd_bound_by=bwd[1])
 
 
+# msda_bwd's f64 routes (ops/msda.py's BWD_ROUTES): the long launches at
+# D = 32 with 16-byte aligned rows (an encoder's) and every other launch
+F64_BWD_ROUTES = {True: "msda_bwd_run_kernel f64",
+                  False: "msda_bwd_kernel f64"}
+
+
+def bwd_routes_of(msda, fn):
+    """(fn(), the msda_bwd routes it launched, by the C launcher's
+    counts)."""
+    before = msda.msda_bwd_routes()
+    got = fn()
+    after = msda.msda_bwd_routes()
+    return got, sorted(r for r in after if after[r] > before[r])
+
+
 def check_f64_kernels(msda, name, value, shapes, loc, attn, g,
                       time_it=True) -> dict:
     """msda_fwd / msda_bwd in f64 against their plain versions on the same
     inputs, F64_TOL (grad_loc's atol times the largest level side, as the
-    f32 check's); with `time_it` each timed beside its plain version and
+    f32 check's); the msda_bwd launch that is checked went through the
+    route its length takes (F64_BWD_ROUTES: the encoder's, Lq = S, through
+    the run kernel). With `time_it` each timed beside its plain version and
     its bound."""
+    enc = loc.shape[1] == value.shape[1]
     got = msda.msda_fwd(value, shapes, loc, attn)
-    got_b = msda.msda_bwd(value, shapes, loc, attn, g)
+    got_b, route = bwd_routes_of(
+        msda, lambda: msda.msda_bwd(value, shapes, loc, attn, g))
     torch.cuda.synchronize()
+    assert route == [F64_BWD_ROUTES[enc]], (name, route)
     assert got.dtype == torch.float64 and all(
         t.dtype == torch.float64 for t in got_b)
     want = msda.ms_deform_attn_plain(value, shapes, loc, attn)
@@ -5228,9 +5249,8 @@ def check_f64_kernels(msda, name, value, shapes, loc, attn, g,
             a, b, rtol=F64_TOL["rtol"],
             atol=F64_TOL["atol"] * (side if part == "loc" else 1),
             msg=lambda m: f"msda_bwd f64 {name} grad_{part}: {m}")
-    out = dict(lq=loc.shape[1], max_abs_err=errs)
+    out = dict(lq=loc.shape[1], max_abs_err=errs, bwd_route=route[0])
     if time_it:
-        enc = loc.shape[1] == value.shape[1]
         iters, p_iters = (10, 2) if enc else (50, 5)
         out.update(
             fwd_ms=cuda_ms(lambda: msda.msda_fwd(value, shapes, loc, attn),
@@ -5242,7 +5262,7 @@ def check_f64_kernels(msda, name, value, shapes, loc, attn, g,
             bwd_plain_ms=cuda_ms(lambda: msda.ms_deform_attn_plain_bwd(
                 value, shapes, loc, attn, g), p_iters, warmup=1),
             **msda_f64_bounds(msda, loc, value.shape[-1], shapes))
-    log(f"  f64 {name}: max_abs_err {errs}" + (
+    log(f"  f64 {name}: max_abs_err {errs}, bwd through {route[0]}" + (
         f"; fwd {out['fwd_ms']:.4f} ms (plain {out['fwd_plain_ms']:.3f}, "
         f"bound {out['fwd_bound_ms']:.4f} {out['fwd_bound_by']}), bwd "
         f"{out['bwd_ms']:.4f} ms (plain {out['bwd_plain_ms']:.3f}, bound "
@@ -5286,10 +5306,23 @@ def f64_forward_against_plain(model, x, pad, msda, dino_mod) -> dict:
     return dict(diffs=diffs, launches=launches, ms=ms, out=out_k)
 
 
+def f64_serving_batches(device):
+    """Phase 15f's serving inputs: the first request image on the serving
+    canvas through the u8 wire, as (x, pad), and the batch of it and its
+    mirror, whose MSDA calls give the f64 flagship's own locations."""
+    from datr_torch.serve import wire_decode
+
+    imgs = request_images()
+    canv = torch.from_numpy(np.stack([imgs[0][:CANVAS[0], :CANVAS[1]]]))
+    x, pad = wire_decode(canv.to(device),
+                         torch.tensor([list(CANVAS)], device=device), CANVAS,
+                         "u8")
+    return (x, pad), (torch.cat([x, x.flip(2)]), torch.cat([pad, pad]))
+
+
 def run_float64(msda, card) -> dict:
     """Phase 15f: amp_dtype="float64" on the card (datr_tpu's x64 mode)."""
     from datr_torch.models import dino as dino_mod
-    from datr_torch.serve import wire_decode
     from datr_torch.train.steps import train_step_burnin
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5304,21 +5337,21 @@ def run_float64(msda, card) -> dict:
                         dtype=torch.float64)
         out["random"][part] = check_f64_kernels(
             msda, f"{part} Lq={lq} random", value, SHAPES, loc, attn, g)
-    value, loc, attn = msda_inputs(gen, N_QUERIES, torch.float64,
-                                   case="outside")
-    g = torch.randn(B, N_QUERIES, H * D, device="cuda", generator=gen,
-                    dtype=torch.float64)
-    out["outside_errs"] = check_f64_kernels(
-        msda, "decoder outside", value, SHAPES, loc.double(), attn.double(),
-        g, time_it=False)["max_abs_err"]
+    # corners outside the level, at both lengths (both msda_bwd routes)
+    outside = {}
+    for part, lq in (("encoder", S), ("decoder", N_QUERIES)):
+        value, loc, attn = msda_inputs(gen, lq, torch.float64,
+                                       case="outside")
+        g = torch.randn(B, lq, H * D, device="cuda", generator=gen,
+                        dtype=torch.float64)
+        outside[part] = check_f64_kernels(
+            msda, f"{part} outside", value, SHAPES, loc.double(),
+            attn.double(), g, time_it=False)
+    out["outside_errs"] = {k: v["max_abs_err"] for k, v in outside.items()}
 
     # ---- the flagship in f64: its locations, its serving forward ----
     model = flagship_model(amp_dtype="float64")
-    imgs = request_images()
-    canv = torch.from_numpy(np.stack([imgs[0][:800, :1344]])).cuda()
-    x, pad = wire_decode(canv, torch.tensor([[800, 1344]], device="cuda"),
-                         CANVAS, "u8")
-    batch2 = torch.cat([x, x.flip(2)]), torch.cat([pad, pad])
+    (x, pad), batch2 = f64_serving_batches("cuda")
     calls = capture_msda_calls(msda, lambda: model(*batch2))
     for part, lq in (("encoder", S), ("decoder", N_QUERIES)):
         value, sh, loc, attn = calls[lq]
@@ -5329,6 +5362,12 @@ def run_float64(msda, card) -> dict:
             msda, f"{part} Lq={lq} at the model's locations", value, sh, loc,
             attn, g)
     del calls
+    # the route each checked msda_bwd launch went through
+    out["bwd_routes"] = {f"{part} {kind}": res[part]["bwd_route"]
+                         for kind, res in (("random", out["random"]),
+                                           ("outside", outside),
+                                           ("model", out["model_locations"]))
+                         for part in res}
     fwd = f64_forward_against_plain(model, x, pad, msda, dino_mod)
     out.update(forward_diffs=fwd["diffs"], forward_ms=fwd["ms"],
                serving_launches=fwd["launches"])
@@ -6223,6 +6262,9 @@ def main() -> int:
                            if n in ("grad_value", "grad_attn")),
         "max_abs_err_grad_loc": max(v["max_abs_err"]["grad_loc"] for v in
                                     [*f64r.values(), *f64m.values()]),
+        # the encoder's checked launches through msda_bwd_run_kernel<double>,
+        # the decoder's through msda_bwd_kernel (by the launcher's counts)
+        "routes": f64["bwd_routes"],
         # one encoder + one decoder launch at the serving shapes, random
         "ms": f64r["encoder"]["bwd_ms"] + f64r["decoder"]["bwd_ms"],
         "plain_ms": (f64r["encoder"]["bwd_plain_ms"]
@@ -6231,6 +6273,10 @@ def main() -> int:
                      + f64r["decoder"]["bwd_bound_ms"]),
         "bound_by": f64r["encoder"]["bwd_bound_by"],
         "library_ms": None,  # no PyTorch call computes MSDA's backward
+        # the same at the f64 flagship's own locations
+        "ms_model": f64m["encoder"]["bwd_ms"] + f64m["decoder"]["bwd_ms"],
+        "bound_ms_model": (f64m["encoder"]["bwd_bound_ms"]
+                           + f64m["decoder"]["bwd_bound_ms"]),
         "per_launch": f64r, "per_launch_model": f64m,
     }, {
         "name": "row_gather",

@@ -23,10 +23,10 @@
 //   grad_value          value's type
 //   loc, grad_loc     [B, Lq, H, L, P, 2]  float (double for double value)
 //   attn, grad_attn   [B, Lq, H, L, P]     float (double for double value)
-// f32: msda_bwd_kernel / msda_bwd_run_kernel, atomics straight into
-// grad_value. f64 (the float64 debugging mode): msda_bwd_kernel with
-// A = double, 16-byte loads of 2 doubles, scalar f64 atomicAdds straight
-// into grad_value (the card has no vector f64 reduction).
+// f32 and f64 (the float64 debugging mode): msda_bwd_run_kernel on the long
+// launches at D = 32 with 16-byte aligned rows (an encoder's),
+// msda_bwd_kernel otherwise; atomics straight into grad_value (f64: scalar
+// ones, the card has no vector f64 reduction; step 9).
 //
 // What bounds them on this card. The floor of the function is device
 // memory: the value rows the samples touch read once and grad_value written
@@ -61,11 +61,12 @@
 //    shuffle and writes grad_attn and grad_loc coalesced.
 // 5. merging before scattering, in registers (the run kernels, the long
 //    launches): a warp serves 8 consecutive queries of its head and keeps,
-//    per corner, the row it last added to and the sum not yet sent; the
-//    next query's same sample on the same row (2, 4 or 8 neighbouring
-//    pixels share a cell on each coarser level) joins the sum, and one
-//    reduction goes out for the run of them. Each lane owns its channels of
-//    those rows, so no atomics are needed before the one reduction.
+//    per corner pixel parity, the row it last added to and the sum not yet
+//    sent; the next query's same sample on the same row (2, 4 or 8
+//    neighbouring pixels share a cell on each coarser level), or on the
+//    neighbouring cell's shared corner, joins the sum, and one reduction
+//    goes out for the run of them. Each lane owns its channels of those
+//    rows, so no atomics are needed before the one reduction.
 //    Not in shared memory: cuobjdump -sass shows atomicAdd(float*) and
 //    red.shared.add.f32 there as an ATOMS.CAST.SPIN compare-and-swap loop;
 //    and lane-owned sums kept in shared memory instead of registers
@@ -99,14 +100,56 @@
 //    ticket order, release / acquire counts) was tried and dropped (a
 //    variant not kept): its counting and waiting cost more than the
 //    separate passes it saved.
+// 9. f64: every reduction is a scalar REDG.E.ADD.F64 (cuobjdump -sass; in
+//    shared memory an ATOMS.CAST.SPIN.64 compare-and-swap loop), so the
+//    reductions, not the gathers, set the pace: taking them out of the
+//    first f64 route (msda_bwd_kernel<double> alone, 16 lanes x 2 doubles
+//    a row, nothing merged) left a fifth of its time, taking out its gathers
+//    nothing (PERF.md has the run). So the f64 kernels send as few
+//    reductions as they can, each filling whole 32-byte sectors:
+//    msda_bwd_run_kernel<double> merges runs of queries as step 5 does
+//    (its slots keyed by pixel parity came from f64: the corner two
+//    neighbouring cells share is one sum and not two, since the corner
+//    index c differs between the cells and the parities do not); its
+//    merged sums are laid out channel i + 8e on lane i, so each of a
+//    flush's four scalar reductions is 8 lanes on 8 consecutive doubles
+//    (16-byte vectors of 2 doubles would half fill twice as many sectors;
+//    RunRow<double>). The short launches
+//    (msda_bwd_kernel, D = 32) read and reduce lane i's channels i and
+//    i + 16 as scalars for the same reason. An atomic-free owner-computes
+//    backward (a counting sort of the contributions by value row) was not
+//    written: by estimate, not measured, its sort and its second gather
+//    pass would cost about what the merged reductions cost.
 // Atomics make grad_value's sum order (and its last bits) vary from run to
 // run.
 
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <type_traits>
 
 #include "msda_common.cuh"
+
+// The backward's kernels (datr_msda_bwd_routes reads their launches).
+enum MsdaBwdRoute {
+  MSDA_BWD_KERNEL_F32 = 0,  // msda_bwd_kernel, by value's type
+  MSDA_BWD_KERNEL_BF16 = 1,
+  MSDA_BWD_KERNEL_F64 = 2,
+  MSDA_BWD_RUN_F32 = 3,  // msda_bwd_run_kernel<float>
+  MSDA_BWD_RUN_F64 = 4,  // msda_bwd_run_kernel<double>
+  MSDA_BWD_BF16_SPLIT = 5,  // msda_bwd_bf16_split_kernel
+  MSDA_BWD_ROUTES = 6
+};
+static std::atomic<long long> g_bwd_routes[MSDA_BWD_ROUTES];
+
+// The launch error of the kernel just enqueued; counts the launch under its
+// route when there is none.
+static cudaError_t counted(MsdaBwdRoute route) {
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess)
+    g_bwd_routes[route].fetch_add(1, std::memory_order_relaxed);
+  return err;
+}
 
 // p[0..VEC) += v, as one reduction of VEC*4 bytes (p aligned to them).
 template <int VEC>
@@ -129,6 +172,18 @@ __device__ __forceinline__ void red_add_vec(double* p,
   for (int e = 0; e < VEC; ++e) atomicAdd(p + e, v[e]);
 }
 
+// VEC elements of p: consecutive (ES = 1, one vector load), or ES apart
+// (scalar loads).
+template <int VEC, int ES, typename T, typename V>
+__device__ __forceinline__ void load_elems(const T* p, V (&v)[VEC]) {
+  if constexpr (ES == 1) {
+    load_vec<VEC>(p, v);
+  } else {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) v[e] = __ldg(p + e * ES);
+  }
+}
+
 // LG as in the forward: the lanes per row fixed at compile time (D = 32), or
 // read from the launch's geometry where LG < 0. T is value's and grad_out's
 // type, A the compute type (float, or double for double value); grad_value
@@ -140,11 +195,17 @@ __global__ void __launch_bounds__(MSDA_THREADS) msda_bwd_kernel(
     A* __restrict__ grad_value, A* __restrict__ grad_loc,
     A* __restrict__ grad_attn, int S, int Lq, int H, int D, int P,
     const Work wk, const __grid_constant__ Levels lv) {
+  // f64 at D = 32 (16 lanes a row, 2 doubles each): lane i takes channels
+  // i and i + 16 as scalars, so that each f64 reduction instruction of a
+  // row covers 16 consecutive doubles (4 whole 32-byte sectors; 2-double
+  // vectors would half fill 8)
+  constexpr bool STRIDED = std::is_same<A, double>::value && LG == 4;
+  constexpr int ES = STRIDED ? 16 : 1;  // the stride between a lane's elements
   const int lane = threadIdx.x & 31;
   const int lg = LG >= 0 ? LG : wk.lg;
   const int G = 1 << lg, R = 32 >> lg;
   const int r = lane >> lg;                 // which of the R rows of a gather
-  const int ch0 = (lane & (G - 1)) * VEC;   // first channel within the chunk
+  const int ch0 = (lane & (G - 1)) * (STRIDED ? 1 : VEC);  // first channel
   const int LP = lv.n * P;
   const int row_stride = H * D;  // one token of value
 
@@ -164,7 +225,7 @@ __global__ void __launch_bounds__(MSDA_THREADS) msda_bwd_kernel(
       A g[VEC];
 #pragma unroll
       for (int e = 0; e < VEC; ++e) g[e] = (A)0;
-      if (live) load_vec<VEC>(grad_out + bqh * D + ch, g);
+      if (live) load_elems<VEC, ES>(grad_out + bqh * D + ch, g);
 
       for (int k0 = 0; k0 < LP; k0 += 32) {
         const SampleSetup<A> s =
@@ -186,7 +247,7 @@ __global__ void __launch_bounds__(MSDA_THREADS) msda_bwd_kernel(
               msda_corner_weights(c, fx, fy, &wx, &wy, &w);
               const A wa = mul_rn(w, a);  // the forward's weight
               const long long at = bh + (long long)off * row_stride + ch;
-              load_vec<VEC>(value + at, v);
+              load_elems<VEC, ES>(value + at, v);
               A dot = 0;
 #pragma unroll
               for (int e = 0; e < VEC; ++e) dot += g[e] * v[e];
@@ -194,7 +255,13 @@ __global__ void __launch_bounds__(MSDA_THREADS) msda_bwd_kernel(
                 A add[VEC];
 #pragma unroll
                 for (int e = 0; e < VEC; ++e) add[e] = wa * g[e];
-                red_add_vec<VEC>(grad_value + at, add);
+                if constexpr (STRIDED) {
+#pragma unroll
+                  for (int e = 0; e < VEC; ++e)
+                    atomicAdd(grad_value + at + e * ES, add[e]);
+                } else {
+                  red_add_vec<VEC>(grad_value + at, add);
+                }
               }
               pa += w * dot;
               px += ((c & 1) ? wy : -wy) * dot;   // dw/dfx
@@ -233,30 +300,112 @@ __global__ void __launch_bounds__(MSDA_THREADS) msda_bwd_kernel(
   }
 }
 
-// The long launches at D = 32 (the encoder's): 8 lanes x 4 channels per
-// row, 4 rows per gather. A warp serves MSDA_RUN_Q CONSECUTIVE queries of
-// its (batch, head), one group of 4 samples at a time: lane j sets up sample
-// k0 + j % 4 of query q0 + j / 4, then the queries go by in order, and each
-// lane holds, per corner, the row and the sum of what it has not yet sent.
-// Where the next query's same sample falls on the same row (neighbouring
-// pixels do on every coarser level: 2, 4 or 8 queries to a cell), the
-// contribution joins the sum in registers and one reduction goes out for the
-// run of them. f32 only: bf16's long launches take the split kernel (below).
+// v[c] with a corner c known only at run time, without indexing registers.
+template <typename V>
+__device__ __forceinline__ V pick4(const V (&v)[4], int c) {
+  return (c & 2) ? ((c & 1) ? v[3] : v[2]) : ((c & 1) ? v[1] : v[0]);
+}
+
+// How the run kernel (below) lays out a row of D = 32 channels over the 8
+// lanes of a group, lane i of 8: grad_out's row for the dot products and
+// for the merged sums, the gathered corner rows, and the sums' reduction.
+template <typename A>
+struct RunRow;
+
+// f32: lane i holds channels 4i..4i+3 everywhere: one 16-byte load a corner
+// (a warp instruction: 4 rows x 128 bytes), the merged sums sent as one
+// 16-byte red.global.add.v4.f32, beside its neighbours' (whole sectors).
+template <>
+struct RunRow<float> {
+  static constexpr int MIN_BLOCKS = 1;  // no register cap
+  // lane i's first channel: GATHER * i of a gathered row, SUM * i of a sum
+  static constexpr int GATHER = 4, SUM = 4;
+  float g[4];
+  __device__ __forceinline__ void load(const float* go, int i) {
+    load_vec<4>(go + 4 * i, g);
+  }
+  // row: a corner row at lane i's first gathered channel
+  __device__ __forceinline__ float dot(const float* row) const {
+    float v[4];
+    load_vec<4>(row, v);
+    float d = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d += g[e] * v[e];
+    return d;
+  }
+  __device__ __forceinline__ float sum_g(int e) const { return g[e]; }
+  // row: a grad_value row at lane i's first summed channel
+  static __device__ __forceinline__ void send(float* row,
+                                              const float (&v)[4]) {
+    red_add_vec<4>(row, v);
+  }
+};
+
+// f64: the gathers read channels {2i, 2i+1, 16+2i, 17+2i} as two 16-byte
+// loads (a warp instruction: 4 rows x 128 bytes, one line each); the
+// merged sums hold channels {i, i+8, i+16, i+24} (grad_out's row read
+// again in that layout, scalar loads of the one row every group shares),
+// so that each of a flush's four scalar f64 reductions (the card has no
+// vector one; sm_90a: REDG.E.ADD.F64.RN each) is 8 lanes on 8 consecutive
+// doubles: 2 whole 32-byte sectors a row, where 16-byte vectors of 2
+// doubles would half fill 4. At most 128 registers a thread (4 blocks an
+// SM): unbounded, nvcc takes 138 and the card holds 3 blocks an SM, which
+// measured slower; at 96 or 80 it spills and is slower still (PERF.md has
+// the run).
+template <>
+struct RunRow<double> {
+  static constexpr int MIN_BLOCKS = 4;
+  static constexpr int GATHER = 2, SUM = 1;
+  double gd[2][2], gs[4];  // the gathers' layout, the sums' layout
+  __device__ __forceinline__ void load(const double* go, int i) {
+    load_vec<2>(go + 2 * i, gd[0]);
+    load_vec<2>(go + 16 + 2 * i, gd[1]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) gs[e] = __ldg(go + i + 8 * e);
+  }
+  __device__ __forceinline__ double dot(const double* row) const {
+    double v[2][2];
+    load_vec<2>(row, v[0]);
+    load_vec<2>(row + 16, v[1]);
+    return gd[0][0] * v[0][0] + gd[0][1] * v[0][1] + gd[1][0] * v[1][0] +
+           gd[1][1] * v[1][1];
+  }
+  __device__ __forceinline__ double sum_g(int e) const { return gs[e]; }
+  static __device__ __forceinline__ void send(double* row,
+                                              const double (&v)[4]) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) atomicAdd(row + 8 * e, v[e]);
+  }
+};
+
+// The long launches at D = 32 with 16-byte aligned rows (the encoder's), f32
+// or f64 (A: value's, grad_out's and the sums' type): 8 lanes a row, 4 rows
+// a gather (RunRow<A> lays out a row). A warp serves MSDA_RUN_Q
+// CONSECUTIVE queries of its (batch, head), one group of 4 samples at a
+// time: lane j sets up sample k0 + j % 4 of query q0 + j / 4, then the
+// queries go by in order, and each lane holds, per slot, the row and the sum
+// of what it has not yet sent. Slot t takes the sample's corner at pixel
+// parities t, so where the next query's same sample falls on the same row
+// (neighbouring pixels do on every coarser level: 2, 4 or 8 queries to a
+// cell), or a neighbouring cell shares the corner (the corner index differs
+// between the cells, the parities do not), the contribution joins the sum in
+// registers and one reduction goes out for the run of them. bf16's long
+// launches take the split kernel (below).
 #define MSDA_RUN_Q 8
-template <typename T>
-__global__ void __launch_bounds__(MSDA_THREADS) msda_bwd_run_kernel(
-    const T* __restrict__ value, const float* __restrict__ loc,
-    const float* __restrict__ attn, const T* __restrict__ grad_out,
-    float* __restrict__ grad_value, float* __restrict__ grad_loc,
-    float* __restrict__ grad_attn, int S, int Lq, int H, int P, int n_runs,
-    const __grid_constant__ Levels lv) {
-  constexpr int D = 32, VEC = 4, R = 4;
+template <typename A>
+__global__ void __launch_bounds__(MSDA_THREADS, RunRow<A>::MIN_BLOCKS)
+    msda_bwd_run_kernel(const A* __restrict__ value, const A* __restrict__ loc,
+                        const A* __restrict__ attn,
+                        const A* __restrict__ grad_out,
+                        A* __restrict__ grad_value, A* __restrict__ grad_loc,
+                        A* __restrict__ grad_attn, int S, int Lq, int H, int P,
+                        int n_runs, const __grid_constant__ Levels lv) {
+  constexpr int D = 32, R = 4;
   const int lane = threadIdx.x & 31;
-  const int r = lane >> 3;          // which of the 4 rows of a gather
-  const int ch = (lane & 7) * VEC;  // this lane's channels
+  const int r = lane >> 3;  // the gather's row group
+  const int i = lane & 7;   // the lane within its group
   const int jq = lane >> 2, js = lane & 3;  // the set-up this lane does
   const int LP = lv.n * P;
-  const int row_stride = H * D;  // one token of value
   const int run = blockIdx.x % n_runs, bh = blockIdx.x / n_runs;
   const int b = bh / H, h = bh % H;
   const int q0 = (run * MSDA_WARPS + (threadIdx.x >> 5)) * MSDA_RUN_Q;
@@ -264,55 +413,64 @@ __global__ void __launch_bounds__(MSDA_THREADS) msda_bwd_run_kernel(
   const int nq = min(MSDA_RUN_Q, Lq - q0);
   // index of (b, q0, h) into the [B, Lq, H] arrays; a query further is + H
   const long long bqh0 = ((long long)b * Lq + q0) * H + h;
-  const long long bh_off = (long long)b * S * row_stride + (long long)h * D;
-  const T* val_ch = value + bh_off + ch;
-  float* gval_ch = grad_value + bh_off + ch;
   const long long mine = bqh0 + (long long)jq * H;
+  const long long row_stride = (long long)H * D;  // a token of value
+  const long long bh_off = (long long)b * S * row_stride + (long long)h * D;
+  // (b, h)'s rows at this lane's first channel: of a gather, of a sum
+  const A* val_ln = value + bh_off + RunRow<A>::GATHER * i;
+  A* gval_ln = grad_value + bh_off + RunRow<A>::SUM * i;
 
   for (int k0 = 0; k0 < LP; k0 += R) {
     const int k = k0 + js;
-    const SampleSetup<float> s = msda_setup(
+    const SampleSetup<A> s = msda_setup(
         loc + mine * LP * 2, attn + mine * LP, jq < nq ? k : LP, LP, P, lv);
-    int pend_off[4] = {-1, -1, -1, -1};  // per corner: the row not yet sent
-    float pend[4][VEC];                  // and its sum
-    float ga = 0.f, gx = 0.f, gy = 0.f;  // of this lane's own sample
+    int pend_off[4] = {-1, -1, -1, -1};  // per slot: the row owed
+    A pend[4][4];                        // and its sum (RunRow's layout)
+    A ga = 0, gx = 0, gy = 0;            // of this lane's own sample
 #pragma unroll
     for (int j = 0; j < MSDA_RUN_Q; ++j) {
       if (j >= nq) break;  // warp-uniform
-      const int src = j * R + r;  // the lane that set up this group's sample
-      const float fx = __shfl_sync(MSDA_FULL, s.fx, src);
-      const float fy = __shfl_sync(MSDA_FULL, s.fy, src);
-      const float a = __shfl_sync(MSDA_FULL, s.a, src);
-      float g[VEC];
-      load_vec<VEC>(grad_out + (bqh0 + (long long)j * H) * D + ch, g);
-      float pa = 0.f, px = 0.f, py = 0.f;  // lane partials of the sample
+      const int src = j * R + r;  // the lane that set up this sample
+      const A fx = __shfl_sync(MSDA_FULL, s.fx, src);
+      const A fy = __shfl_sync(MSDA_FULL, s.fy, src);
+      const A a = __shfl_sync(MSDA_FULL, s.a, src);
+      RunRow<A> g;
+      g.load(grad_out + (bqh0 + (long long)j * H) * D, i);
+      A pa = 0, px = 0, py = 0;  // lane partials of the sample
+      int offs[4];
+      A was[4];  // the forward's weights
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const int off = __shfl_sync(MSDA_FULL, s.off[c], src);
-        if (off >= 0) {
-          float wx, wy, w, v[VEC];
+        offs[c] = __shfl_sync(MSDA_FULL, s.off[c], src);
+        was[c] = 0;
+        if (offs[c] >= 0) {
+          A wx, wy, w;
           msda_corner_weights(c, fx, fy, &wx, &wy, &w);
-          const float wa = __fmul_rn(w, a);  // the forward's weight
-          load_vec<VEC>(val_ch + (long long)off * row_stride, v);
-          float dot = 0.f;
-#pragma unroll
-          for (int e = 0; e < VEC; ++e) dot += g[e] * v[e];
-          if (wa != 0.f) {
-            if (off == pend_off[c]) {
-#pragma unroll
-              for (int e = 0; e < VEC; ++e) pend[c][e] += wa * g[e];
-            } else {
-              if (pend_off[c] >= 0)
-                red_add_vec<VEC>(
-                    gval_ch + (long long)pend_off[c] * row_stride, pend[c]);
-              pend_off[c] = off;
-#pragma unroll
-              for (int e = 0; e < VEC; ++e) pend[c][e] = wa * g[e];
-            }
-          }
+          was[c] = mul_rn(w, a);
+          const A dot = g.dot(val_ln + (long long)offs[c] * row_stride);
           pa += w * dot;
           px += ((c & 1) ? wy : -wy) * dot;   // dw/dfx
           py += ((c >> 1) ? wx : -wx) * dot;  // dw/dfy
+        }
+      }
+      // the scatter: slot t takes the corner at pixel parities t
+      const int par = __shfl_sync(MSDA_FULL, s.par, src);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int c = t ^ par;
+        const int off = pick4(offs, c);
+        const A wa = pick4(was, c);
+        if (off < 0 || wa == (A)0) continue;  // a zero weight adds nothing
+        if (off == pend_off[t]) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) pend[t][e] += wa * g.sum_g(e);
+        } else {
+          if (pend_off[t] >= 0)
+            RunRow<A>::send(gval_ln + (long long)pend_off[t] * row_stride,
+                            pend[t]);
+          pend_off[t] = off;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) pend[t][e] = wa * g.sum_g(e);
         }
       }
       // over the channels: the 8 lanes of the group
@@ -323,20 +481,20 @@ __global__ void __launch_bounds__(MSDA_THREADS) msda_bwd_run_kernel(
         py += __shfl_xor_sync(MSDA_FULL, py, o);
       }
       // back to the lane that owns the sample: lane j*4 + i reads group i
-      const float ta = __shfl_sync(MSDA_FULL, pa, js << 3);
-      const float tx = __shfl_sync(MSDA_FULL, px, js << 3);
-      const float ty = __shfl_sync(MSDA_FULL, py, js << 3);
+      const A ta = __shfl_sync(MSDA_FULL, pa, js << 3);
+      const A tx = __shfl_sync(MSDA_FULL, px, js << 3);
+      const A ty = __shfl_sync(MSDA_FULL, py, js << 3);
       if (jq == j) ga = ta, gx = tx, gy = ty;
     }
 #pragma unroll
-    for (int c = 0; c < 4; ++c)
-      if (pend_off[c] >= 0)
-        red_add_vec<VEC>(gval_ch + (long long)pend_off[c] * row_stride,
-                         pend[c]);
+    for (int t = 0; t < 4; ++t)
+      if (pend_off[t] >= 0)
+        RunRow<A>::send(gval_ln + (long long)pend_off[t] * row_stride,
+                        pend[t]);
     if (jq < nq && k < LP) {
       grad_attn[mine * LP + k] = ga;
-      grad_loc[(mine * LP + k) * 2] = s.a * gx * (float)s.wl;
-      grad_loc[(mine * LP + k) * 2 + 1] = s.a * gy * (float)s.hl;
+      grad_loc[(mine * LP + k) * 2] = s.a * gx * (A)s.wl;
+      grad_loc[(mine * LP + k) * 2 + 1] = s.a * gy * (A)s.hl;
     }
   }
 }
@@ -357,7 +515,10 @@ static cudaError_t launch_bwd_as(const void* value, const void* loc,
       <<<(unsigned)blocks, MSDA_THREADS, 0, stream>>>(
           (const T*)value, (const A*)loc, (const A*)attn, (const T*)grad_out,
           work, (A*)grad_loc, (A*)grad_attn, S, Lq, H, D, P, wk, lv);
-  return cudaGetLastError();
+  // by value's type: MSDA_BWD_KERNEL_F32 / _BF16 / _F64
+  return counted(std::is_same<T, float>::value    ? MSDA_BWD_KERNEL_F32
+                 : std::is_same<T, double>::value ? MSDA_BWD_KERNEL_F64
+                                                  : MSDA_BWD_KERNEL_BF16);
 }
 
 template <typename T, typename A, int VEC>
@@ -371,20 +532,21 @@ static cudaError_t launch_bwd(const void* value, const void* loc,
   long long blocks;
   cudaError_t err = msda_plan(&wk, B, Lq, H, D, VEC, device, &blocks);
   if (err != cudaSuccess) return err;
-  // D = 32 in 16-byte vectors: the compile-time geometry
-  if constexpr (VEC * sizeof(T) == 16 && std::is_same<A, float>::value) {
-    if (D == 32 && wk.qpw > 1) {  // a long launch: runs of queries per warp
+  // f32 / f64 at D = 32 in 16-byte vectors, a long launch: runs of
+  // queries per warp
+  if constexpr (std::is_same<T, A>::value && VEC * sizeof(T) == 16) {
+    if (D == 32 && wk.qpw > 1) {
       const int n_runs = (Lq + MSDA_WARPS * MSDA_RUN_Q - 1) /
                          (MSDA_WARPS * MSDA_RUN_Q);
       static bool asked[MSDA_MAX_DEVICES];
-      err = msda_prefer_l1(msda_bwd_run_kernel<T>, device, asked);
+      err = msda_prefer_l1(msda_bwd_run_kernel<A>, device, asked);
       if (err != cudaSuccess) return err;
-      msda_bwd_run_kernel<T><<<(unsigned)((long long)B * H * n_runs),
+      msda_bwd_run_kernel<A><<<(unsigned)((long long)B * H * n_runs),
                                MSDA_THREADS, 0, stream>>>(
-          (const T*)value, (const float*)loc, (const float*)attn,
-          (const T*)grad_out, work, (float*)grad_loc, (float*)grad_attn, S,
-          Lq, H, P, n_runs, lv);
-      return cudaGetLastError();
+          (const A*)value, (const A*)loc, (const A*)attn, (const A*)grad_out,
+          work, (A*)grad_loc, (A*)grad_attn, S, Lq, H, P, n_runs, lv);
+      return counted(std::is_same<A, double>::value ? MSDA_BWD_RUN_F64
+                                                    : MSDA_BWD_RUN_F32);
     }
   }
   // D = 32 in 16-byte vectors, or in bf16's 8-byte ones: 32 / VEC lanes
@@ -565,7 +727,7 @@ static cudaError_t launch_bwd_bf16_split(
       (const __nv_bfloat16*)value, (const float*)loc, (const float*)attn,
       (const __nv_bfloat16*)grad_out, work, (float*)grad_loc,
       (float*)grad_attn, S, Lq, H, P, n_runs, lv);
-  return cudaGetLastError();
+  return counted(MSDA_BWD_BF16_SPLIT);
 }
 
 static cudaError_t launch_round_bf16(const float* work, void* grad_value,
@@ -679,6 +841,13 @@ int msda_bwd(const void* value, const void* loc, const void* attn,
   }
 #undef MSDA_BWD
   return (int)err;
+}
+
+// out[r] = the launches of route r (MsdaBwdRoute) since the library was
+// loaded, counted on the host where each kernel is enqueued without error.
+void datr_msda_bwd_routes(long long* out) {
+  for (int r = 0; r < MSDA_BWD_ROUTES; ++r)
+    out[r] = g_bwd_routes[r].load(std::memory_order_relaxed);
 }
 
 }  // extern "C"

@@ -128,6 +128,8 @@ struct SampleSetup {
   A fx, fy;    // fractional offsets from the lower corner
   A a;         // attention weight
   int hl, wl;  // the sample's level (the backward scales grad_loc by them)
+  int par;     // parities of the lower corner's pixel, (x0 & 1) | (y0 & 1) << 1:
+               // corner c lies at parities c ^ par
 };
 
 // Lane-parallel set-up: the calling lane takes sample k of the (b, q, h)
@@ -143,6 +145,7 @@ __device__ __forceinline__ SampleSetup<A> msda_setup(const A* loc_w,
   s.off[0] = s.off[1] = s.off[2] = s.off[3] = -1;
   s.fx = s.fy = s.a = (A)0;
   s.hl = s.wl = 1;
+  s.par = 0;
   if (k < LP) {
     const int l = k / P;
     s.hl = lv.h[l];
@@ -152,6 +155,7 @@ __device__ __forceinline__ SampleSetup<A> msda_setup(const A* loc_w,
     s.fx = p.fx;
     s.fy = p.fy;
     s.a = __ldg(attn_w + k);
+    s.par = (p.x0 & 1) | ((p.y0 & 1) << 1);
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int cx = p.x0 + (c & 1), cy = p.y0 + (c >> 1);

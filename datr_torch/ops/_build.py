@@ -38,6 +38,7 @@ _SIGNATURES = {
     "row_gather": ([_P, _P, _P, _I, _L, _I, _I, _I, _P], _I),
     "gather_fma": ([_P, _P, _P, _P, _I, _L, _I, _I, _I, _P], _I),
     "datr_cuda_error_string": ([_I], ctypes.c_char_p),
+    "datr_msda_bwd_routes": ([_P], None),
 }
 
 _lock = threading.Lock()
@@ -103,11 +104,14 @@ def _stale(lib_path: Path) -> bool:
 
 
 def open_library(lib_path: Path):
-    """Load a built library and declare its C entry points."""
+    """Load a built library and declare its C entry points (another
+    commit's library may lack newer ones: calling one raises
+    AttributeError)."""
     lib = ctypes.CDLL(str(lib_path))
     for name, (argtypes, restype) in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = argtypes, restype
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes, fn.restype = argtypes, restype
     return lib
 
 

@@ -281,6 +281,22 @@ def msda_bwd(value: torch.Tensor, spatial_shapes: Shapes,
 
 msda_bwd.launches = 0
 
+# msda_bwd's kernels, in the order of csrc/msda_bwd.cu's MsdaBwdRoute
+BWD_ROUTES = ("msda_bwd_kernel f32", "msda_bwd_kernel bf16",
+              "msda_bwd_kernel f64", "msda_bwd_run_kernel f32",
+              "msda_bwd_run_kernel f64", "msda_bwd_bf16_split_kernel")
+
+
+def msda_bwd_routes() -> dict:
+    """{route: its launches since the kernel library was loaded} for each
+    of msda_bwd's kernels (BWD_ROUTES), counted where the C launcher
+    enqueues each one: the difference over a call says which kernels it
+    went through."""
+    lib = _build.load_library()
+    out = (ctypes.c_longlong * len(BWD_ROUTES))()
+    lib.datr_msda_bwd_routes(out)
+    return dict(zip(BWD_ROUTES, out))
+
 
 # d(corner weight)/d(fx, fy) of corner c = 2*dy + dx, from (fx, fy)
 _DW = (lambda fx, fy: (fy - 1, fx - 1), lambda fx, fy: (1 - fy, -fx),

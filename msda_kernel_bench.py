@@ -2,7 +2,8 @@
 process.
 
     python msda_kernel_bench.py [--source NAME=DIR ...] [--only SUBSTR]
-                                [--dtype f32,bf16] [--split] [--out FILE]
+                                [--dtype f32,bf16,f64] [--split]
+                                [--out FILE]
 
 Run from the repository root, beside chip_smoke.py, whose inputs, bounds,
 models and tolerances it uses. It builds the port's kernel sources
@@ -19,10 +20,17 @@ sample by a normal draw of 1, 4 or 16 pixels of its level (names
 "training encoder moved<n>px": a trained model's offsets spread from
 DINO's initial ones), in each --dtype: f32, and bf16 value / grad_out with
 f32 locations (names ending in "bf16"; the seeded models computing in
-bf16). Every library is held against the plain versions on every case
-(chip_smoke.py's tolerances), then the libraries are timed in turns (a, b,
-b, a) by CUDA events over back-to-back calls of the port's own wrappers;
-the time kept is the mean of the two turns. The backward of a --source
+bf16). f64 (names ending in "f64": value, loc, attn and grad_out all f64,
+the float64 mode's kernels) has the serving shapes only, forward and
+backward, at uniform-random locations, at the f64 flagship's own (the
+batch chip_smoke.py's phase 15f captures them from) and at its encoder's
+moved by 1, 4 and 16 pixels ("serving encoder moved<n>px f64"): the
+float64 mode's training step runs at the serving canvas. Every library is
+held against the plain versions on every case (chip_smoke.py's
+tolerances; f64 against the plain f64 version at F64_TOL), then the
+libraries are timed in turns (a, b, b, a) by CUDA events over
+back-to-back calls of the port's own wrappers; the time kept is the mean
+of the two turns. The backward of a --source
 library in bf16 is called as the port's wrapper called it before its f32
 workspace was zeroed in the C call: zeroed by torch.zeros
 (`zeroed_bf16_bwd`). --split adds, per backward case and library, the
@@ -77,12 +85,17 @@ def build_libraries(source_dirs: dict) -> tuple[dict, dict]:
              for n, _, log in built})
 
 
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "f64": torch.float64}
+
+
 def collect_cases(only=None, device="cuda", dtypes=("f32",)) -> list:
     """(name, value, shapes, loc, attn, grad_out or None) for every MSDA case
     whose name holds `only`, in each of `dtypes` ("f32", "bf16": bf16 value
-    and grad_out, names ending in " bf16", the models computing in bf16);
+    and grad_out, names ending in " bf16", the models computing in bf16;
+    "f64": everything f64, names ending in " f64", serving shapes only);
     the backward is timed at the training shapes only, as on the main
-    path."""
+    path, and in f64 at the serving shapes, where the float64 mode's
+    training step runs."""
     cases = []
     gen = torch.Generator(device=device).manual_seed(0)
 
@@ -100,17 +113,48 @@ def collect_cases(only=None, device="cuda", dtypes=("f32",)) -> list:
         value, shapes, loc, attn = call
         add(name, shapes, value, loc, attn, backward)
 
+    def add_moved(names, call):
+        """The encoder's captured locations, each coordinate moved by a
+        normal draw of px pixels of its level, for each name's px."""
+        value, shapes, loc, attn = call
+        wh = torch.tensor([(w, h) for h, w in shapes], device=device,
+                          dtype=loc.dtype)[:, None, :]  # [L, 1, 2]
+        for px, name in zip(MOVED_PX, names):
+            if kept(name):
+                add(name, shapes, value,
+                    (loc + px / wh * torch.randn(
+                        loc.shape, device=device, generator=gen,
+                        dtype=loc.dtype)).contiguous(), attn, True)
+
     serving = (("encoder", cs.S), ("decoder", cs.N_QUERIES))
     training = (("encoder", cs.TRAIN_S), ("decoder_src", cs.TRAIN_DEC_LQ[0]),
                 ("decoder_tgt", cs.TRAIN_DEC_LQ[1]))
     for dt in dtypes:
         sfx = "" if dt == "f32" else f" {dt}"
-        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        dtype = DTYPES[dt]
+        f64 = dt == "f64"
         amp = cs.BF16 if dt == "bf16" else {}
         for part, lq in serving:
             if kept(f"serving {part} random{sfx}"):
-                add(f"serving {part} random{sfx}", cs.SHAPES,
-                    *cs.msda_inputs(gen, lq, dtype), False)
+                value, loc, attn = cs.msda_inputs(gen, lq, dtype,
+                                                  shapes=cs.SHAPES)
+                add(f"serving {part} random{sfx}", cs.SHAPES, value,
+                    loc.to(msda.compute_dtype(value)),
+                    attn.to(msda.compute_dtype(value)), f64)
+        if f64:
+            moved = [f"serving encoder moved{px}px{sfx}" for px in MOVED_PX]
+            if any(map(kept, [f"serving {part} model{sfx}"
+                              for part, _ in serving] + moved)):
+                model = cs.flagship_model(amp_dtype="float64")
+                _, batch2 = cs.f64_serving_batches(device)
+                calls = cs.capture_msda_calls(msda, lambda: model(*batch2))
+                del model
+                for part, lq in serving:
+                    if kept(f"serving {part} model{sfx}"):
+                        add_captured(f"serving {part} model{sfx}", calls[lq],
+                                     True)
+                add_moved(moved, calls[cs.S])
+            continue
         for part, lq in training:
             if kept(f"training {part} random{sfx}"):
                 add(f"training {part} random{sfx}", cs.TRAIN_SHAPES,
@@ -145,15 +189,7 @@ def collect_cases(only=None, device="cuda", dtypes=("f32",)) -> list:
                 if kept(f"training {part} model{sfx}"):
                     add_captured(f"training {part} model{sfx}", calls[lq],
                                  True)
-            value, shapes, loc, attn = calls[cs.TRAIN_S]
-            wh = torch.tensor([(w, h) for h, w in shapes], device=device,
-                              dtype=loc.dtype)[:, None, :]  # [L, 1, 2]
-            for px, name in zip(MOVED_PX, moved):
-                if kept(name):
-                    add(name, shapes, value,
-                        (loc + px / wh * torch.randn(
-                            loc.shape, device=device, generator=gen,
-                            dtype=loc.dtype)).contiguous(), attn, True)
+            add_moved(moved, calls[cs.TRAIN_S])
     return cases
 
 
@@ -250,29 +286,46 @@ def bwd_call(lib, case, own):
     return lambda: msda.msda_bwd(value, shapes, loc, attn, g)
 
 
+def dtype_name(value) -> str:
+    return next(k for k, v in DTYPES.items() if v == value.dtype)
+
+
+def plain_dtype(value) -> torch.dtype:
+    """The type the plain versions compute a case in: f64 for f64 value,
+    else f32 on the same values."""
+    return torch.float64 if value.dtype == torch.float64 else torch.float32
+
+
 def check_case(case, want, bwd) -> dict:
     """Max abs errors of the loaded library against the plain results
-    `want` (computed in f32 on the same values); raises outside
+    `want` (computed in `plain_dtype` on the same values); raises outside
     chip_smoke.py's tolerances (check_fwd / check_bwd: a bf16 output within
-    one rounding of the f32 sum)."""
+    one rounding of the f32 sum; check_f64_kernels: F64_TOL)."""
     name, value, shapes, loc, attn, g = case
     bf16 = value.dtype == torch.bfloat16
+    f64 = value.dtype == torch.float64
+    wd = plain_dtype(value)
+    max_side = max(max(hw) for hw in shapes)
     got = msda.msda_fwd(value, shapes, loc, attn)
     torch.cuda.synchronize()
-    errs = {"fwd": (got.float() - want["fwd"]).abs().max().item()}
-    torch.testing.assert_close(got.float(), want["fwd"],
-                               **cs.TOL[cs.dtype_name(value)],
-                               msg=lambda m: f"msda_fwd {name}: {m}")
+    errs = {"fwd": (got.to(wd) - want["fwd"]).abs().max().item()}
+    torch.testing.assert_close(
+        got.to(wd), want["fwd"],
+        **(cs.F64_TOL if f64 else cs.TOL[cs.dtype_name(value)]),
+        msg=lambda m: f"msda_fwd {name}: {m}")
     if g is not None:
-        max_side = max(max(hw) for hw in shapes)
         got = bwd()
         torch.cuda.synchronize()
         for part, a, b in zip(("value", "loc", "attn"), got, want["bwd"]):
-            errs[f"grad_{part}"] = (a.float() - b).abs().max().item()
-            rtol = 1e-4 + (2.0 ** -8 if bf16 and part == "value" else 0.0)
-            atol = 1e-5 * (max_side if part == "loc" else 1)
+            errs[f"grad_{part}"] = (a.to(wd) - b).abs().max().item()
+            if f64:
+                rtol, atol = cs.F64_TOL["rtol"], cs.F64_TOL["atol"]
+            else:
+                rtol = 1e-4 + (2.0 ** -8 if bf16 and part == "value" else 0.)
+                atol = 1e-5
             torch.testing.assert_close(
-                a.float(), b, rtol=rtol, atol=atol,
+                a.to(wd), b, rtol=rtol,
+                atol=atol * (max_side if part == "loc" else 1),
                 msg=lambda m: f"msda_bwd {name} grad_{part}: {m}")
     return errs
 
@@ -312,7 +365,8 @@ def main(argv=None) -> int:
                     "msda_common.cuh")
     ap.add_argument("--only", help="run the cases whose name contains this")
     ap.add_argument("--dtype", default="f32,bf16",
-                    help="comma-separated value types of the MSDA cases")
+                    help="comma-separated value types of the MSDA cases "
+                    "(f32, bf16, f64)")
     ap.add_argument("--split", action="store_true",
                     help="profile each backward call by kernel and host")
     ap.add_argument("--out", default="build/msda_kernel_bench.json")
@@ -339,19 +393,26 @@ def main(argv=None) -> int:
         name, value, shapes, loc, attn, g = case
         lq = loc.shape[1]
         elt = value.element_size()
+        f64 = value.dtype == torch.float64
+        wd = plain_dtype(value)
         iters = 10 if lq == value.shape[1] else 50  # encoder / decoder
-        want = {"fwd": msda.ms_deform_attn_plain(value.float(), shapes, loc,
+        want = {"fwd": msda.ms_deform_attn_plain(value.to(wd), shapes, loc,
                                                  attn)}
         fb, _, rows = cs.msda_bound(msda, loc, elt=elt, shapes=shapes)
-        traffic = cs.cache_traffic(msda, loc, shapes, elt=elt)
-        res = dict(case=name, lq=lq, dtype=cs.dtype_name(value),
+        if f64:  # 8-byte elements throughout, f64 operations
+            bounds = cs.msda_f64_bounds(msda, loc, shapes=shapes)
+            fb = bounds["fwd_bound_ms"]
+        traffic = cs.cache_traffic(msda, loc, shapes, elt=elt,
+                                   sum_elt=8 if f64 else 4)
+        res = dict(case=name, lq=lq, dtype=dtype_name(value),
                    fwd_bound_ms=fb, value_rows_read=rows,
                    fwd_cache_bytes=traffic["fwd"], libraries={})
         if g is not None:
             want["bwd"] = msda.ms_deform_attn_plain_bwd(
-                value.float(), shapes, loc, attn, g.float())
-            res["bwd_bound_ms"] = cs.msda_bwd_bound(msda, loc, shapes=shapes,
-                                                    elt=elt)[0]
+                value.to(wd), shapes, loc, attn, g.to(wd))
+            res["bwd_bound_ms"] = (
+                bounds["bwd_bound_ms"] if f64 else
+                cs.msda_bwd_bound(msda, loc, shapes=shapes, elt=elt)[0])
             res["bwd_cache_bytes"] = traffic["bwd"]
         bwds = {lname: bwd_call(lib, case, lname == "new")
                 for lname, lib in libs.items()}

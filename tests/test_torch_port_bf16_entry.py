@@ -22,7 +22,13 @@ from datr_torch.models.layers import Conv2d, Linear
 from datr_torch.serve import InferenceServer
 
 sys.path.insert(0, os.path.dirname(__file__))
-from test_torch_port_cli import LOG_KEYS, _cfg, _log, _run  # noqa: E402
+from test_torch_port_cli import (  # noqa: E402
+    LOG_KEYS,
+    STAGES,
+    _cfg,
+    _log,
+    _run,
+)
 
 K = 4
 BF16 = torch.bfloat16
@@ -87,11 +93,13 @@ def test_server_answers_with_a_bf16_model():
     # the best-EMA evaluation, with the fast norms
     ["--options", "amp_dtype=bfloat16", "fast_norm=True", "burn_epochs=0"],
 ])
-def test_main_runs_in_bf16(tmp_path, extra):
+def test_main_runs_in_bf16(tmp_path, extra, monkeypatch):
     """`python -m datr_torch.main --amp --device cpu` at
     tests/test_main_cli.py's tiny config: one epoch, a finite loss,
     datr_tpu's log.txt keys, and the checkpoint holding f32 parameters,
-    optimizer moments and EMA tracks."""
+    optimizer moments and EMA tracks. One bottleneck block per ResNet
+    stage, as the CLI tests' runs."""
+    monkeypatch.setitem(tdino.RESNET_STAGES, "resnet50", STAGES)
     out = tmp_path / "out"
     _run(_cfg(tmp_path), out, *extra)
     lines = _log(out)

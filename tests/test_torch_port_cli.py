@@ -19,6 +19,7 @@ import torch
 import torch_port_threads  # torch threads under xdist
 
 from datr_torch.main import get_args_parser, main
+from datr_torch.models import dino as tdino
 from datr_torch.train.optim import Optimizer
 
 # tests/test_main_cli.py:17-47
@@ -58,6 +59,10 @@ ema_decay_best_model = 0.5
 # train_* means; ap50_ema with use_ema (:455), ap50_best_ema on
 # self-training epochs (:458-464)
 LOG_KEYS = {"epoch", "lr", "ap50_student", "ap50_teacher", "time"}
+# one bottleneck block per ResNet stage in the CLI's runs (as
+# tests/test_torch_port_utils.py's CLI run): the same CLI paths with a
+# quarter of R50's blocks to draw, run and write to each checkpoint
+STAGES = (1, 1, 1, 1)
 
 
 def _cfg(tmp_path):
@@ -121,6 +126,8 @@ def runs(tmp_path_factory):
     from the burn-in's best_ema_teacher with PIL blocked; --eval --ema
     --save_results from a best family; --test; single-domain training on a
     PNG COCO folder (the plain step, raw-GT evaluation)."""
+    stages = pytest.MonkeyPatch()
+    stages.setitem(tdino.RESNET_STAGES, "resnet50", STAGES)
     tmp = tmp_path_factory.mktemp("cli")
     cfg = _cfg(tmp)
     # the messages of main's logger, kept here (with a handler of its own
@@ -163,6 +170,7 @@ def runs(tmp_path_factory):
     finally:
         logger.removeHandler(msgs)
         logger.setLevel(level)
+        stages.undo()
     return dict(burn=burn, burn_log=burn_log, burn_meta=burn_meta,
                 log=_log(burn), messages=resumed, st=st, ev=ev, stats=stats,
                 te=te, single=single)

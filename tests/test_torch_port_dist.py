@@ -14,9 +14,9 @@ transformation that hands the gradients back (test_torch_port_selftrain.py
 `_stash_grads`), jitted once each at XLA's lowest optimization level, while
 the ranks run. Each rank takes its slice of datr_tpu's CDN draws."""
 
+import functools
 import os
 import sys
-from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -128,16 +128,18 @@ def _run(tmp, tasks=None, world=WORLD, also=None, self_training=True):
             return dict(metrics=metrics, state=new,
                         grads=state_dict_from_flax(new.opt_state))
 
-        # both steps compile at once (XLA releases the GIL)
-        with ThreadPoolExecutor(2) as pool:
-            fns = (jax_burnin, jax_self_training)[:1 + self_training]
-            jax_steps = pool.map(
-                run_step, fns,
-                ({}, dict(class_thresholds=jnp.asarray(thr),
-                          canvas_hw=CANVAS)))
-            one = (also(dict(common, st_draws=draws), jm, params) if also
-                   else None)
-            jax_steps = dict(zip(("burnin", "self_training"), jax_steps))
+        # the steps compile at once (XLA releases the GIL)
+        fns = (jax_burnin, jax_self_training)[:1 + self_training]
+        extras = ({}, dict(class_thresholds=jnp.asarray(thr),
+                           canvas_hw=CANVAS))
+        calls = [functools.partial(run_step, fn, extra)
+                 for fn, extra in zip(fns, extras)]
+        if also:
+            calls.append(lambda: also(dict(common, st_draws=draws), jm,
+                                      params))
+        got = worker.in_threads(*calls, timeout=600)
+        one = got[len(fns)] if also else None
+        jax_steps = dict(zip(("burnin", "self_training"), got[:len(fns)]))
     finally:
         worker.join(ctx)
     res = {name: worker.results(tmp, name, world) for name, _ in task_list}

@@ -13,6 +13,7 @@ weights; the COCO tree's GT are that model's own detections and masks (a
 seeded model finds nothing painted), so the APs are above 0. 5 images over
 2 ranks: one rank evaluates a padded batch."""
 
+import functools
 import json
 import os
 import sys
@@ -190,26 +191,25 @@ class _Procs:
         return jax.tree.map(lambda *xs: np.stack([np.asarray(x)
                                                   for x in xs]), *both)
 
-    def run(self, fn):
-        out, errs = [None] * WORLD, []
-
+    def run(self, fn, timeout=600.0):
+        """fn(p) in each simulated process (a thread, `worker.in_threads`);
+        one that raises, or a thread still running after `timeout`
+        seconds, breaks the barrier and fails the call."""
         def body(p):
             self.local.p = p
             try:
-                out[p] = fn(p)
-            except BaseException as e:  # noqa: BLE001 (re-raised below)
-                errs.append(e)
+                return fn(p)
+            except BaseException:
                 self.barrier.abort()
+                raise
 
-        threads = [threading.Thread(target=body, args=(p,))
-                   for p in range(WORLD)]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join()
-        if errs:
-            raise errs[0]
-        return out
+        try:
+            return worker.in_threads(
+                *[functools.partial(body, p) for p in range(WORLD)],
+                timeout=timeout)
+        except TimeoutError:
+            self.barrier.abort()
+            raise
 
 
 def _records(with_raw_gt: bool):

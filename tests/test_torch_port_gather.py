@@ -1,8 +1,10 @@
 """The gather microbenchmark's plain versions (datr_torch/ops/gather.py)
 against the Pallas kernels they replace, run in interpret mode on the CPU
 (tools/msda_pallas_bench.py:run_copy, run_fma), and against the functions
-the tools document. The interpret-mode runs take about a minute, so they sit
-in this file of their own."""
+the tools document. The interpret-mode runs take the Pallas tool's grid at
+INTERPRET_GRID steps instead of its 16 (its NGRID, read at call time,
+patched here): the first block and the tiling of the rest, which shows the
+tool's idx_ref[i] fault, need no more than two."""
 
 import json
 
@@ -19,6 +21,8 @@ from tools import msda_pallas_bench as jbench
 
 # one bf16 ulp: the f32 sums of two orders may round to neighbouring bf16s
 BF16_ULP = 2.0 ** -7
+# grid steps of the interpret-mode runs: the first block and one more
+INTERPRET_GRID = 2
 
 
 @pytest.fixture(scope="module")
@@ -34,12 +38,13 @@ def test_bench_shapes_are_the_tpu_bench_shapes(inputs):
     assert w.shape == (jbench.NBLK * jbench.NGRID, 1)
 
 
-def test_row_gather_plain_matches_run_copy_first_block(inputs):
+def test_row_gather_plain_matches_run_copy_first_block(inputs, monkeypatch):
     """run_copy in interpret mode equals the port on the first grid block,
     exactly. Beyond it the TPU kernel re-gathers the first block's indices
     on every grid step (copy_kernel reads idx_ref[i], not the step's
     offset); the port computes the documented table[idx] everywhere."""
     table, idx, _ = inputs
+    monkeypatch.setattr(jbench, "NGRID", INTERPRET_GRID)
     with pltpu.force_tpu_interpret_mode():
         out = np.asarray(jbench.run_copy(
             jnp.asarray(table.float().numpy(), jnp.bfloat16),
@@ -47,15 +52,18 @@ def test_row_gather_plain_matches_run_copy_first_block(inputs):
     got = gather.row_gather(table, idx).float().numpy()
     nb = jbench.NBLK
     np.testing.assert_array_equal(got[:nb], out[:nb])
-    np.testing.assert_array_equal(out, np.tile(out[:nb], (jbench.NGRID, 1)))
+    assert out.shape == (nb * INTERPRET_GRID, 128)
+    np.testing.assert_array_equal(out, np.tile(out[:nb], (INTERPRET_GRID, 1)))
+    assert not np.array_equal(out[nb:2 * nb], got[nb:2 * nb])
     np.testing.assert_array_equal(got, table.float().numpy()[idx.numpy()])
 
 
-def test_gather_fma_plain_matches_run_fma_first_block(inputs):
+def test_gather_fma_plain_matches_run_fma_first_block(inputs, monkeypatch):
     """run_fma in interpret mode against the port on the first grid block
     (128 outputs), to one bf16 ulp; the port's plain version against the
     f32 numpy sum over all 2,048 outputs, to one bf16 rounding."""
     table, idx, w = inputs
+    monkeypatch.setattr(jbench, "NGRID", INTERPRET_GRID)
     with pltpu.force_tpu_interpret_mode():
         out = np.asarray(jbench.run_fma(
             jnp.asarray(table.float().numpy(), jnp.bfloat16),

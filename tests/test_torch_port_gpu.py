@@ -1027,6 +1027,130 @@ def test_f64_kernels_match_plain_geometries(cuda, lq, h, p):
             atol=F64_TOL["atol"] * (side if part == "loc" else 1))
 
 
+def _assert_f64_bwd_close(got, value, shapes, loc, attn, g):
+    side = max(max(hw) for hw in shapes)
+    want = msda.ms_deform_attn_plain_bwd(value, shapes, loc, attn, g)
+    for part, a, b in zip(("value", "loc", "attn"), got, want):
+        assert a.dtype == torch.float64
+        torch.testing.assert_close(
+            a, b, rtol=F64_TOL["rtol"],
+            atol=F64_TOL["atol"] * (side if part == "loc" else 1),
+            msg=lambda m: f"grad_{part}: {m}")
+
+
+def _bwd_routed(value, shapes, loc, attn, g, route):
+    """msda_bwd once, counted: its one launch went through `route` (one of
+    msda.BWD_ROUTES, by the C launcher's counts); returns its
+    gradients."""
+    before, routes0 = msda.msda_bwd.launches, msda.msda_bwd_routes()
+    got = msda.msda_bwd(value, shapes, loc, attn, g)
+    torch.cuda.synchronize()
+    routes = msda.msda_bwd_routes()
+    assert msda.msda_bwd.launches == before + 1
+    ran = {r: n - routes0[r] for r, n in routes.items() if n > routes0[r]}
+    assert ran == {route: 1}, (route, ran)
+    return got
+
+
+F64_RUN = "msda_bwd_run_kernel f64"
+F64_SHORT = "msda_bwd_kernel f64"
+
+
+def _run_route_inputs(case, h, lq, p, dtype):
+    """value, loc, attn, grad_out at ENC_SHAPES for the run route's cases
+    (test_msda_bwd_f64_run_route's), all of `dtype`."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    value = torch.randn(2, ENC_S, h, 32, device="cuda", generator=gen,
+                        dtype=dtype)
+    n_l = len(ENC_SHAPES)
+    if case in ("random", "outside"):
+        loc = torch.rand(2, lq, h, n_l, p, 2, device="cuda", generator=gen,
+                         dtype=dtype)
+        loc = loc * 1.6 - 0.3 if case == "outside" else loc
+    elif case == "one_cell":
+        cell = torch.rand(1, 1, h, n_l, p, 2, device="cuda", generator=gen,
+                          dtype=dtype)
+        loc = cell.expand(2, lq, h, n_l, p, 2)
+    else:
+        loc = _encoder_loc(torch.arange(lq, device="cuda"), h, p,
+                           ENC_SHAPES, seed=5).to(dtype)
+        if case.startswith("moved"):
+            wh = torch.tensor([(w, hh) for hh, w in ENC_SHAPES],
+                              device="cuda", dtype=dtype)
+            loc = loc + int(case[5:]) / wh[:, None, :] * torch.randn(
+                loc.shape, device="cuda", generator=gen, dtype=dtype)
+    loc = loc.contiguous()
+    attn = torch.rand(2, lq, h, n_l, p, device="cuda", generator=gen,
+                      dtype=dtype)
+    attn = (attn / attn.sum((-1, -2), keepdim=True)).contiguous()
+    g = torch.randn(2, lq, h * 32, device="cuda", generator=gen,
+                    dtype=dtype)
+    return value, loc, attn, g
+
+
+# The run route: the long launches at D = 32 with 16-byte aligned rows. At
+# ENC_SHAPES' 20,400 queries and 8 or 4 heads, B * Lq * H / 16 is at least
+# twice the blocks 132 SMs hold (the length the route needs).
+RUN_CASES = [
+    ("local", 8, ENC_S, 4),  # merged runs: consecutive queries share rows
+    ("random", 8, ENC_S, 4),  # every corner its own row
+    ("outside", 8, ENC_S, 4),  # corners outside the level, level borders
+    ("moved1", 8, ENC_S, 4),  # the local locations moved by 1 / 4 / 16 px
+    ("moved4", 8, ENC_S, 4),
+    ("moved16", 8, ENC_S, 4),
+    ("local", 4, ENC_S, 4),  # a tensor-parallel rank's 4 heads
+    ("local", 8, ENC_S - 13, 4),  # Lq not a multiple of 8
+    ("local", 8, ENC_S, 2),  # P = 2
+]
+
+
+@pytest.mark.parametrize("case,h,lq,p", RUN_CASES[:3] + [
+    ("one_cell", 8, ENC_S, 4)] + RUN_CASES[3:])  # every sample in one cell
+def test_msda_bwd_f64_run_route(cuda, case, h, lq, p):
+    """The encoder's f64 launches through msda_bwd_run_kernel<double>,
+    against the plain f64 backward at F64_TOL (chip_smoke.py phase 15f's)."""
+    value, loc, attn, g = _run_route_inputs(case, h, lq, p, torch.float64)
+    got = _bwd_routed(value, ENC_SHAPES, loc, attn, g, F64_RUN)
+    _assert_f64_bwd_close(got, value, ENC_SHAPES, loc, attn, g)
+
+
+@pytest.mark.parametrize("case,h,lq,p", RUN_CASES)
+def test_msda_bwd_f32_run_route(cuda, case, h, lq, p):
+    """The same launches in f32 through msda_bwd_run_kernel<float>, the one
+    body both types share, against the plain backward at chip_smoke.py's
+    f32 tolerances (rtol 1e-4, atol 1e-5; grad_loc's atol times the
+    largest level side). Not one_cell: 40,800 addends of one row in f32
+    differ by their order beyond those."""
+    value, loc, attn, g = _run_route_inputs(case, h, lq, p, torch.float32)
+    got = _bwd_routed(value, ENC_SHAPES, loc, attn, g,
+                      "msda_bwd_run_kernel f32")
+    side = max(max(hw) for hw in ENC_SHAPES)
+    want = msda.ms_deform_attn_plain_bwd(value, ENC_SHAPES, loc, attn, g)
+    for part, a, b in zip(("value", "loc", "attn"), got, want):
+        torch.testing.assert_close(
+            a, b, rtol=1e-4, atol=1e-5 * (side if part == "loc" else 1),
+            msg=lambda m: f"grad_{part}: {m}")
+
+
+@pytest.mark.parametrize("d,lq,aligned,route", [
+    (32, 37, True, F64_SHORT),  # a short launch: 16 lanes x 2 doubles a row
+    (32, LONG_LQ, True, F64_RUN),  # long: the run kernel
+    (64, LONG_LQ, True, F64_SHORT),  # D = 64: channel chunks
+    (32, LONG_LQ, False, F64_SHORT),  # rows off 16 bytes: scalar loads
+    (32, 37, False, F64_SHORT),
+])
+def test_msda_bwd_f64_routes_by_geometry(cuda, d, lq, aligned, route):
+    """Which f64 launches take the run route and which keep
+    msda_bwd_kernel, each against the plain f64 backward."""
+    value, loc, attn = _f64_inputs(lq, LONG_H, d, 4, "outside")
+    g = torch.randn(2, lq, LONG_H * d, device="cuda", dtype=torch.float64,
+                    generator=torch.Generator(device="cuda").manual_seed(6))
+    if not aligned:
+        value, g = _misaligned(value), _misaligned(g)
+    got = _bwd_routed(value, SHAPES, loc, attn, g, route)
+    _assert_f64_bwd_close(got, value, SHAPES, loc, attn, g)
+
+
 def test_f64_cuda_never_reaches_the_plain_version(cuda):
     """f64 CUDA tensors go to the f64 kernels through the dispatcher, and
     an f64 value with f32 locations is refused, not computed otherwise."""

@@ -142,9 +142,10 @@ def test_msdeformattn(ref_dim):
         ref[..., 2:] *= 0.5
     mask = pad_mask_flat(rng, 2)
     jm = jlayers.MSDeformAttn(C, len(SHAPES), NH, P)
-    params = perturb(jm.init(jax.random.PRNGKey(0), query, ref, value,
-                             SHAPES, mask))
-    want = jm.apply(params, query, ref, value, SHAPES, mask)
+    params = perturb(jax.jit(lambda k: jm.init(k, query, ref, value, SHAPES,
+                                               mask))(jax.random.PRNGKey(0)))
+    want = jax.jit(lambda p: jm.apply(p, query, ref, value, SHAPES,
+                                      mask))(params)
     tm = load(tlayers.MSDeformAttn(C, len(SHAPES), NH, P), params)
     with torch.no_grad():
         got = tm(t(query), t(ref), t(value), SHAPES, t(mask))
@@ -158,8 +159,8 @@ def test_resnet_trunk():
     img = np.random.default_rng(0).standard_normal(
         (1, 64, 96, 3)).astype(np.float32)
     jm = jresnet.ResNet()
-    params = perturb(jm.init(jax.random.PRNGKey(0), img))
-    want = jm.apply(params, img)
+    params = perturb(jax.jit(jm.init)(jax.random.PRNGKey(0), img))
+    want = jax.jit(jm.apply)(params, img)
     tm = load(tresnet.ResNet(), params)
     with torch.no_grad():
         got = tm(t(img))
@@ -183,9 +184,10 @@ def test_encoder_layer():
         ttrans.encoder_reference_points(SHAPES, t(vr)).numpy(), ref,
         rtol=0, atol=1e-6)
     jm = jtrans.DeformableEncoderLayer(C, 64, len(SHAPES), NH, P)
-    params = perturb(jm.init(jax.random.PRNGKey(0), src, pos, ref, SHAPES,
-                             mask))
-    want = jm.apply(params, src, pos, ref, SHAPES, mask)
+    params = perturb(jax.jit(lambda k: jm.init(k, src, pos, ref, SHAPES,
+                                               mask))(jax.random.PRNGKey(0)))
+    want = jax.jit(lambda p: jm.apply(p, src, pos, ref, SHAPES, mask))(
+        params)
     tm = load(ttrans.DeformableEncoderLayer(C, 64, len(SHAPES), NH, P),
               params)
     with torch.no_grad():
@@ -211,9 +213,10 @@ def test_decoder_layer():
     ref = rng.random((2, NQ, len(SHAPES), 4)).astype(np.float32) * 0.6 + 0.2
     mask = pad_mask_flat(rng, 2)
     jm = jtrans.DeformableDecoderLayer(C, 64, len(SHAPES), NH, P)
-    params = perturb(jm.init(jax.random.PRNGKey(0), tgt, qpos, memory, ref,
-                             SHAPES, mask))
-    want = jm.apply(params, tgt, qpos, memory, ref, SHAPES, mask)
+    params = perturb(jax.jit(lambda k: jm.init(
+        k, tgt, qpos, memory, ref, SHAPES, mask))(jax.random.PRNGKey(0)))
+    want = jax.jit(lambda p: jm.apply(p, tgt, qpos, memory, ref, SHAPES,
+                                      mask))(params)
     tm = load(ttrans.DeformableDecoderLayer(C, 64, len(SHAPES), NH, P),
               params)
     with torch.no_grad():

@@ -225,3 +225,23 @@ def test_c_signature_matches_the_wrapper():
     assert restype is I
     assert [n for n in msda._build._SIGNATURES
             if n.startswith("msda_bwd")] == ["msda_bwd"]
+
+
+def test_route_counts_read_from_the_library(monkeypatch):
+    """msda_bwd_routes reads one count per route from the library's
+    `datr_msda_bwd_routes`, declared to take one pointer, in the order of
+    BWD_ROUTES (csrc/msda_bwd.cu's MsdaBwdRoute)."""
+    assert msda._build._SIGNATURES["datr_msda_bwd_routes"] == (
+        [ctypes.c_void_p], None)
+
+    def fill(out):
+        for r in range(len(msda.BWD_ROUTES)):
+            out[r] = 10 * r + 1
+
+    monkeypatch.setattr(msda._build, "load_library",
+                        lambda: SimpleNamespace(datr_msda_bwd_routes=fill))
+    assert msda.msda_bwd_routes() == {
+        r: 10 * i + 1 for i, r in enumerate(msda.BWD_ROUTES)}
+    src = (msda._build.CSRC_DIR / "msda_bwd.cu").read_text()
+    enum = src[src.index("enum MsdaBwdRoute"):].split("};")[0]
+    assert enum.count("= ") == len(msda.BWD_ROUTES) + 1  # and the count

@@ -24,7 +24,6 @@ lowest optimization level while the ranks run."""
 
 import os
 import sys
-from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -180,10 +179,8 @@ def _run(tmp):
             return dict(out={k: np.asarray(out[k]) for k in
                              ("pred_logits", "pred_boxes")})
 
-        with ThreadPoolExecutor(2) as pool:
-            f_step, f_fwd = pool.submit(step), pool.submit(forward)
-            toys = _jax_gpipe_cases()
-            jax_step, jax_fwd = f_step.result(), f_fwd.result()
+        jax_step, jax_fwd, toys = worker.in_threads(
+            step, forward, _jax_gpipe_cases, timeout=600)
     finally:
         worker.join(ctx)
     return dict(toys=toys, jax_step=jax_step, jax_fwd=jax_fwd,

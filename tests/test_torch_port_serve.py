@@ -53,8 +53,10 @@ def _perturb(params, seed=0):
 def models():
     jm = DINO(**KW, dn_number=2, dn_single_pad=2, dn_labelbook_size=K,
               use_remat=False)
-    params = jm.init(jax.random.PRNGKey(0), jnp.zeros((1, *CANVAS, 3)),
-                     jnp.zeros((1, *CANVAS), bool), train=False)
+    # one jitted init: eagerly, every op of the init compiles on its own
+    params = jax.jit(lambda key: jm.init(
+        key, jnp.zeros((1, *CANVAS, 3)), jnp.zeros((1, *CANVAS), bool),
+        train=False))(jax.random.PRNGKey(0))
     params = {"params": _perturb(params["params"])}
     tm = TorchDINO(**KW)
     load_flax_params(tm, params)

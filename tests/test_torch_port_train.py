@@ -359,8 +359,8 @@ def test_criterion_loss_dict(step, matcher):
     kw = dict(num_classes=K, dn_single_pad=2, dn_groups=2,
               matcher_type=matcher)
     want = step["jax"]["losses"]
-    if matcher != "HungarianMatcher":
-        want = jax.device_get(jcrit.criterion(
+    if matcher != "HungarianMatcher":  # jitted, as the fixture's losses
+        want = jax.device_get(jax.jit(jcrit.criterion, static_argnums=4)(
             jax.tree.map(jnp.asarray, step["jax"]["out"]), b["labels"],
             b["boxes"], b["valid"], jcrit.CriterionCfg(**kw)))
     out = {k: t(v) for k, v in step["jax"]["out"].items()}

@@ -180,15 +180,19 @@ def test_f64_model_matches_datr_tpu_x64():
                                    err_msg=key)
 
 
-def test_cli_runs_float64(tmp_path):
+def test_cli_runs_float64(tmp_path, monkeypatch):
     """`python -m datr_torch.main --options amp_dtype=float64`: one tiny
-    burn-in epoch and its evaluations, finite losses in the log."""
+    burn-in epoch and its evaluations, finite losses in the log (one
+    bottleneck block per ResNet stage, as the CLI tests' runs)."""
     import json
 
     from datr_torch.main import get_args_parser, main
+    from datr_torch.models import dino as tdino
 
     sys.path.insert(0, os.path.dirname(__file__))
-    from test_torch_port_cli import _cfg
+    from test_torch_port_cli import STAGES, _cfg
+
+    monkeypatch.setitem(tdino.RESNET_STAGES, "resnet50", STAGES)
 
     out = tmp_path / "out"
     main(get_args_parser().parse_args([
@@ -200,4 +204,4 @@ def test_cli_runs_float64(tmp_path):
              .splitlines() if ln.startswith("{")]
     assert lines and np.isfinite(lines[-1]["train_loss"])
     assert "ap50_student" in lines[-1]
-    shutil.rmtree(out)  # ~1 GB of checkpoints: the suite shares one disk
+    shutil.rmtree(out)  # its checkpoints: the suite shares one disk

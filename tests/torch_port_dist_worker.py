@@ -6,8 +6,13 @@ each joins a gloo process group through a FileStore in `tmp` (no port to
 pick), runs every task of `tasks` in order and saves each one's result to
 `tmp/<task>.rank<r>.pt`. A task is (name, kwargs); "fn:case" runs TASKS
 ["fn"] and names its results "fn:case". A rank that raises fails the
-spawn's `join`. This module and everything a rank imports are torch and
-datr_torch only: no rank imports JAX.
+spawn's `join`, and so does a rank still running at `join`'s deadline
+(600 s by default): the ranks are then terminated, so that a rank stuck
+in a collective fails its test instead of holding the whole run.
+`in_threads(*fns, timeout=600)` bounds the wait on the JAX references
+that the tests compute in threads beside the ranks the same way. This
+module and everything a rank imports are torch and datr_torch only: no
+rank imports JAX.
 """
 
 from __future__ import annotations
@@ -15,6 +20,8 @@ from __future__ import annotations
 import contextlib
 import os
 import sys
+import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -22,8 +29,8 @@ import torch
 
 
 def spawn(tasks, world: int, tmp):
-    """Start the ranks; returns the ProcessContext (call `.join()`, which
-    raises a rank's exception, until it returns True)."""
+    """Start the ranks; returns the ProcessContext (wait on it with
+    `join`)."""
     import torch.multiprocessing as mp
 
     tmp = Path(tmp)
@@ -34,9 +41,56 @@ def spawn(tasks, world: int, tmp):
                               start_method="spawn")
 
 
-def join(ctx):
-    while not ctx.join():
-        pass
+def join(ctx, timeout: float = 600.0):
+    """Wait for the ranks of `ctx`, raising a rank's exception as soon as
+    that rank ends. Past `timeout` seconds, terminate every rank still
+    alive and raise TimeoutError naming them."""
+    deadline = time.monotonic() + timeout
+    while not ctx.join(min(5.0, max(0.0, deadline - time.monotonic()))):
+        if time.monotonic() < deadline:
+            continue
+        alive = [r for r, p in enumerate(ctx.processes) if p.is_alive()]
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+        for p in ctx.processes:
+            p.join(10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        raise TimeoutError(f"ranks {alive} of {len(ctx.processes)} still "
+                           f"running after {timeout:g} s: terminated")
+
+
+def in_threads(*fns, timeout: float = 600.0) -> list:
+    """fn() for each of `fns`, all at once, each in a daemon thread of its
+    own; their results in order. Raises the first exception a fn raised,
+    or, past `timeout` seconds, TimeoutError naming the fns still running
+    (their daemon threads hold neither the test nor the process's
+    exit)."""
+    out, errs = [None] * len(fns), [None] * len(fns)
+
+    def body(i):
+        try:
+            out[i] = fns[i]()
+        except BaseException as e:  # noqa: BLE001 (re-raised below)
+            errs[i] = e
+
+    threads = [threading.Thread(target=body, args=(i,), daemon=True)
+               for i in range(len(fns))]
+    for th in threads:
+        th.start()
+    deadline = time.monotonic() + timeout
+    for th in threads:
+        th.join(max(0.0, deadline - time.monotonic()))
+    late = [i for i, th in enumerate(threads) if th.is_alive()]
+    err = next((e for e in errs if e is not None), None)
+    if err is not None:
+        raise err
+    if late:
+        raise TimeoutError(f"threads {late} of {len(fns)} still running "
+                           f"after {timeout:g} s")
+    return out
 
 
 def _file(tmp, task: str, rank: int) -> Path:
@@ -169,14 +223,16 @@ def _draws(draws, rank, world, device="cpu"):
 
 def steps(rank, world, stages, kw, sd, batch, ccfg, wd, burnin_draws,
           st_draws, thr, canvas, lr, lr_backbone, fsdp=False, device="cpu",
-          tp=1, sp=1):
+          tp=1, sp=1, digest_others=False):
     """A burn-in and a self-training step, each from the given weights, on
     this rank's data share of the global batch, the student in DDP (or
     sharded by FSDP), on a mesh of `tp` x `sp` model ranks when either is
     above 1 (the model's `sp_axis` then 'seq'): the metrics, the whole
     gradients the optimizer was given, the whole state after each step,
     the matcher's assignments, the MSDA kernels' launches (forward,
-    backward; 0 on the CPU), and for FSDP the bytes each rank holds."""
+    backward; 0 on the CPU), and for FSDP the bytes each rank holds.
+    With `digest_others`, ranks other than 0 return their state after the
+    step as a `_digest` and no gradients (for bitwise comparisons only)."""
     from datr_torch.parallel import dist as pdist
     from datr_torch.parallel.mesh import (
         local_bytes,
@@ -219,8 +275,11 @@ def steps(rank, world, stages, kw, sd, batch, ccfg, wd, burnin_draws,
         msda.msda_fwd.launches = msda.msda_bwd.launches = 0
         with _record_matches() as matches:
             metrics = {k: v.item() for k, v in run(state).items()}
+        after = _snapshot(state)
+        if digest_others and rank != 0:
+            grads, after = None, _digest(after)
         out[name] = dict(metrics=metrics, grads=grads, matches=matches,
-                         after=_snapshot(state),
+                         after=after,
                          launches=(msda.msda_fwd.launches,
                                    msda.msda_bwd.launches))
         if fsdp:
@@ -337,7 +396,8 @@ def tp_ckpt(rank, world, stages, kw, sd, lr, lr_backbone, batch, ccfg, wd,
             draws, save_to):
     """On dp 2 x tp 2: one burn-in step, its sharded save and its whole
     save (the state as saved, gathered); then on dp 1 x tp 4, a fresh
-    state loading the sharded save (the state as loaded, gathered)."""
+    state loading the sharded save (the state as loaded, gathered). The
+    states are returned as `_digest`s."""
     from datr_torch.parallel import dist as pdist
     from datr_torch.parallel.mesh import (
         make_mesh,
@@ -367,7 +427,7 @@ def tp_ckpt(rank, world, stages, kw, sd, lr, lr_backbone, batch, ccfg, wd,
     fresh, meta = load_checkpoint_sharded(save_to, fresh)
     loaded = _opt_snapshot(fresh)
     loaded.update(_snapshot(fresh), step=fresh.step, meta=meta)
-    return dict(saved=saved, loaded=loaded)
+    return dict(saved=_digest(saved), loaded=_digest(loaded))
 
 
 def tp_fsdp_ckpt(rank, world, stages, kw, sd, lr, lr_backbone, batch, ccfg,
@@ -579,7 +639,14 @@ def cli(rank, world, stages, argv):
     return seen
 
 
-TASKS = {"steps": steps, "evaluate": evaluate, "dcp": dcp, "cli": cli,
-         "tp_ckpt": tp_ckpt, "tp_fsdp_ckpt": tp_fsdp_ckpt,
+def sleep(rank, world, seconds, ranks):
+    """Ranks `ranks` sleep for `seconds` (a rank that does not finish)."""
+    if rank in ranks:
+        time.sleep(seconds)
+    return rank
+
+
+TASKS = {"sleep": sleep, "steps": steps, "evaluate": evaluate, "dcp": dcp,
+         "cli": cli, "tp_ckpt": tp_ckpt, "tp_fsdp_ckpt": tp_fsdp_ckpt,
          "gpipe_cases": gpipe_cases,
          "pp_model": pp_model, "sp_forward": sp_forward}
