@@ -96,7 +96,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
      self-training in bf16 (warm-up + 3 timed steps, launches 60 / 24, one
      step against the plain bf16 step, evaluate of the EMA teacher on 8
      images); phase 7's CLI run again with `--amp` (launches as derived,
-     f32 parameters); each part's state freed before the next;
+     f32 parameters); each part's state freed before the next. Every
+     msda_fwd check and timing (every phase) goes through the kernel its
+     geometry takes (`fwd_route`, by the C launcher's counts,
+     msda.msda_fwd_routes), and on the bf16 serving and training paths the
+     encoder's launches through msda_fwd_bf16_run_kernel, the decoder's
+     through msda_fwd_kernel;
   9. the serving surface (runs after 4, before 6): the flagship behind
      serve_http on a local port, in f32 (TF32 off) and in bf16, with the
      u8 and the yuv420 wire: /healthz and /stats, 8 POSTs of PNG bodies
@@ -467,19 +472,83 @@ def msda_bwd_bound(msda, loc, d=D, shapes=SHAPES, elt=4):
     return (*roofline(n_bytes, flops), rows)
 
 
+# msda_fwd's kernels (ops/msda.py's FWD_ROUTES): bf16's long launches at
+# D = 32 with 16-byte aligned value take the run kernel, every other launch
+# msda_fwd_kernel of value's type (csrc/msda_fwd.cu:launch_fwd)
+BF16_RUN = "msda_fwd_bf16_run_kernel"
+
+
+def fwd_route(value, loc) -> str:
+    """The msda_fwd kernel a launch on these inputs takes: the bf16 run
+    kernel where value is bf16 with D = 32 on a 16-byte boundary and the
+    launch long (msda_plan's test: at 16 (b, q, h) a block, at least twice
+    the blocks the card's SMs hold at once), else msda_fwd_kernel."""
+    b, s_tok, heads, d = value.shape
+    lq, n_p = loc.shape[1], loc.shape[4]
+    sms = torch.cuda.get_device_properties(
+        value.device).multi_processor_count
+    long_launch = -(-b * lq * heads // 16) >= 2 * sms * (2048 // 128)
+    if (value.dtype == torch.bfloat16 and d == 32 and n_p > 0 and long_launch
+            and value.data_ptr() % 16 == 0 and s_tok * heads * d < 2 ** 31):
+        return BF16_RUN
+    return "msda_fwd_kernel " + {torch.float32: "f32", torch.bfloat16: "bf16",
+                                 torch.float64: "f64"}[value.dtype]
+
+
+def fwd_routes_since(msda, before) -> dict:
+    """{route: msda_fwd launches through it} since `before` (a reading of
+    msda.msda_fwd_routes(), the C launcher's counts)."""
+    after = msda.msda_fwd_routes()
+    return {r: n - before[r] for r, n in after.items() if n > before[r]}
+
+
+def fwd_routed(msda, fn, value, loc):
+    """fn(), whose msda_fwd launches are all on these inputs: each of them
+    went through fwd_route's kernel, by the C launcher's counts (on CUDA
+    tensors; a CPU rehearsal has no launcher)."""
+    if not value.is_cuda:
+        return fn()
+    before, n0 = msda.msda_fwd_routes(), msda.msda_fwd.launches
+    got = fn()
+    ran = fwd_routes_since(msda, before)
+    want = {fwd_route(value, loc): msda.msda_fwd.launches - n0}
+    assert ran == want, (ran, want)
+    return got
+
+
+def assert_bf16_routes(routes, n_enc, n_all):
+    """A bf16 main path's msda_fwd launches (`routes`, fwd_routes_since's)
+    went, the encoder's n_enc through the run kernel and the decoder's rest
+    through msda_fwd_kernel."""
+    want = {BF16_RUN: n_enc, "msda_fwd_kernel bf16": n_all - n_enc}
+    assert routes == {r: n for r, n in want.items() if n}, (routes, want)
+
+
+def encoder_msda(model) -> int:
+    """The MSDeformAttn modules of the model's encoder layers."""
+    from datr_torch.models.layers import MSDeformAttn
+    from datr_torch.models.transformer import DeformableEncoderLayer
+
+    return sum(isinstance(m, MSDeformAttn) for e in model.modules()
+               if isinstance(e, DeformableEncoderLayer) for m in e.modules())
+
+
 def time_fwd(msda, value, shapes, loc, attn, iters, p_iters) -> dict:
     """msda_fwd per launch on these inputs beside its plain version, its
     device-memory bound, and the bytes it requests from the caches with the
-    rate at which they were delivered."""
+    rate at which they were delivered; every timed launch through the
+    kernel its geometry takes (`route`)."""
     d, elt = value.shape[-1], value.element_size()
-    ms = cuda_ms(lambda: msda.msda_fwd(value, shapes, loc, attn), iters)
+    ms = fwd_routed(msda, lambda: cuda_ms(
+        lambda: msda.msda_fwd(value, shapes, loc, attn), iters), value, loc)
     plain_ms = cuda_ms(lambda: msda.ms_deform_attn_plain(
         value, shapes, loc, attn), p_iters, warmup=1)
     bound_ms, bound_by, rows = msda_bound(msda, loc, elt, d, shapes)
     req = cache_traffic(msda, loc, shapes, d, elt)["fwd"]
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, value_rows_read=rows, cache_bytes=req,
-                cache_tb_s=req / ms / 1e9)
+                cache_tb_s=req / ms / 1e9,
+                route=fwd_route(value, loc) if value.is_cuda else None)
 
 
 def time_bwd(msda, value, shapes, loc, attn, g, iters, p_iters) -> dict:
@@ -501,9 +570,11 @@ def dtype_name(t) -> str:
 
 def check_fwd(msda, name, value, shapes, loc, attn) -> float:
     """msda_fwd against its plain version in f32 on the same values
-    (TOL by value's dtype: a bf16 output is one rounding of the f32 sum).
-    Returns the max abs error."""
-    got = msda.msda_fwd(value, shapes, loc, attn)
+    (TOL by value's dtype: a bf16 output is one rounding of the f32 sum),
+    through the kernel its geometry takes (fwd_route). Returns the max abs
+    error."""
+    got = fwd_routed(msda, lambda: msda.msda_fwd(value, shapes, loc, attn),
+                     value, loc)
     torch.cuda.synchronize()
     want = msda.ms_deform_attn_plain(value.float(), shapes, loc, attn)
     err = (got.float() - want).abs().max().item()
@@ -2063,8 +2134,12 @@ S5 = sum(h * w for h, w in SHAPES5)  # 89,523 tokens
 #   proposals'). The largest differences do not separate bf16 from f32, so
 #   memory is held at 2^-3 and boxes at 1e-2 (a limit of 1e-2 on memory
 #   would lie below the floor); the mean memory (6.5e-3) and the logits
-#   (0.04) lie between floor and control, and the control must exceed
-#   them.
+#   (0.035) lie between floor and control, and the control must exceed
+#   them. Every run holds the kernel run's top-k, so the control moves
+#   with the kernel's near-ties: since the bf16 encoder launches take the
+#   run kernel the logits read 0.03125 / 0.03125 / 0.0397 (mean memory
+#   5.19e-3 / 5.03e-3 / 7.76e-3, on the same card), the control below
+#   the 0.04 limit held until then; 0.035 lies between floor and control.
 # - training step (burn-in; self-training), with the MSDA cells held too,
 #   over three runs: losses 1.0-1.3e-3 / 0.7-1.2e-3 / 1.8-3.4e-3;
 #   2.0-2.1e-3 / 1.1-1.9e-3 / 4.7-6.9e-3; median gradient 3.4-3.7e-3 /
@@ -2084,7 +2159,7 @@ S5 = sum(h * w for h, w in SHAPES5)  # 89,523 tokens
 #   it, whichever is larger: on the floor's 20 largest tensors the kernel
 #   run's error stays within 1.3x of the floor's.
 BF16_FWD_TOL = {"memory": 2.0 ** -3, "memory_mean_abs": 6.5e-3,
-                "pred_logits": 0.04, "pred_boxes": 1e-2, "topk_scores": 5e-2}
+                "pred_logits": 0.035, "pred_boxes": 1e-2, "topk_scores": 5e-2}
 BF16_FWD_SEPARATES = ("memory_mean_abs", "pred_logits")
 FLOOR_MARGIN = 1.5
 BF16_STEP_TOL = dict(loss_tol=5e-3, grad_tol=0.15, median_grad_tol=6e-3,
@@ -2185,9 +2260,11 @@ def serve_requests(srv, msda, imgs) -> dict:
     from datr_torch.models.layers import MSDeformAttn
 
     n_msda = sum(isinstance(m, MSDeformAttn) for m in srv.model.modules())
+    routes0 = msda.msda_fwd_routes() if torch.cuda.is_available() else None
     msda.msda_fwd.launches = 0
     results = [f.result(timeout=600) for f in [srv.submit(im) for im in imgs]]
     launches = msda.msda_fwd.launches
+    routes = fwd_routes_since(msda, routes0) if routes0 else None
     st = srv.stats()
     assert st["requests"] == len(imgs)
     assert launches == n_msda * st["batches"], (launches, st["batches"])
@@ -2199,7 +2276,8 @@ def serve_requests(srv, msda, imgs) -> dict:
         assert (r["boxes"][:, 2] <= im.shape[1]).all()
         assert (r["boxes"][:, 3] <= im.shape[0]).all()
     return dict(requests=len(results), batches=st["batches"],
-                launches=launches)
+                launches=launches, fwd_routes=routes,
+                encoder_launches=encoder_msda(srv.model) * st["batches"])
 
 
 def run_bf16_serving(msda, card) -> dict:
@@ -2219,6 +2297,8 @@ def run_bf16_serving(msda, card) -> dict:
             srv.warmup()
             torch.cuda.synchronize()
             res = serve_requests(srv, msda, imgs)
+            assert_bf16_routes(res["fwd_routes"], res["encoder_launches"],
+                               res["launches"])
             batch, sizes = serving_batch(srv, imgs)
             if not fast:
                 calls = capture_msda_calls(msda,
@@ -2252,6 +2332,8 @@ def run_bf16_serving(msda, card) -> dict:
             srv.warmup()
             torch.cuda.synchronize()
             res = serve_requests(srv, msda, imgs[:2])
+            assert_bf16_routes(res["fwd_routes"], res["encoder_launches"],
+                               res["launches"])
             batch, sizes = serving_batch(srv, imgs)
             res["step_ms"] = cuda_ms(lambda: srv._step(batch, sizes), 5,
                                      warmup=1)
@@ -2285,6 +2367,7 @@ def assert_state_f32(state):
 def timed_epoch(msda, fn, n_steps) -> dict:
     """The main path of a training run: counts from 0, fn() (an epoch of
     n_steps), counts read; s/step by CUDA events, peak memory."""
+    routes0 = msda.msda_fwd_routes() if torch.cuda.is_available() else None
     msda.msda_fwd.launches = msda.msda_bwd.launches = 0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -2293,13 +2376,15 @@ def timed_epoch(msda, fn, n_steps) -> dict:
     metrics = fn()
     end.record()
     torch.cuda.synchronize()
+    routes = fwd_routes_since(msda, routes0) if routes0 else None
     wall_s = time.perf_counter() - t0
     step_s = start.elapsed_time(end) / 1e3 / n_steps
     return dict(metrics=metrics, step_s=step_s, img_s=4 / step_s,
                 host_step_s=wall_s / n_steps,
                 peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
                 launches=dict(msda_fwd=msda.msda_fwd.launches,
-                              msda_bwd=msda.msda_bwd.launches))
+                              msda_bwd=msda.msda_bwd.launches),
+                fwd_routes=routes)
 
 
 def run_bf16_training(msda, card) -> dict:
@@ -2345,6 +2430,8 @@ def run_bf16_training(msda, card) -> dict:
         f"{metrics['loss']:.4f} (warm-up {warm['loss']:.4f})")
     assert r["launches"] == dict(msda_fwd=want_fwd * len(steps),
                                  msda_bwd=want_bwd * len(steps)), r
+    assert_bf16_routes(r["fwd_routes"], want_fwd * len(steps)
+                       * encoder_msda(model) // n_msda, want_fwd * len(steps))
     assert all(np.isfinite(v) for v in metrics.values()), metrics
     assert_state_f32(state)
 
@@ -2413,6 +2500,8 @@ def run_bf16_self_training(msda, card) -> dict:
         f"loss {metrics['loss']:.4f}")
     assert r["launches"] == dict(msda_fwd=want_fwd * len(steps),
                                  msda_bwd=want_bwd * len(steps)), r
+    assert_bf16_routes(r["fwd_routes"], want_fwd * len(steps)
+                       * encoder_msda(model) // n_msda, want_fwd * len(steps))
     assert metrics["num_pseudo"] > 0 and metrics["loss_ce_target"] > 0
     assert all(np.isfinite(v) for v in metrics.values()), metrics
     assert_state_f32(state)
@@ -2466,6 +2555,17 @@ def run_bf16(msda, card) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     assert out["cli"]["dtype"] == "bfloat16", out["cli"]["dtype"]
+    # the main paths' msda_fwd launches by kernel (each held to its
+    # geometry's above): serving, burn-in and self-training steps
+    out["fwd_routes"] = {}
+    for res in (*(out["serving"][k] for k in ("plain_norm", "fast_norm",
+                                              "5scale", "4scale_fast")),
+                out["training"], out["self_training"]):
+        for r, n in res["fwd_routes"].items():
+            out["fwd_routes"][r] = out["fwd_routes"].get(r, 0) + n
+    log(f"  bf16 main paths' msda_fwd launches by kernel: "
+        f"{out['fwd_routes']}")
+    assert out["fwd_routes"].get(BF16_RUN, 0) > 0, out["fwd_routes"]
     return out
 
 
@@ -6144,6 +6244,29 @@ def main() -> int:
             "per_step"][0],
         "per_launch_train_p2_bf16_model": dsm,
         "per_train_step_p2_bf16_model": ds_step["fwd"],
+    }, {
+        # the bf16 forward's encoder launches (phase 8): a warp serves 8
+        # queries at once; launches by the C launcher's counts on the bf16
+        # main paths (serving, burn-in and self-training steps); times per
+        # serving-encoder launch at the bf16 flagship's own locations
+        "name": "msda_fwd_bf16_run_kernel",
+        "route": "cuda",
+        "source": "datr_torch/csrc/msda_fwd.cu",
+        "replaces": "datr_tpu/ops/msda_pallas.py:45",
+        "launches": bf["fwd_routes"][BF16_RUN],
+        "launches_by_kernel": bf["fwd_routes"],
+        "max_abs_err": max(v for n, v in bf_errs.items()
+                           if n.startswith("msda_fwd") and "bf16" in n
+                           and "enc" in n),
+        "ms": bsm["encoder"]["ms"],
+        "plain_ms": bsm["encoder"]["plain_ms"],
+        "bound_ms": bsm["encoder"]["bound_ms"],
+        "bound_by": bsm["encoder"]["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes MSDA
+        "train_encoder_model": {k: btm["encoder"][k] for k in (
+            "fwd_ms", "fwd_plain_ms", "fwd_bound_ms", "fwd_route")},
+        "train_encoder_random": {k: bt["encoder"][f"fwd_{k}_bf16"] for k in (
+            "ms", "plain_ms", "bound_ms", "route")},
     }, {
         "name": "msda_bwd",
         "route": "cuda",

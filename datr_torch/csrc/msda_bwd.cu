@@ -125,7 +125,6 @@
 
 #include <cuda_runtime.h>
 
-#include <atomic>
 #include <type_traits>
 
 #include "msda_common.cuh"
@@ -141,15 +140,6 @@ enum MsdaBwdRoute {
   MSDA_BWD_ROUTES = 6
 };
 static std::atomic<long long> g_bwd_routes[MSDA_BWD_ROUTES];
-
-// The launch error of the kernel just enqueued; counts the launch under its
-// route when there is none.
-static cudaError_t counted(MsdaBwdRoute route) {
-  const cudaError_t err = cudaGetLastError();
-  if (err == cudaSuccess)
-    g_bwd_routes[route].fetch_add(1, std::memory_order_relaxed);
-  return err;
-}
 
 // p[0..VEC) += v, as one reduction of VEC*4 bytes (p aligned to them).
 template <int VEC>
@@ -516,9 +506,10 @@ static cudaError_t launch_bwd_as(const void* value, const void* loc,
           (const T*)value, (const A*)loc, (const A*)attn, (const T*)grad_out,
           work, (A*)grad_loc, (A*)grad_attn, S, Lq, H, D, P, wk, lv);
   // by value's type: MSDA_BWD_KERNEL_F32 / _BF16 / _F64
-  return counted(std::is_same<T, float>::value    ? MSDA_BWD_KERNEL_F32
-                 : std::is_same<T, double>::value ? MSDA_BWD_KERNEL_F64
-                                                  : MSDA_BWD_KERNEL_BF16);
+  return msda_counted(g_bwd_routes,
+                      std::is_same<T, float>::value    ? MSDA_BWD_KERNEL_F32
+                      : std::is_same<T, double>::value ? MSDA_BWD_KERNEL_F64
+                                                       : MSDA_BWD_KERNEL_BF16);
 }
 
 template <typename T, typename A, int VEC>
@@ -545,8 +536,9 @@ static cudaError_t launch_bwd(const void* value, const void* loc,
                                MSDA_THREADS, 0, stream>>>(
           (const A*)value, (const A*)loc, (const A*)attn, (const A*)grad_out,
           work, (A*)grad_loc, (A*)grad_attn, S, Lq, H, P, n_runs, lv);
-      return counted(std::is_same<A, double>::value ? MSDA_BWD_RUN_F64
-                                                    : MSDA_BWD_RUN_F32);
+      return msda_counted(g_bwd_routes, std::is_same<A, double>::value
+                                            ? MSDA_BWD_RUN_F64
+                                            : MSDA_BWD_RUN_F32);
     }
   }
   // D = 32 in 16-byte vectors, or in bf16's 8-byte ones: 32 / VEC lanes
@@ -727,7 +719,7 @@ static cudaError_t launch_bwd_bf16_split(
       (const __nv_bfloat16*)value, (const float*)loc, (const float*)attn,
       (const __nv_bfloat16*)grad_out, work, (float*)grad_loc,
       (float*)grad_attn, S, Lq, H, P, n_runs, lv);
-  return counted(MSDA_BWD_BF16_SPLIT);
+  return msda_counted(g_bwd_routes, MSDA_BWD_BF16_SPLIT);
 }
 
 static cudaError_t launch_round_bf16(const float* work, void* grad_value,

@@ -14,6 +14,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
+
 #define MSDA_MAX_LEVELS 8
 #define MSDA_MAX_DEVICES 64                 // per-device caches below
 #define MSDA_THREADS 128                    // 4 warps per block
@@ -207,15 +209,30 @@ static inline cudaError_t msda_sm_count(int device, int* sms) {
   return cudaSuccess;
 }
 
-// The kernels use no shared memory: asks, once per kernel and device, for the
-// whole of the SM's array as L1. `asked` is the kernel's own static table.
+// The launch error of the kernel just enqueued; counts the launch in
+// routes[route] (a launcher's count of each of its kernels' launches, which
+// the library's datr_msda_*_routes read) when there is none.
+template <int N>
+static cudaError_t msda_counted(std::atomic<long long> (&routes)[N],
+                                int route) {
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess)
+    routes[route].fetch_add(1, std::memory_order_relaxed);
+  return err;
+}
+
+// Asks, once per kernel and device, for `carveout` percent of the SM's
+// array as shared memory and the rest as L1: by default none (the kernels
+// but the bf16 forward's run kernel use no shared memory). `asked` is the
+// kernel's own static table.
 template <typename Kernel>
 static cudaError_t msda_prefer_l1(Kernel kernel, int device,
-                                  bool (&asked)[MSDA_MAX_DEVICES]) {
+                                  bool (&asked)[MSDA_MAX_DEVICES],
+                                  int carveout = 0) {
   if (device < 0 || device >= MSDA_MAX_DEVICES) return cudaErrorInvalidDevice;
   if (asked[device]) return cudaSuccess;
   const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 0);
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout, carveout);
   if (err == cudaSuccess) asked[device] = true;
   return err;
 }

@@ -17,24 +17,38 @@
 // "float64") are the same kernel with A = double: f64 loc, attn, corner
 // weights and sums, 16-byte loads of 2 doubles (16 lanes per row at D = 32).
 //
-// What bounds it on this card: the rate at which an SM's L1 delivers gathered
-// rows, not arithmetic (2 flops per gathered element) and, with this design,
-// not device memory either. The work is a data-dependent gather of up to
-// 4*L*P rows of D elements per (b, q, h): 8 KB per (b, q, h) at L*P = 16 and
-// D = 32 in f32, 6.6 GB per launch at the training encoder shape
-// (B 2, Lq = S = 51,680, H 8), where value itself is 106 MB (46 MB at the
-// serving encoder shape: under the card's 50 MB L2 there, over it in
-// training). Tensor cores and bulk copies do not apply to addresses known
-// only at run time.
-// - The floor of the function is device memory: value, loc and attn read
-//   once, out written once. Where the samples are local (the model's own: an
-//   encoder query samples a few pixels around itself) neighbouring queries
-//   re-read the same rows and a kernel can approach it only as far as the
-//   caches serve the re-reads.
-// - Where they are scattered (uniform-random locations, the decoder's
-//   queries) every row is its own fetch, and the floor is the rate at which
-//   the caches deliver gathered rows.
-// What the design does about it (PERF.md has each step's times):
+// Which launches take which kernel (launch_fwd; the launcher counts each
+// kernel's launches: datr_msda_fwd_routes, msda.msda_fwd_routes()):
+// - msda_fwd_bf16_run_kernel: bf16 value at D = 32, value and out on
+//   16-byte boundaries, a long launch (msda_plan gives each warp several
+//   queries: every encoder launch of the repo's models, a tp rank's 4
+//   heads and an sp rank's half of the queries included), S * H * D
+//   within an int;
+// - msda_fwd_kernel: every other launch: f32 and f64 value, the decoders'
+//   short launches, D != 32, misaligned views.
+//
+// What bounds them on this card (PERF.md §6; copies of the sources
+// with a part taken out, timed at the C2F training encoder's shape, B 2,
+// Lq = S = 51,680, H 8, the seeded model's locations). The floor of the
+// function is device memory: the value rows the samples touch, loc and
+// attn read once, out written once (0.0789 ms in bf16). The kernels are
+// far from it, and not for want of bytes:
+// - msda_fwd_kernel in bf16 (0.59 ms): without its gathers it kept 75% of
+//   its time, without the cross-group sum 94%; with 8 lanes x 4 bf16 a row
+//   (twice the loads, half the sum's shuffles) it took 14% longer, with
+//   loc / attn computed in place of loaded (more instructions, no load)
+//   16-20% longer. Instructions issued set its pace: ~360 warp
+//   instructions per (b, q, h): a set-up on 16 of 32 lanes, two shuffles
+//   per gather, 24 shuffles for the cross-group sum, an unpack per bf16
+//   element. Half the bytes of f32 bought it 5%.
+// - msda_fwd_kernel in f32: F32_PROBE.
+// - msda_fwd_bf16_run_kernel (0.31 ms): without its gathers 65% of its
+//   time; the unpacks and multiply-adds every design needs (128 warp
+//   instructions per (b, q, h)) are most of what is left. At
+//   uniform-random locations (every corner row its own line) it takes
+//   0.40 ms: there the rows' trips from L2 weigh.
+//
+// msda_fwd_kernel's design (PERF.md has each step's times):
 // 1. One-time set-up (msda_common.cuh:msda_setup): lane k of a warp computes
 //    sample k once, its four corner rows and their weights times the
 //    attention weight (coalesced loc/attn loads); the gather loop reads them
@@ -54,9 +68,35 @@
 //    serves the re-reads through the read-only path, and the blocks resident
 //    at one time work on one or two (b, h) slices of value, which fit L2 even
 //    where value does not.
+//
+// msda_fwd_bf16_run_kernel's design cuts the instructions per
+// (b, q, h) to about half (~175):
+// 1. Lanes per query, not per sample: a warp serves 8 consecutive queries
+//    of one (b, h) at once, 4 lanes a query, 8 channels a lane (one 16-byte
+//    load a corner row). A lane sums its channels over all the query's
+//    corners: no cross-lane sum. One gather instruction fetches the same
+//    corner of 8 neighbouring queries, which at an encoder's locations
+//    often share lines.
+// 2. The set-up on all 32 lanes, 4 samples a round (one a lane), handed to
+//    the 4 lanes of its query through shared memory: 4 row offsets and 4
+//    weights a sample, read back as two broadcast 16-byte loads (where the
+//    first kernel took 8 shuffles a sample). A round's 16 rows and weights
+//    are read before its gathers, so that the 16 loads can be in flight
+//    together; the next round's loc / attn are loaded before them.
+// 3. No branch in the gather loop: a corner outside its level carries
+//    weight 0 and reads the nearest row inside the level (a finite row
+//    times 0 adds nothing; a non-finite value there makes the sum NaN, as
+//    the plain version's index-0 row does).
+// 4. Shared memory: 4 KB a block; the carve-out asks for 25% of the SM's
+//    most (the smallest setting that holds the blocks the registers allow;
+//    at 0 the card gave each SM one block: 5-6x slower, PERF.md).
+// Sums stay f32, in one fixed order (no atomics: the same inputs give the
+// same bits), rounded once to bf16.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "msda_common.cuh"
 
@@ -168,6 +208,130 @@ __global__ void __launch_bounds__(MSDA_THREADS) msda_fwd_kernel(
   }
 }
 
+// The forward's kernels (datr_msda_fwd_routes reads their launches).
+enum MsdaFwdRoute {
+  MSDA_FWD_KERNEL_F32 = 0,  // msda_fwd_kernel, by value's type
+  MSDA_FWD_KERNEL_BF16 = 1,
+  MSDA_FWD_KERNEL_F64 = 2,
+  MSDA_FWD_BF16_RUN = 3,  // msda_fwd_bf16_run_kernel
+  MSDA_FWD_ROUTES = 4
+};
+static std::atomic<long long> g_fwd_routes[MSDA_FWD_ROUTES];
+
+// ------------------------------------------------------------ bf16 runs
+// msda_fwd_bf16_run_kernel (the header's design): a warp serves
+// MSDA_FWD_RUN_Q consecutive queries of one (batch, head), a block's warps
+// side by side on MSDA_WARPS * MSDA_FWD_RUN_Q of them; lane i of group j
+// owns channels 8i..8i+7 of query j and, each round, sets up sample k0 + i
+// of query j.
+#define MSDA_FWD_RUN_Q 8
+// shared memory a block asks L1 to leave it, in percent of the SM's most
+// (228 KB): room for the blocks its registers allow on an SM, 4 KB each
+// (+ 1 KB each the card reserves)
+#define MSDA_FWD_RUN_CARVEOUT 25
+
+struct RunSlot {
+  int4 off;   // the four corner rows, as element offsets from the head's
+              // row 0 (token * H * D)
+  float4 w;   // their weights times the attention weight; 0 outside
+};
+
+__global__ void __launch_bounds__(MSDA_THREADS) msda_fwd_bf16_run_kernel(
+    const __nv_bfloat16* __restrict__ value, const float* __restrict__ loc,
+    const float* __restrict__ attn, __nv_bfloat16* __restrict__ out, int S,
+    int Lq, int H, int P, int n_runs, const __grid_constant__ Levels lv) {
+  constexpr int D = 32, VEC = 8, R = 4;  // R: samples set up a round
+  __shared__ RunSlot slots[MSDA_WARPS][R][MSDA_FWD_RUN_Q];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int j = lane >> 2;  // this group's query
+  const int i = lane & 3;   // the lane within it: channels, and its set-up
+  const int LP = lv.n * P;
+  const int run = blockIdx.x % n_runs, bh = blockIdx.x / n_runs;
+  const int b = bh / H, h = bh % H;
+  const int row_stride = H * D;  // a token of value (the route asks that
+                                 // S * H * D fits an int)
+  const __nv_bfloat16* val =
+      value + (long long)b * S * row_stride + h * D + VEC * i;
+  RunSlot(&mine)[MSDA_FWD_RUN_Q] = slots[warp][i];
+
+  const int q0 = (run * MSDA_WARPS + warp) * MSDA_FWD_RUN_Q;
+  if (q0 >= Lq) return;  // warp-uniform
+  const bool live = q0 + j < Lq;
+  const long long bqh = ((long long)b * Lq + (live ? q0 + j : q0)) * H + h;
+  const float* loc_q = loc + bqh * LP * 2;
+  const float* attn_q = attn + bqh * LP;
+
+  // this lane's sample of the first round, its level and point
+  int k = i, l = 0, p = i;
+  while (p >= P) p -= P, ++l;
+  float lx = 0.f, ly = 0.f, a = 0.f;
+  if (live && k < LP)
+    lx = __ldg(loc_q + 2 * k), ly = __ldg(loc_q + 2 * k + 1),
+    a = __ldg(attn_q + k);
+  float acc[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+
+  for (int k0 = 0; k0 < LP; k0 += R) {
+    RunSlot sl;
+    sl.off = make_int4(0, 0, 0, 0);
+    sl.w = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (live && k < LP) {
+      const int hl = lv.h[l], wl = lv.w[l];
+      const Sample<float> sp = msda_sample(lx, ly, hl, wl);
+      int offs[4];
+      float ws[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int cx = sp.x0 + (c & 1), cy = sp.y0 + (c >> 1);
+        const bool in = cx >= 0 && cx < wl && cy >= 0 && cy < hl;
+        float wx, wy, w;
+        msda_corner_weights(c, sp.fx, sp.fy, &wx, &wy, &w);
+        ws[c] = in ? __fmul_rn(w, a) : 0.f;
+        offs[c] = (lv.start[l] + min(max(cy, 0), hl - 1) * wl +
+                   min(max(cx, 0), wl - 1)) * row_stride;
+      }
+      sl.off = make_int4(offs[0], offs[1], offs[2], offs[3]);
+      sl.w = make_float4(ws[0], ws[1], ws[2], ws[3]);
+    }
+    // the next round's sample: its loc and attn in flight during the
+    // gathers below
+    k += R, p += R;
+    while (p >= P) p -= P, ++l;
+    if (live && k < LP)
+      lx = __ldg(loc_q + 2 * k), ly = __ldg(loc_q + 2 * k + 1),
+      a = __ldg(attn_q + k);
+    __syncwarp();  // the previous round's slots are read
+    mine[j] = sl;
+    __syncwarp();
+    // the round's rows and weights first, so that its 16 gathers can
+    // all be in flight; a slot past the last sample reads row 0 at
+    // weight 0
+    const int n = min(R, LP - k0);
+    int os[R][4];
+    float wc[R][4];
+#pragma unroll
+    for (int s = 0; s < R; ++s) {
+      const int4 o = s < n ? slots[warp][s][j].off : make_int4(0, 0, 0, 0);
+      const float4 w =
+          s < n ? slots[warp][s][j].w : make_float4(0.f, 0.f, 0.f, 0.f);
+      os[s][0] = o.x, os[s][1] = o.y, os[s][2] = o.z, os[s][3] = o.w;
+      wc[s][0] = w.x, wc[s][1] = w.y, wc[s][2] = w.z, wc[s][3] = w.w;
+    }
+#pragma unroll
+    for (int s = 0; s < R; ++s) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float v[VEC];
+        load_vec<VEC>(val + os[s][c], v);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[e] += wc[s][c] * v[e];
+      }
+    }
+  }
+  if (live) store_vec<VEC>(out + bqh * D + VEC * i, acc);
+}
+
 template <typename T, typename A, int VEC, int LG>
 static cudaError_t launch_fwd_as(const void* value, const void* loc,
                                  const void* attn, void* out, int S, int Lq,
@@ -182,7 +346,30 @@ static cudaError_t launch_fwd_as(const void* value, const void* loc,
       <<<(unsigned)blocks, MSDA_THREADS, 0, stream>>>(
           (const T*)value, (const A*)loc, (const A*)attn, (T*)out, S, Lq, H,
           D, P, wk, lv);
-  return cudaGetLastError();
+  // by value's type: MSDA_FWD_KERNEL_F32 / _BF16 / _F64
+  return msda_counted(g_fwd_routes,
+                      std::is_same<T, float>::value    ? MSDA_FWD_KERNEL_F32
+                      : std::is_same<T, double>::value ? MSDA_FWD_KERNEL_F64
+                                                       : MSDA_FWD_KERNEL_BF16);
+}
+
+static cudaError_t launch_fwd_bf16_run(const void* value, const void* loc,
+                                       const void* attn, void* out, int B,
+                                       int S, int Lq, int H, int P,
+                                       const Levels& lv, int device,
+                                       cudaStream_t stream) {
+  static bool asked[MSDA_MAX_DEVICES];
+  const cudaError_t err = msda_prefer_l1(msda_fwd_bf16_run_kernel, device,
+                                         asked, MSDA_FWD_RUN_CARVEOUT);
+  if (err != cudaSuccess) return err;
+  const int run = MSDA_WARPS * MSDA_FWD_RUN_Q;
+  const int n_runs = (Lq + run - 1) / run;
+  const long long blocks = (long long)B * H * n_runs;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  msda_fwd_bf16_run_kernel<<<(unsigned)blocks, MSDA_THREADS, 0, stream>>>(
+      (const __nv_bfloat16*)value, (const float*)loc, (const float*)attn,
+      (__nv_bfloat16*)out, S, Lq, H, P, n_runs, lv);
+  return msda_counted(g_fwd_routes, MSDA_FWD_BF16_RUN);
 }
 
 template <typename T, typename A, int VEC>
@@ -194,8 +381,16 @@ static cudaError_t launch_fwd(const void* value, const void* loc,
   long long blocks;
   cudaError_t err = msda_plan(&wk, B, Lq, H, D, VEC, device, &blocks);
   if (err != cudaSuccess) return err;
-  // D = 32 in 16-byte vectors: the compile-time geometry
   if constexpr (VEC * sizeof(T) == 16) {
+    // bf16 at D = 32 in 16-byte vectors, a long launch: runs of queries
+    // a warp, a group of lanes a query
+    if constexpr (sizeof(T) == 2) {
+      if (D == 32 && P > 0 && wk.qpw > 1 &&
+          (long long)S * H * D <= 0x7fffffffLL)
+        return launch_fwd_bf16_run(value, loc, attn, out, B, S, Lq, H, P,
+                                   lv, device, stream);
+    }
+    // D = 32 in 16-byte vectors: the compile-time geometry
     if (D == 32)  // 32 / VEC lanes per row
       return launch_fwd_as<T, A, VEC, msda_lg32<VEC>()>(
           value, loc, attn, out, S, Lq, H, D, P, wk, blocks, lv, device,
@@ -245,6 +440,13 @@ int msda_fwd(const void* value, const void* loc, const void* attn, void* out,
     default: MSDA_FWD(float, float, 1);
   }
 #undef MSDA_FWD
+}
+
+// out[r] = the launches of route r (MsdaFwdRoute) since the library was
+// loaded, counted on the host where each kernel is enqueued without error.
+void datr_msda_fwd_routes(long long* out) {
+  for (int r = 0; r < MSDA_FWD_ROUTES; ++r)
+    out[r] = g_fwd_routes[r].load(std::memory_order_relaxed);
 }
 
 const char* datr_cuda_error_string(int err) {

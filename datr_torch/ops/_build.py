@@ -39,6 +39,7 @@ _SIGNATURES = {
     "gather_fma": ([_P, _P, _P, _P, _I, _L, _I, _I, _I, _P], _I),
     "datr_cuda_error_string": ([_I], ctypes.c_char_p),
     "datr_msda_bwd_routes": ([_P], None),
+    "datr_msda_fwd_routes": ([_P], None),
 }
 
 _lock = threading.Lock()

@@ -29,7 +29,11 @@ The functions:
   reads rows in 8-byte loads, and on the encoder's long launches takes a
   kernel of its own (each sample's dot products in one lane over whole
   rows before the merged scatter); the one C call zeroes its f32
-  workspace, scatters and rounds.
+  workspace, scatters and rounds. The bf16 forward's long launches at
+  D = 32 (the encoder's) take a kernel of their own too: a warp serves 8
+  queries at once, 4 lanes a query, so no lane's sum needs another's.
+  `msda_fwd_routes()` / `msda_bwd_routes()` count each kernel's
+  launches.
   Both take value in f32 or bf16 with f32 loc / attn, or everything in
   f64 (`amp_dtype="float64"`, datr_tpu's x64 debugging mode: its own
   instantiations, f64 arithmetic throughout, 16-byte loads of 2 doubles,
@@ -280,6 +284,22 @@ def msda_bwd(value: torch.Tensor, spatial_shapes: Shapes,
 
 
 msda_bwd.launches = 0
+
+# msda_fwd's kernels, in the order of csrc/msda_fwd.cu's MsdaFwdRoute
+FWD_ROUTES = ("msda_fwd_kernel f32", "msda_fwd_kernel bf16",
+              "msda_fwd_kernel f64", "msda_fwd_bf16_run_kernel")
+
+
+def msda_fwd_routes() -> dict:
+    """{route: its launches since the kernel library was loaded} for each
+    of msda_fwd's kernels (FWD_ROUTES), counted where the C launcher
+    enqueues each one: the difference over a call says which kernel it
+    went through."""
+    lib = _build.load_library()
+    out = (ctypes.c_longlong * len(FWD_ROUTES))()
+    lib.datr_msda_fwd_routes(out)
+    return dict(zip(FWD_ROUTES, out))
+
 
 # msda_bwd's kernels, in the order of csrc/msda_bwd.cu's MsdaBwdRoute
 BWD_ROUTES = ("msda_bwd_kernel f32", "msda_bwd_kernel bf16",

@@ -30,7 +30,11 @@ held against the plain versions on every case (chip_smoke.py's
 tolerances; f64 against the plain f64 version at F64_TOL), then the
 libraries are timed in turns (a, b, b, a) by CUDA events over
 back-to-back calls of the port's own wrappers; the time kept is the mean
-of the two turns. The backward of a --source
+of the two turns. The forward is also timed by the profiler's device time
+per call (`fwd_device_ms`): a decoder's launch is shorter than the
+host's time per call, which the CUDA events then measure. The tree's
+forward is held to the kernel its geometry takes (chip_smoke.fwd_route,
+by the launcher's counts). The backward of a --source
 library in bf16 is called as the port's wrapper called it before its f32
 workspace was zeroed in the C call: zeroed by torch.zeros
 (`zeroed_bf16_bwd`). --split adds, per backward case and library, the
@@ -420,7 +424,13 @@ def main(argv=None) -> int:
             with _build.use_library(lib):
                 res["libraries"][lname] = dict(
                     max_abs_err=check_case(case, want, bwds[lname]),
-                    fwd_ms=[], bwd_ms=[])
+                    fwd_ms=[], fwd_device_ms=[], bwd_ms=[])
+        # the tree's forward went through the kernel its geometry takes, by
+        # its launcher's counts
+        with _build.use_library(libs["new"]):
+            cs.fwd_routed(msda, lambda: msda.msda_fwd(value, shapes, loc,
+                                                      attn), value, loc)
+        res["fwd_route"] = cs.fwd_route(value, loc)
         del want
         order = list(libs)
         for turn in (order, order[::-1]):
@@ -429,6 +439,9 @@ def main(argv=None) -> int:
                 with _build.use_library(libs[lname]):
                     r["fwd_ms"].append(cs.cuda_ms(lambda: msda.msda_fwd(
                         value, shapes, loc, attn), iters))
+                    r["fwd_device_ms"].append(gbench.device_ms(
+                        lambda: msda.msda_fwd(value, shapes, loc, attn),
+                        iters))
                     if g is not None:
                         r["bwd_ms"].append(cs.cuda_ms(bwds[lname], iters))
         if g is not None and args.split:
@@ -436,14 +449,16 @@ def main(argv=None) -> int:
                 with _build.use_library(libs[lname]):
                     res["libraries"][lname]["bwd_split"] = split_call(
                         bwds[lname])
-        line = [f"{name} Lq={lq}: fwd bound {fb:.4f} ms, "
+        line = [f"{name} Lq={lq}, the tree's forward through "
+                f"{res['fwd_route']}: fwd bound {fb:.4f} ms, "
                 f"{traffic['fwd'] / 1e9:.3f} GB from the caches"
                 + (f"; bwd bound {res['bwd_bound_ms']:.4f} ms, "
                    f"{traffic['bwd'] / 1e9:.3f} GB" if g is not None else "")]
         for lname, r in res["libraries"].items():
             f_ms = sum(r["fwd_ms"]) / 2
             txt = (f"   {lname:>12}: fwd {f_ms:.4f} ms ({f_ms / fb:.1f}x "
-                   f"bound, {traffic['fwd'] / f_ms / 1e9:.2f} TB/s)")
+                   f"bound, {traffic['fwd'] / f_ms / 1e9:.2f} TB/s; device "
+                   f"{sum(r['fwd_device_ms']) / 2:.4f} ms)")
             if r["bwd_ms"]:
                 b_ms = sum(r["bwd_ms"]) / 2
                 txt += (f"; bwd {b_ms:.4f} ms "

@@ -432,6 +432,136 @@ def test_dispatcher_on_cuda_keeps_the_bf16_gradient(cuda):
                            attn, g)
 
 
+# ---------------- the bf16 forward's routes ----------------
+
+FWD_RUN = "msda_fwd_bf16_run_kernel"
+# the flagship's serving levels (800x1344) and the C2F training levels
+# (1216x2048), every token a query: the encoder's launches
+SERVE_SHAPES = ((100, 168), (50, 84), (25, 42), (13, 21))
+TRAIN_SHAPES = ((152, 256), (76, 128), (38, 64), (19, 32))
+ENC_SHAPES5 = ENC_SHAPES + ((6, 10),)  # 5 levels: L x P = 20
+
+
+def _fwd_routed(value, shapes, loc, attn, route):
+    """msda_fwd once, counted: its one launch went through `route` (one of
+    msda.FWD_ROUTES, by the C launcher's counts); returns its output."""
+    before, routes0 = msda.msda_fwd.launches, msda.msda_fwd_routes()
+    got = msda.msda_fwd(value, shapes, loc, attn)
+    torch.cuda.synchronize()
+    routes = msda.msda_fwd_routes()
+    assert msda.msda_fwd.launches == before + 1
+    ran = {r: n - routes0[r] for r, n in routes.items() if n > routes0[r]}
+    assert ran == {route: 1}, (route, ran)
+    return got
+
+
+def _encoder_case(shapes, lq, h, p, case, first=0, seed=7):
+    """bf16 value [2, S, h, 32], loc / attn of `lq` queries (tokens first..
+    first + lq - 1 of the image): at an encoder's own locations ("local"),
+    uniform-random, spilling over the levels ("outside", loc x 1.6 - 0.3)
+    or on pixel centres with the borders ("integer")."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    s_tok, n_l = sum(hh * w for hh, w in shapes), len(shapes)
+    value = torch.randn(2, s_tok, h, 32, device="cuda",
+                        generator=gen).to(torch.bfloat16)
+    if case == "local":
+        loc = _encoder_loc(torch.arange(first, first + lq, device="cuda"), h,
+                           p, shapes, seed)
+    else:
+        loc = torch.rand(2, lq, h, n_l, p, 2, device="cuda", generator=gen)
+        if case == "outside":
+            loc = loc * 1.6 - 0.3
+        elif case == "integer":
+            wh = torch.tensor([(w, hh) for hh, w in shapes], device="cuda")
+            ij = (loc * (wh + 2)[:, None, :]).floor() - 1
+            loc = (ij + 0.5) / wh[:, None, :]
+    attn = torch.rand(2, lq, h, n_l, p, device="cuda", generator=gen)
+    attn = (attn / attn.sum((-1, -2), keepdim=True)).contiguous()
+    return value, loc.contiguous(), attn
+
+
+@pytest.mark.parametrize("shapes,lq,h,p,case,first", [
+    (SERVE_SHAPES, 22323, 8, 4, "local", 0),  # the serving encoder
+    (SERVE_SHAPES, 22323, 8, 4, "random", 0),
+    (TRAIN_SHAPES, 51680, 8, 4, "local", 0),  # the training encoder
+    (TRAIN_SHAPES, 51680, 8, 4, "random", 0),
+    (ENC_SHAPES, ENC_S - 13, 8, 4, "local", 0),  # Lq not a multiple of 32
+    (ENC_SHAPES, ENC_S, 4, 4, "local", 0),  # a tensor-parallel rank's heads
+    (ENC_SHAPES, ENC_S // 2, 8, 4, "local", ENC_S - ENC_S // 2),  # sp rank
+    (ENC_SHAPES, ENC_S, 8, 2, "local", 0),  # L x P = 8
+    (ENC_SHAPES5, sum(hh * w for hh, w in ENC_SHAPES5), 8, 4, "local",
+     0),  # L x P = 20
+    (ENC_SHAPES, ENC_S, 8, 4, "outside", 0),  # corners off the levels
+    (ENC_SHAPES, ENC_S, 8, 4, "integer", 0),  # on pixel centres, borders
+], ids=["serve_local", "serve_random", "train_local", "train_random",
+        "ragged", "tp_h4", "sp_half", "lp8", "lp20", "outside", "borders"])
+def test_msda_fwd_bf16_run_route(cuda, shapes, lq, h, p, case, first):
+    """The encoder's bf16 launches through msda_fwd_bf16_run_kernel, against
+    the plain version's f32 sum on the same values within one bf16
+    rounding (_fwd_tol)."""
+    value, loc, attn = _encoder_case(shapes, lq, h, p, case, first)
+    got = _fwd_routed(value, shapes, loc, attn, FWD_RUN)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, lq, h * 32)
+    want = msda.ms_deform_attn_plain(value.float(), shapes, loc, attn)
+    torch.testing.assert_close(got.float(), want, **_fwd_tol(torch.bfloat16))
+
+
+def test_msda_fwd_bf16_run_route_all_outside_gives_exact_zeros(cuda):
+    """No corner of any sample inside its level: every output exactly 0
+    (the corners' clamped rows carry weight 0)."""
+    value, loc, attn = _encoder_case(ENC_SHAPES, ENC_S, 8, 4, "random")
+    got = _fwd_routed(value, ENC_SHAPES, loc + 2.0, attn, FWD_RUN)
+    assert torch.count_nonzero(got) == 0
+
+
+def test_msda_fwd_bf16_run_route_same_bits(cuda):
+    """Two launches on the same inputs give the same bits (no atomics, one
+    order of the sums)."""
+    value, loc, attn = _encoder_case(TRAIN_SHAPES, 51680, 8, 4, "local")
+    a = _fwd_routed(value, TRAIN_SHAPES, loc, attn, FWD_RUN)
+    b = _fwd_routed(value, TRAIN_SHAPES, loc, attn, FWD_RUN)
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.parametrize("dtype,d,lq,aligned,route", [
+    (torch.bfloat16, 32, LONG_LQ, True, FWD_RUN),  # long, D = 32, aligned
+    (torch.bfloat16, 32, 37, True, "msda_fwd_kernel bf16"),  # short
+    (torch.bfloat16, 32, LONG_LQ, False, "msda_fwd_kernel bf16"),
+    (torch.bfloat16, 64, LONG_LQ, True, "msda_fwd_kernel bf16"),  # D != 32
+    (torch.bfloat16, 16, LONG_LQ, True, "msda_fwd_kernel bf16"),
+    (torch.float32, 32, LONG_LQ, True, "msda_fwd_kernel f32"),
+    (torch.float64, 32, LONG_LQ, True, "msda_fwd_kernel f64"),
+], ids=["bf16_long", "bf16_short", "bf16_misaligned", "bf16_d64",
+        "bf16_d16", "f32_long", "f64_long"])
+def test_msda_fwd_routes_by_geometry(cuda, dtype, d, lq, aligned, route):
+    """Which launches take the bf16 run route and which keep
+    msda_fwd_kernel, each against the plain version."""
+    value, loc, attn = _inputs(lq, LONG_H, d, 4, dtype, "outside")
+    if dtype == torch.float64:
+        loc, attn = loc.double(), attn.double()
+    if not aligned:
+        value = _misaligned(value)
+    got = _fwd_routed(value, SHAPES, loc, attn, route)
+    if dtype == torch.float64:
+        want = msda.ms_deform_attn_plain(value, SHAPES, loc, attn)
+        torch.testing.assert_close(got, want, **F64_TOL)
+    else:
+        want = msda.ms_deform_attn_plain(value.float(), SHAPES, loc, attn)
+        torch.testing.assert_close(got.float(), want, **_fwd_tol(dtype))
+
+
+def test_bf16_cuda_never_reaches_the_plain_version(cuda):
+    """An encoder-length bf16 launch through the dispatcher goes to the run
+    kernel, never to the plain version."""
+    value, loc, attn = _encoder_case(ENC_SHAPES, ENC_S, 8, 4, "local")
+    routes0 = msda.msda_fwd_routes()
+    with mock_plain_raises():
+        out = msda.ms_deform_attn(value, ENC_SHAPES, loc, attn)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16
+    assert msda.msda_fwd_routes()[FWD_RUN] == routes0[FWD_RUN] + 1
+
+
 # ---------------- gathers ----------------
 
 
