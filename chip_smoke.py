@@ -472,27 +472,32 @@ def msda_bwd_bound(msda, loc, d=D, shapes=SHAPES, elt=4):
     return (*roofline(n_bytes, flops), rows)
 
 
-# msda_fwd's kernels (ops/msda.py's FWD_ROUTES): bf16's long launches at
-# D = 32 with 16-byte aligned value take the run kernel, every other launch
-# msda_fwd_kernel of value's type (csrc/msda_fwd.cu:launch_fwd)
+# msda_fwd's kernels (ops/msda.py's FWD_ROUTES): bf16's and f64's long
+# launches at D = 32 with 16-byte aligned value take the run kernel of their
+# type, every other launch msda_fwd_kernel of value's type
+# (csrc/msda_fwd.cu:launch_fwd)
 BF16_RUN = "msda_fwd_bf16_run_kernel"
+F64_RUN = "msda_fwd_run_kernel f64"
+FWD_RUNS = {torch.bfloat16: BF16_RUN, torch.float64: F64_RUN}
+DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16",
+               torch.float64: "f64"}
 
 
 def fwd_route(value, loc) -> str:
-    """The msda_fwd kernel a launch on these inputs takes: the bf16 run
-    kernel where value is bf16 with D = 32 on a 16-byte boundary and the
-    launch long (msda_plan's test: at 16 (b, q, h) a block, at least twice
-    the blocks the card's SMs hold at once), else msda_fwd_kernel."""
+    """The msda_fwd kernel a launch on these inputs takes: the run kernel of
+    value's type where value is bf16 or f64 with D = 32 on a 16-byte
+    boundary and the launch long (msda_plan's test: at 16 (b, q, h) a
+    block, at least twice the blocks the card's SMs hold at once), else
+    msda_fwd_kernel."""
     b, s_tok, heads, d = value.shape
     lq, n_p = loc.shape[1], loc.shape[4]
     sms = torch.cuda.get_device_properties(
         value.device).multi_processor_count
     long_launch = -(-b * lq * heads // 16) >= 2 * sms * (2048 // 128)
-    if (value.dtype == torch.bfloat16 and d == 32 and n_p > 0 and long_launch
+    if (value.dtype in FWD_RUNS and d == 32 and n_p > 0 and long_launch
             and value.data_ptr() % 16 == 0 and s_tok * heads * d < 2 ** 31):
-        return BF16_RUN
-    return "msda_fwd_kernel " + {torch.float32: "f32", torch.bfloat16: "bf16",
-                                 torch.float64: "f64"}[value.dtype]
+        return FWD_RUNS[value.dtype]
+    return "msda_fwd_kernel " + DTYPE_NAMES[value.dtype]
 
 
 def fwd_routes_since(msda, before) -> dict:
@@ -516,11 +521,12 @@ def fwd_routed(msda, fn, value, loc):
     return got
 
 
-def assert_bf16_routes(routes, n_enc, n_all):
-    """A bf16 main path's msda_fwd launches (`routes`, fwd_routes_since's)
-    went, the encoder's n_enc through the run kernel and the decoder's rest
-    through msda_fwd_kernel."""
-    want = {BF16_RUN: n_enc, "msda_fwd_kernel bf16": n_all - n_enc}
+def assert_run_routes(routes, n_enc, n_all, dtype=torch.bfloat16):
+    """A bf16 or f64 main path's msda_fwd launches (`routes`,
+    fwd_routes_since's) went, the encoder's n_enc through the run kernel of
+    `dtype` and the decoder's rest through msda_fwd_kernel."""
+    want = {FWD_RUNS[dtype]: n_enc,
+            "msda_fwd_kernel " + DTYPE_NAMES[dtype]: n_all - n_enc}
     assert routes == {r: n for r, n in want.items() if n}, (routes, want)
 
 
@@ -2297,8 +2303,8 @@ def run_bf16_serving(msda, card) -> dict:
             srv.warmup()
             torch.cuda.synchronize()
             res = serve_requests(srv, msda, imgs)
-            assert_bf16_routes(res["fwd_routes"], res["encoder_launches"],
-                               res["launches"])
+            assert_run_routes(res["fwd_routes"], res["encoder_launches"],
+                              res["launches"])
             batch, sizes = serving_batch(srv, imgs)
             if not fast:
                 calls = capture_msda_calls(msda,
@@ -2332,8 +2338,8 @@ def run_bf16_serving(msda, card) -> dict:
             srv.warmup()
             torch.cuda.synchronize()
             res = serve_requests(srv, msda, imgs[:2])
-            assert_bf16_routes(res["fwd_routes"], res["encoder_launches"],
-                               res["launches"])
+            assert_run_routes(res["fwd_routes"], res["encoder_launches"],
+                              res["launches"])
             batch, sizes = serving_batch(srv, imgs)
             res["step_ms"] = cuda_ms(lambda: srv._step(batch, sizes), 5,
                                      warmup=1)
@@ -2430,8 +2436,8 @@ def run_bf16_training(msda, card) -> dict:
         f"{metrics['loss']:.4f} (warm-up {warm['loss']:.4f})")
     assert r["launches"] == dict(msda_fwd=want_fwd * len(steps),
                                  msda_bwd=want_bwd * len(steps)), r
-    assert_bf16_routes(r["fwd_routes"], want_fwd * len(steps)
-                       * encoder_msda(model) // n_msda, want_fwd * len(steps))
+    assert_run_routes(r["fwd_routes"], want_fwd * len(steps)
+                      * encoder_msda(model) // n_msda, want_fwd * len(steps))
     assert all(np.isfinite(v) for v in metrics.values()), metrics
     assert_state_f32(state)
 
@@ -2500,8 +2506,8 @@ def run_bf16_self_training(msda, card) -> dict:
         f"loss {metrics['loss']:.4f}")
     assert r["launches"] == dict(msda_fwd=want_fwd * len(steps),
                                  msda_bwd=want_bwd * len(steps)), r
-    assert_bf16_routes(r["fwd_routes"], want_fwd * len(steps)
-                       * encoder_msda(model) // n_msda, want_fwd * len(steps))
+    assert_run_routes(r["fwd_routes"], want_fwd * len(steps)
+                      * encoder_msda(model) // n_msda, want_fwd * len(steps))
     assert metrics["num_pseudo"] > 0 and metrics["loss_ce_target"] > 0
     assert all(np.isfinite(v) for v in metrics.values()), metrics
     assert_state_f32(state)
@@ -5325,12 +5331,13 @@ def check_f64_kernels(msda, name, value, shapes, loc, attn, g,
                       time_it=True) -> dict:
     """msda_fwd / msda_bwd in f64 against their plain versions on the same
     inputs, F64_TOL (grad_loc's atol times the largest level side, as the
-    f32 check's); the msda_bwd launch that is checked went through the
-    route its length takes (F64_BWD_ROUTES: the encoder's, Lq = S, through
-    the run kernel). With `time_it` each timed beside its plain version and
-    its bound."""
+    f32 check's); the launches that are checked went through the routes
+    their geometry takes (fwd_route; F64_BWD_ROUTES: the encoder's, Lq =
+    S, through the run kernels). With `time_it` each timed beside its plain
+    version and its bound."""
     enc = loc.shape[1] == value.shape[1]
-    got = msda.msda_fwd(value, shapes, loc, attn)
+    got = fwd_routed(msda, lambda: msda.msda_fwd(value, shapes, loc, attn),
+                     value, loc)
     got_b, route = bwd_routes_of(
         msda, lambda: msda.msda_bwd(value, shapes, loc, attn, g))
     torch.cuda.synchronize()
@@ -5349,7 +5356,8 @@ def check_f64_kernels(msda, name, value, shapes, loc, attn, g,
             a, b, rtol=F64_TOL["rtol"],
             atol=F64_TOL["atol"] * (side if part == "loc" else 1),
             msg=lambda m: f"msda_bwd f64 {name} grad_{part}: {m}")
-    out = dict(lq=loc.shape[1], max_abs_err=errs, bwd_route=route[0])
+    out = dict(lq=loc.shape[1], max_abs_err=errs, bwd_route=route[0],
+               fwd_route=fwd_route(value, loc))
     if time_it:
         iters, p_iters = (10, 2) if enc else (50, 5)
         out.update(
@@ -5362,7 +5370,8 @@ def check_f64_kernels(msda, name, value, shapes, loc, attn, g,
             bwd_plain_ms=cuda_ms(lambda: msda.ms_deform_attn_plain_bwd(
                 value, shapes, loc, attn, g), p_iters, warmup=1),
             **msda_f64_bounds(msda, loc, value.shape[-1], shapes))
-    log(f"  f64 {name}: max_abs_err {errs}, bwd through {route[0]}" + (
+    log(f"  f64 {name}: max_abs_err {errs}, fwd through "
+        f"{out['fwd_route']}, bwd through {route[0]}" + (
         f"; fwd {out['fwd_ms']:.4f} ms (plain {out['fwd_plain_ms']:.3f}, "
         f"bound {out['fwd_bound_ms']:.4f} {out['fwd_bound_by']}), bwd "
         f"{out['bwd_ms']:.4f} ms (plain {out['bwd_plain_ms']:.3f}, bound "
@@ -5373,16 +5382,20 @@ def check_f64_kernels(msda, name, value, shapes, loc, attn, g,
 
 def f64_forward_against_plain(model, x, pad, msda, dino_mod) -> dict:
     """The f64 forward through the kernels against the plain f64 forward,
-    the two-stage selection held, at F64_FORWARD_TOL; the kernel
+    the two-stage selection held, at F64_FORWARD_TOL; its launches by
+    kernel (the encoder's through the f64 run kernel, the decoder's
+    through msda_fwd_kernel, by the C launcher's counts), the kernel
     forward's outputs and its ms by CUDA events."""
     memories = []
     hook = getattr(model, f"enc_layer{model.enc_layers - 1}") \
         .register_forward_hook(lambda m, i, o: memories.append(o))
     try:
         with torch.inference_mode():
+            routes0 = msda.msda_fwd_routes()
             msda.msda_fwd.launches = 0
             out_k = model(x, pad)
             launches = msda.msda_fwd.launches
+            routes = fwd_routes_since(msda, routes0)
             idx = out_k["topk_idx"]
             with mock.patch.object(msda, "ms_deform_attn",
                                    msda.ms_deform_attn_plain), \
@@ -5398,12 +5411,14 @@ def f64_forward_against_plain(model, x, pad, msda, dino_mod) -> dict:
     assert all(out_k[k].dtype == torch.float64
                for k in ("pred_logits", "pred_boxes"))
     log(f"  f64 forward, kernels vs plain (tolerance {F64_FORWARD_TOL}): "
-        f"{diffs}")
+        f"{diffs}; launches by kernel {routes}")
+    assert_run_routes(routes, encoder_msda(model), launches, torch.float64)
     for k, t in F64_FORWARD_TOL.items():
         assert diffs[k] <= t, f"f64 forward through the kernels: {k}"
     with torch.inference_mode():
         ms = cuda_ms(lambda: model(x, pad), 3, warmup=1)
-    return dict(diffs=diffs, launches=launches, ms=ms, out=out_k)
+    return dict(diffs=diffs, launches=launches, routes=routes, ms=ms,
+                out=out_k)
 
 
 def f64_serving_batches(device):
@@ -5462,15 +5477,20 @@ def run_float64(msda, card) -> dict:
             msda, f"{part} Lq={lq} at the model's locations", value, sh, loc,
             attn, g)
     del calls
-    # the route each checked msda_bwd launch went through
+    # the routes each checked msda_fwd and msda_bwd launch went through
+    checked = (("random", out["random"]), ("outside", outside),
+               ("model", out["model_locations"]))
     out["bwd_routes"] = {f"{part} {kind}": res[part]["bwd_route"]
-                         for kind, res in (("random", out["random"]),
-                                           ("outside", outside),
-                                           ("model", out["model_locations"]))
-                         for part in res}
+                         for kind, res in checked for part in res}
+    out["fwd_routes_checked"] = {f"{part} {kind}": res[part]["fwd_route"]
+                                 for kind, res in checked for part in res}
+    for key, route in out["fwd_routes_checked"].items():
+        assert route == (F64_RUN if key.startswith("encoder")
+                         else "msda_fwd_kernel f64"), (key, route)
     fwd = f64_forward_against_plain(model, x, pad, msda, dino_mod)
     out.update(forward_diffs=fwd["diffs"], forward_ms=fwd["ms"],
-               serving_launches=fwd["launches"])
+               serving_launches=fwd["launches"],
+               serving_fwd_routes=fwd["routes"])
     assert fwd["launches"] == MSDA_PER_FORWARD, fwd["launches"]
     # ---- finding: the f32 kernel forward's distance from the f64 one ----
     f32 = flagship_model()
@@ -5490,22 +5510,31 @@ def run_float64(msda, card) -> dict:
 
     # ---- one f64 burn-in step (msda_bwd's f64 instantiation on its
     # path): the C2F model, train_bench's batch at the serving canvas ----
+    from datr_torch.models.layers import MSDeformAttn
     from datr_torch.tools.train_bench import bench_batch
 
     state, ccfg, wd, _ = c2f_train_state(1, amp_dtype="float64")
     batch = bench_batch(2, CANVAS, torch.device("cuda"), False)
+    routes0 = msda.msda_fwd_routes()
     msda.msda_fwd.launches = msda.msda_bwd.launches = 0
     metrics, step_ms = cuda_timed(lambda: train_step_burnin(
         state, batch, ccfg, wd))
     out["training_launches"] = {"msda_fwd": msda.msda_fwd.launches,
                                 "msda_bwd": msda.msda_bwd.launches}
+    out["training_fwd_routes"] = fwd_routes_since(msda, routes0)
+    n_msda = sum(isinstance(m, MSDeformAttn) for m in state.model.modules())
+    assert_run_routes(out["training_fwd_routes"],
+                      out["training_launches"]["msda_fwd"]
+                      * encoder_msda(state.model) // n_msda,
+                      out["training_launches"]["msda_fwd"], torch.float64)
     loss = metrics["loss"].item()
     assert np.isfinite(loss) and metrics["loss"].dtype == torch.float64, loss
     assert out["training_launches"]["msda_bwd"] > 0
     out.update(training_step_ms=step_ms, training_loss=loss)
     log(f"  f64 C2F burn-in step at {CANVAS}, 1 + 1 images: "
         f"{step_ms:.1f} ms, loss {loss:.6f}, launches "
-        f"{out['training_launches']}")
+        f"{out['training_launches']}, msda_fwd's by kernel "
+        f"{out['training_fwd_routes']}")
     del state, batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -6152,6 +6181,11 @@ def main() -> int:
                        (("ms", "bwd_ms"), ("plain_ms", "bwd_plain_ms"),
                         ("bound_ms", "bwd_bound_ms"))}}
     f64r, f64m = f64["random"], f64["model_locations"]
+    # the f64 main paths' msda_fwd launches by kernel
+    f64_fwd_routes = {r: f64["serving_fwd_routes"].get(r, 0)
+                      + f64["training_fwd_routes"].get(r, 0)
+                      for r in {*f64["serving_fwd_routes"],
+                                *f64["training_fwd_routes"]}}
     # the kernels at the model axes' shapes: a tp rank's encoder and
     # decoder calls (4 heads), an sp rank's encoder call (Lq = S / 2)
     ax_tp = ar[0]["tp"]["model_locations"]
@@ -6357,6 +6391,7 @@ def main() -> int:
         "launches_by_path": {
             "serving_f64": f64["serving_launches"],
             "training_f64": f64["training_launches"]["msda_fwd"]},
+        "launches_by_kernel": f64_fwd_routes,
         "max_abs_err": max(v["max_abs_err"]["fwd"] for v in
                            [*f64r.values(), *f64m.values()]),
         # per serving forward: 6 encoder + 6 decoder launches, random
@@ -6372,6 +6407,26 @@ def main() -> int:
         "bound_ms_model": (6 * f64m["encoder"]["fwd_bound_ms"]
                            + 6 * f64m["decoder"]["fwd_bound_ms"]),
         "per_launch": f64r, "per_launch_model": f64m,
+    }, {
+        # the f64 forward's encoder launches (phase 15f): a warp serves 2
+        # queries at once; launches by the C launcher's counts on the f64
+        # main paths (the serving forward and the burn-in step); times per
+        # serving-encoder launch at the f64 flagship's own locations
+        "name": "msda_fwd_f64_run_kernel",
+        "route": "cuda",
+        "source": "datr_torch/csrc/msda_fwd.cu",
+        "replaces": "datr_tpu/ops/msda_pallas.py:45",
+        "launches": f64_fwd_routes[F64_RUN],
+        "launches_by_kernel": f64_fwd_routes,
+        "max_abs_err": max(f64[kind]["encoder"]["max_abs_err"]["fwd"]
+                           for kind in ("random", "model_locations")),
+        "ms": f64m["encoder"]["fwd_ms"],
+        "plain_ms": f64m["encoder"]["fwd_plain_ms"],
+        "bound_ms": f64m["encoder"]["fwd_bound_ms"],
+        "bound_by": f64m["encoder"]["fwd_bound_by"],
+        "library_ms": None,  # no single PyTorch call computes MSDA
+        "serving_encoder_random": {k: f64r["encoder"][k] for k in (
+            "fwd_ms", "fwd_plain_ms", "fwd_bound_ms", "fwd_route")},
     }, {
         "name": "msda_bwd_f64",
         "route": "cuda",

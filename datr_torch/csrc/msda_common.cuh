@@ -223,7 +223,7 @@ static cudaError_t msda_counted(std::atomic<long long> (&routes)[N],
 
 // Asks, once per kernel and device, for `carveout` percent of the SM's
 // array as shared memory and the rest as L1: by default none (the kernels
-// but the bf16 forward's run kernel use no shared memory). `asked` is the
+// but the forward's run kernel use no shared memory). `asked` is the
 // kernel's own static table.
 template <typename Kernel>
 static cudaError_t msda_prefer_l1(Kernel kernel, int device,

@@ -29,11 +29,11 @@ The functions:
   reads rows in 8-byte loads, and on the encoder's long launches takes a
   kernel of its own (each sample's dot products in one lane over whole
   rows before the merged scatter); the one C call zeroes its f32
-  workspace, scatters and rounds. The bf16 forward's long launches at
-  D = 32 (the encoder's) take a kernel of their own too: a warp serves 8
-  queries at once, 4 lanes a query, so no lane's sum needs another's.
-  `msda_fwd_routes()` / `msda_bwd_routes()` count each kernel's
-  launches.
+  workspace, scatters and rounds. The bf16 and f64 forwards' long launches
+  at D = 32 (the encoder's) take a kernel of their own too: a warp serves
+  several queries at once (bf16 8 at 4 lanes a query, f64 2 at 16 lanes),
+  so no lane's sum needs another's. `msda_fwd_routes()` /
+  `msda_bwd_routes()` count each kernel's launches.
   Both take value in f32 or bf16 with f32 loc / attn, or everything in
   f64 (`amp_dtype="float64"`, datr_tpu's x64 debugging mode: its own
   instantiations, f64 arithmetic throughout, 16-byte loads of 2 doubles,
@@ -287,7 +287,8 @@ msda_bwd.launches = 0
 
 # msda_fwd's kernels, in the order of csrc/msda_fwd.cu's MsdaFwdRoute
 FWD_ROUTES = ("msda_fwd_kernel f32", "msda_fwd_kernel bf16",
-              "msda_fwd_kernel f64", "msda_fwd_bf16_run_kernel")
+              "msda_fwd_kernel f64", "msda_fwd_bf16_run_kernel",
+              "msda_fwd_run_kernel f64")
 
 
 def msda_fwd_routes() -> dict:

@@ -432,9 +432,10 @@ def test_dispatcher_on_cuda_keeps_the_bf16_gradient(cuda):
                            attn, g)
 
 
-# ---------------- the bf16 forward's routes ----------------
+# ---------------- the forward's run routes (bf16, f64) ----------------
 
 FWD_RUN = "msda_fwd_bf16_run_kernel"
+FWD_F64_RUN = "msda_fwd_run_kernel f64"
 # the flagship's serving levels (800x1344) and the C2F training levels
 # (1216x2048), every token a query: the encoder's launches
 SERVE_SHAPES = ((100, 168), (50, 84), (25, 42), (13, 21))
@@ -455,15 +456,17 @@ def _fwd_routed(value, shapes, loc, attn, route):
     return got
 
 
-def _encoder_case(shapes, lq, h, p, case, first=0, seed=7):
-    """bf16 value [2, S, h, 32], loc / attn of `lq` queries (tokens first..
-    first + lq - 1 of the image): at an encoder's own locations ("local"),
-    uniform-random, spilling over the levels ("outside", loc x 1.6 - 0.3)
-    or on pixel centres with the borders ("integer")."""
+def _encoder_case(shapes, lq, h, p, case, first=0, seed=7,
+                  dtype=torch.bfloat16):
+    """value [2, S, h, 32] (bf16, or f64 with f64 loc / attn), loc / attn
+    of `lq` queries (tokens first.. first + lq - 1 of the image): at an
+    encoder's own locations ("local"), uniform-random, spilling over the
+    levels ("outside", loc x 1.6 - 0.3) or on pixel centres with the
+    borders ("integer")."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     s_tok, n_l = sum(hh * w for hh, w in shapes), len(shapes)
     value = torch.randn(2, s_tok, h, 32, device="cuda",
-                        generator=gen).to(torch.bfloat16)
+                        generator=gen).to(dtype)
     if case == "local":
         loc = _encoder_loc(torch.arange(first, first + lq, device="cuda"), h,
                            p, shapes, seed)
@@ -477,10 +480,14 @@ def _encoder_case(shapes, lq, h, p, case, first=0, seed=7):
             loc = (ij + 0.5) / wh[:, None, :]
     attn = torch.rand(2, lq, h, n_l, p, device="cuda", generator=gen)
     attn = (attn / attn.sum((-1, -2), keepdim=True)).contiguous()
+    if dtype == torch.float64:
+        loc, attn = loc.double(), attn.double()
     return value, loc.contiguous(), attn
 
 
-@pytest.mark.parametrize("shapes,lq,h,p,case,first", [
+# the encoder's launches the run routes take: (shapes, lq, h, p, case,
+# first)
+RUN_FWD_CASES = [
     (SERVE_SHAPES, 22323, 8, 4, "local", 0),  # the serving encoder
     (SERVE_SHAPES, 22323, 8, 4, "random", 0),
     (TRAIN_SHAPES, 51680, 8, 4, "local", 0),  # the training encoder
@@ -493,8 +500,14 @@ def _encoder_case(shapes, lq, h, p, case, first=0, seed=7):
      0),  # L x P = 20
     (ENC_SHAPES, ENC_S, 8, 4, "outside", 0),  # corners off the levels
     (ENC_SHAPES, ENC_S, 8, 4, "integer", 0),  # on pixel centres, borders
-], ids=["serve_local", "serve_random", "train_local", "train_random",
-        "ragged", "tp_h4", "sp_half", "lp8", "lp20", "outside", "borders"])
+]
+RUN_FWD_IDS = ["serve_local", "serve_random", "train_local", "train_random",
+               "ragged", "tp_h4", "sp_half", "lp8", "lp20", "outside",
+               "borders"]
+
+
+@pytest.mark.parametrize("shapes,lq,h,p,case,first", RUN_FWD_CASES,
+                         ids=RUN_FWD_IDS)
 def test_msda_fwd_bf16_run_route(cuda, shapes, lq, h, p, case, first):
     """The encoder's bf16 launches through msda_fwd_bf16_run_kernel, against
     the plain version's f32 sum on the same values within one bf16
@@ -523,6 +536,38 @@ def test_msda_fwd_bf16_run_route_same_bits(cuda):
     assert torch.equal(a.view(torch.int16), b.view(torch.int16))
 
 
+@pytest.mark.parametrize("shapes,lq,h,p,case,first", RUN_FWD_CASES,
+                         ids=RUN_FWD_IDS)
+def test_msda_fwd_f64_run_route(cuda, shapes, lq, h, p, case, first):
+    """The encoder's f64 launches through msda_fwd_run_kernel f64, against
+    the plain f64 version at F64_TOL (chip_smoke.py phase 15f's)."""
+    value, loc, attn = _encoder_case(shapes, lq, h, p, case, first,
+                                     dtype=torch.float64)
+    got = _fwd_routed(value, shapes, loc, attn, FWD_F64_RUN)
+    assert got.dtype == torch.float64 and got.shape == (2, lq, h * 32)
+    want = msda.ms_deform_attn_plain(value, shapes, loc, attn)
+    torch.testing.assert_close(got, want, **F64_TOL)
+
+
+def test_msda_fwd_f64_run_route_all_outside_gives_exact_zeros(cuda):
+    """No corner of any sample inside its level: every f64 output exactly
+    0 (the corners' clamped rows carry weight 0)."""
+    value, loc, attn = _encoder_case(ENC_SHAPES, ENC_S, 8, 4, "random",
+                                     dtype=torch.float64)
+    got = _fwd_routed(value, ENC_SHAPES, loc + 2.0, attn, FWD_F64_RUN)
+    assert torch.count_nonzero(got) == 0
+
+
+def test_msda_fwd_f64_run_route_same_bits(cuda):
+    """Two f64 launches on the same inputs give the same bits (no atomics,
+    one order of the sums)."""
+    value, loc, attn = _encoder_case(SERVE_SHAPES, 22323, 8, 4, "local",
+                                     dtype=torch.float64)
+    a = _fwd_routed(value, SERVE_SHAPES, loc, attn, FWD_F64_RUN)
+    b = _fwd_routed(value, SERVE_SHAPES, loc, attn, FWD_F64_RUN)
+    assert torch.equal(a.view(torch.int64), b.view(torch.int64))
+
+
 @pytest.mark.parametrize("dtype,d,lq,aligned,route", [
     (torch.bfloat16, 32, LONG_LQ, True, FWD_RUN),  # long, D = 32, aligned
     (torch.bfloat16, 32, 37, True, "msda_fwd_kernel bf16"),  # short
@@ -530,11 +575,15 @@ def test_msda_fwd_bf16_run_route_same_bits(cuda):
     (torch.bfloat16, 64, LONG_LQ, True, "msda_fwd_kernel bf16"),  # D != 32
     (torch.bfloat16, 16, LONG_LQ, True, "msda_fwd_kernel bf16"),
     (torch.float32, 32, LONG_LQ, True, "msda_fwd_kernel f32"),
-    (torch.float64, 32, LONG_LQ, True, "msda_fwd_kernel f64"),
+    (torch.float64, 32, LONG_LQ, True, FWD_F64_RUN),  # long, D = 32
+    (torch.float64, 32, 37, True, "msda_fwd_kernel f64"),  # short
+    (torch.float64, 32, LONG_LQ, False, "msda_fwd_kernel f64"),
+    (torch.float64, 64, LONG_LQ, True, "msda_fwd_kernel f64"),  # D != 32
 ], ids=["bf16_long", "bf16_short", "bf16_misaligned", "bf16_d64",
-        "bf16_d16", "f32_long", "f64_long"])
+        "bf16_d16", "f32_long", "f64_long", "f64_short", "f64_misaligned",
+        "f64_d64"])
 def test_msda_fwd_routes_by_geometry(cuda, dtype, d, lq, aligned, route):
-    """Which launches take the bf16 run route and which keep
+    """Which launches take a run route (bf16, f64) and which keep
     msda_fwd_kernel, each against the plain version."""
     value, loc, attn = _inputs(lq, LONG_H, d, 4, dtype, "outside")
     if dtype == torch.float64:

@@ -1,8 +1,8 @@
 """The host side of the MSDA forward (datr_torch/ops/msda.py:msda_fwd and
 its arguments to the C entry point) on the CPU, and the rule by which
 chip_smoke.py holds the C launcher's choice of kernel (`fwd_route`): bf16
-value at D = 32 on a 16-byte boundary in a long launch takes
-msda_fwd_bf16_run_kernel, every other launch msda_fwd_kernel. The kernels
+or f64 value at D = 32 on a 16-byte boundary in a long launch takes the
+run kernel of its type, every other launch msda_fwd_kernel. The kernels
 themselves run only on the card (tests/test_torch_port_gpu.py, which also
 checks each launch's kernel by the launcher's counts). Here every shape the
 repo runs goes through the wrapper on the meta device, at its full size,
@@ -20,6 +20,7 @@ from datr_torch.ops import msda
 from test_torch_port_msda_bwd_plan import PATHS, SHAPES
 
 RUN = "msda_fwd_bf16_run_kernel"
+F64_RUN = "msda_fwd_run_kernel f64"
 H100_SMS = 132
 
 
@@ -58,21 +59,20 @@ def _cpu_route(monkeypatch, lib):
     monkeypatch.setattr(msda, "_check_msda_inputs", shapes_of)
 
 
-@pytest.mark.parametrize("name", list(PATHS))
-def test_plan_of_every_path(monkeypatch, h100, name):
-    """bf16 at the path's full size: one call of `msda_fwd` (dtype 1) with
-    the sizes and the level shapes, the bf16 output [B, Lq, H * D] the one
-    tensor allocated, one launch counted; the encoder's launches (every
-    token a query, or a sequence-parallel rank's half) take the run
-    kernel, the decoder's msda_fwd_kernel."""
+def _plan_of(monkeypatch, name, dtype):
+    """One call of `msda_fwd` in `dtype` at the path's full size on the meta
+    device: its arguments to the C entry point, the one tensor allocated
+    (the output [B, Lq, H * D] of value's dtype) and the launch counted;
+    returns (value, loc) and the call's dtype code."""
     B, shapes, Lq, H, P = PATHS[name]
     S, L, D = sum(h * w for h, w in shapes), len(shapes), 32
     lib = _Lib()
     _cpu_route(monkeypatch, lib)
     meta = dict(device="meta")
-    value = torch.empty(B, S, H, D, dtype=torch.bfloat16, **meta)
-    loc = torch.empty(B, Lq, H, L, P, 2, **meta)
-    attn = torch.empty(B, Lq, H, L, P, **meta)
+    coords = torch.float64 if dtype == torch.float64 else torch.float32
+    value = torch.empty(B, S, H, D, dtype=dtype, **meta)
+    loc = torch.empty(B, Lq, H, L, P, 2, dtype=coords, **meta)
+    attn = torch.empty(B, Lq, H, L, P, dtype=coords, **meta)
     made = []
     empty = torch.empty
 
@@ -85,15 +85,38 @@ def test_plan_of_every_path(monkeypatch, h100, name):
     before = msda.msda_fwd.launches
     out = msda.msda_fwd(value, shapes, loc, attn)
     assert msda.msda_fwd.launches == before + 1
-    assert out.dtype == torch.bfloat16 and out.shape == (B, Lq, H * D)
-    assert made == [((B, Lq, H * D), torch.bfloat16)]
+    assert out.dtype == dtype and out.shape == (B, Lq, H * D)
+    assert made == [((B, Lq, H * D), dtype)]
     (args,) = lib.calls
     assert args[4:11] == (B, S, Lq, H, D, L, P)
     assert list(args[11][:2 * L]) == [v for hw in shapes for v in hw]
-    assert args[12] == msda.DTYPE_CODE[torch.bfloat16] == 1
+    return value, loc, args[12]
+
+
+@pytest.mark.parametrize("name", list(PATHS))
+def test_plan_of_every_path(monkeypatch, h100, name):
+    """bf16 at the path's full size: one call of `msda_fwd` (dtype 1) with
+    the sizes and the level shapes, the bf16 output [B, Lq, H * D] the one
+    tensor allocated, one launch counted; the encoder's launches (every
+    token a query, or a sequence-parallel rank's half) take the run
+    kernel, the decoder's msda_fwd_kernel."""
+    value, loc, code = _plan_of(monkeypatch, name, torch.bfloat16)
+    assert code == msda.DTYPE_CODE[torch.bfloat16] == 1
     encoder = "encoder" in name or "sp rank" in name
     assert chip_smoke.fwd_route(value, loc) == (
         RUN if encoder else "msda_fwd_kernel bf16")
+
+
+@pytest.mark.parametrize("name", list(PATHS))
+def test_f64_plan_of_every_path(monkeypatch, h100, name):
+    """The same in f64 (the float64 mode; loc and attn f64): dtype 2, the
+    f64 output the one tensor allocated; the encoder's launches take the
+    f64 run kernel, the decoder's msda_fwd_kernel."""
+    value, loc, code = _plan_of(monkeypatch, name, torch.float64)
+    assert code == msda.DTYPE_CODE[torch.float64] == 2
+    encoder = "encoder" in name or "sp rank" in name
+    assert chip_smoke.fwd_route(value, loc) == (
+        F64_RUN if encoder else "msda_fwd_kernel f64")
 
 
 def _value(dtype, d=32, offset=0, s_tok=20_400, h=8):
@@ -112,7 +135,14 @@ def _value(dtype, d=32, offset=0, s_tok=20_400, h=8):
     (torch.bfloat16, 64, 20_400, 0, "msda_fwd_kernel bf16"),  # D != 32
     (torch.bfloat16, 16, 20_400, 0, "msda_fwd_kernel bf16"),
     (torch.float32, 32, 20_400, 0, "msda_fwd_kernel f32"),
-    (torch.float64, 32, 20_400, 0, "msda_fwd_kernel f64"),
+    (torch.float64, 32, 20_400, 0, F64_RUN),
+    (torch.float64, 32, 4_224, 0, F64_RUN),  # the bf16 threshold
+    (torch.float64, 32, 4_223, 0, "msda_fwd_kernel f64"),  # one short
+    (torch.float64, 32, 1_100, 0, "msda_fwd_kernel f64"),  # a decoder
+    (torch.float64, 32, 20_400, 2, F64_RUN),  # 16 bytes off: aligned
+    (torch.float64, 32, 20_400, 1, "msda_fwd_kernel f64"),  # off 8 bytes
+    (torch.float64, 64, 20_400, 0, "msda_fwd_kernel f64"),  # D != 32
+    (torch.float64, 16, 20_400, 0, "msda_fwd_kernel f64"),
 ])
 def test_fwd_route_by_geometry(h100, dtype, d, lq, offset, route):
     """The kernel each geometry takes, by the rule the smoke holds the
@@ -157,7 +187,7 @@ def test_route_counts_read_from_the_library(monkeypatch):
     src = (msda._build.CSRC_DIR / "msda_fwd.cu").read_text()
     enum = src[src.index("enum MsdaFwdRoute"):].split("};")[0]
     assert enum.count("= ") == len(msda.FWD_ROUTES) + 1  # and the count
-    assert chip_smoke.BF16_RUN in msda.FWD_ROUTES
+    assert {chip_smoke.BF16_RUN, chip_smoke.F64_RUN} <= set(msda.FWD_ROUTES)
 
 
 def test_wrapper_passes_small_cpu_inputs_through(monkeypatch):
